@@ -1,0 +1,247 @@
+"""FrostNet, the quantization-friendly mobile CNN family, INT8 serving.
+
+The architecture and the module names are those of
+``frostnet_tpu/models/frostnet.py`` (NHWC activations, HWIO weights), so
+each variable of a JAX checkpoint or INT8 artifact maps to one buffer here.
+The port serves the frozen INT8 graph: ``prepare_int8`` (called by
+``quant.freeze``) freezes every module once, and ``forward`` runs the
+integer pipeline on the device.
+
+``fuse_int8=True`` runs each Frost block as one CUDA kernel
+(``ops/frost_block``), bit-identical to the unfused path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..nn import QAdd, QCat, QConvBNAct, QuantStub, dequant, global_avg_pool
+from ..ops.frost_block import (FrostBlockSpec, build_params, frost_block_int8,
+                               launch_args, plan_launch)
+from ..quant import QConfig, QNNPACK
+from ..quant.qtensor import QParams, QTensor
+
+
+def make_divisible(v, divisor: int = 8, min_value: Optional[int] = None) -> int:
+    """Channel rounding of the TF mobilenet recipe."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+# Stage tables: (kernel, channels, expand_ratio, reduce_factor, stride) per
+# block, grouped into 5 stages (reference frostnet.py:156-269).
+FROSTNET_SETTINGS = {
+    "large": (
+        [(3, 16, 1, 1, 1), (3, 24, 6, 4, 2), (3, 24, 3, 4, 1)],
+        [(5, 40, 6, 4, 2), (3, 40, 3, 4, 1)],
+        [
+            (5, 80, 6, 4, 2), (5, 80, 3, 4, 1), (5, 80, 3, 4, 1),
+            (5, 96, 6, 4, 1), (5, 96, 3, 4, 1), (3, 96, 3, 4, 1), (3, 96, 3, 4, 1),
+        ],
+        [
+            (5, 192, 6, 2, 2), (5, 192, 6, 4, 1), (5, 192, 6, 4, 1),
+            (5, 192, 3, 4, 1), (5, 192, 3, 4, 1),
+        ],
+        [(5, 320, 6, 2, 1)],
+    ),
+    "base": (
+        [(3, 16, 1, 1, 1), (5, 24, 6, 4, 2), (3, 24, 3, 4, 1)],
+        [(5, 40, 3, 4, 2), (5, 40, 3, 4, 1)],
+        [
+            (5, 80, 3, 4, 2), (3, 80, 3, 4, 1),
+            (5, 96, 3, 2, 1), (3, 96, 3, 4, 1), (5, 96, 3, 4, 1), (5, 96, 3, 4, 1),
+        ],
+        [(5, 192, 6, 2, 2), (5, 192, 3, 2, 1), (5, 192, 3, 2, 1), (5, 192, 3, 2, 1)],
+        [(5, 320, 6, 2, 1)],
+    ),
+    "small": (
+        [(3, 16, 1, 1, 1), (5, 24, 3, 4, 2), (3, 24, 3, 4, 1)],
+        [(5, 40, 3, 4, 2)],
+        [
+            (5, 80, 3, 4, 2), (5, 80, 3, 4, 1), (3, 80, 3, 4, 1),
+            (5, 96, 3, 2, 1), (5, 96, 3, 4, 1), (5, 96, 3, 4, 1),
+        ],
+        [(5, 192, 6, 4, 2), (5, 192, 6, 4, 1), (5, 192, 6, 4, 1)],
+        [(5, 320, 6, 2, 1)],
+    ),
+}
+
+
+class CascadePreExBottleneck(nn.Module):
+    """The Frost block (reference frostnet.py:81-145), INT8 serving.
+
+    CAS type: squeeze 1x1 -> concat with the input -> expand 1x1 ->
+    depthwise kxk -> linear reduce 1x1 (+ residual when shape-preserving).
+    Plain MB (inverted residual) when the squeezed width would be < 8.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 strides: int = 1, expand_ratio: int = 6, reduce_factor: int = 4,
+                 block_type: str = "CAS", qconfig: QConfig = QNNPACK,
+                 fuse_int8: bool = False):
+        super().__init__()
+        if in_channels // reduce_factor < 8:
+            block_type = "MB"
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.strides, self.expand_ratio = kernel_size, strides, expand_ratio
+        self.qconfig, self.fuse_int8 = qconfig, fuse_int8
+        self.r_channels = make_divisible(in_channels // reduce_factor)
+        self.has_expand = expand_ratio != 1
+        self.has_squeeze = self.has_expand and block_type == "CAS"
+        self.residual = strides == 1 and in_channels == out_channels
+        n_channels = in_channels + (self.r_channels if self.has_squeeze else 0)
+        self.e = n_channels * expand_ratio if self.has_expand else in_channels
+        kw = dict(qconfig=qconfig)
+        if self.has_squeeze:
+            self.squeeze_conv = QConvBNAct(in_channels, self.r_channels, 1, act="relu", **kw)
+            self.quant_cat = QCat(qconfig)
+        if self.has_expand:
+            self.conv1 = QConvBNAct(n_channels, self.e, 1, act="relu", **kw)
+        self.conv2 = QConvBNAct(self.e, self.e, kernel_size, strides=strides,
+                                padding=(kernel_size - 1) // 2, groups=self.e,
+                                act="relu", **kw)
+        self.reduce_conv = QConvBNAct(self.e, out_channels, 1, act=None, **kw)
+        if self.residual:
+            self.skip_add = QAdd(qconfig)
+
+    def spec(self, h: int, w: int) -> FrostBlockSpec:
+        return FrostBlockSpec(
+            h=h, w=w, cin=self.in_channels, cout=self.out_channels,
+            kernel=self.kernel_size, stride=self.strides,
+            has_squeeze=self.has_squeeze, has_expand=self.has_expand,
+            c_sq=self.r_channels if self.has_squeeze else 0, c_e=self.e,
+            residual=self.residual, act_qmax=self.qconfig.activation.qmax)
+
+    def prepare_int8(self, x: QParams, device, hw=None) -> QParams:
+        """Freeze the block for inputs on grid ``x`` (of spatial size ``hw``
+        when fused); returns the output grid."""
+        if self.fuse_int8:
+            return self._prepare_fused(x, device, hw)
+        g = x
+        if self.has_squeeze:
+            sq = self.squeeze_conv.prepare_int8(x, device)
+            g = self.quant_cat.prepare_int8([sq, x], device)
+        if self.has_expand:
+            g = self.conv1.prepare_int8(g, device)
+        g = self.conv2.prepare_int8(g, device)
+        g = self.reduce_conv.prepare_int8(g, device)
+        if self.residual:
+            g = self.skip_add.prepare_int8([x, g], device)
+        return g
+
+    def _prepare_fused(self, x: QParams, device, hw) -> QParams:
+        """Gather the children's frozen operands into one kernel's params
+        (the JAX block's ``_fused_int8``)."""
+
+        def operands(conv, in_scale):
+            qw, ws, bf, os_, oz = conv.int8_params()
+            return (qw, torch.tensor(in_scale, dtype=torch.float32) * ws, bf, os_, oz), (os_, oz)
+
+        spec = self.spec(*hw)
+        sq = cat = ex = add = None
+        in_scale = x.scale
+        if self.has_squeeze:
+            sq, _ = operands(self.squeeze_conv, x.scale)
+            cat = self.quant_cat.qparams()
+            in_scale = cat.scale
+        if self.has_expand:
+            ex, (in_scale, _) = operands(self.conv1, in_scale)
+        dw, (in_scale, _) = operands(self.conv2, in_scale)
+        rd, out = operands(self.reduce_conv, in_scale)
+        out = QParams(*out)
+        if self.residual:
+            add = self.skip_add.qparams()
+            out = add
+        self._spec = spec
+        self._params = build_params(spec, x_scale=x.scale, x_zp=x.zero_point, sq=sq,
+                                    cat=cat, ex=ex, dw=dw, rd=rd, add=add, device=device)
+        self._plan = plan_launch(spec)
+        self._args = launch_args(spec, self._params, self._plan) if device.type == "cuda" else None
+        self._out_t = out.tensors(device)
+        return out
+
+    def forward(self, x: QTensor) -> QTensor:
+        if self.fuse_int8:
+            q = frost_block_int8(x.q, self._params, self._spec, self._plan, self._args)
+            return QTensor(q, *self._out_t)
+        out = x
+        if self.has_squeeze:
+            out = self.quant_cat([self.squeeze_conv(x), x])
+        if self.has_expand:
+            out = self.conv1(out)
+        out = self.reduce_conv(self.conv2(out))
+        if self.residual:
+            out = self.skip_add(x, out)
+        return out
+
+
+class FrostNet(nn.Module):
+    """FrostNet classifier (reference frostnet.py:150-351), INT8 serving.
+
+    Module names follow the JAX model: ``quant``, ``conv1``, ``layer{s}_{i}``,
+    ``last_layer``, ``classifier``. Input: float NHWC images.
+    """
+
+    def __init__(self, num_classes: int = 1000, mode: str = "large",
+                 width_mult: float = 1.0, quantized: bool = True,
+                 qconfig: QConfig = QNNPACK, fuse_int8: bool = False):
+        super().__init__()
+        if not quantized:
+            raise ValueError("the port serves quantized FrostNets only (INT8); "
+                             "float models arrive with the training slice")
+        self.num_classes, self.fuse_int8 = num_classes, fuse_int8
+        kw = dict(qconfig=qconfig)
+        stem_c = make_divisible(int(32 * min(1.0, width_mult)))
+        self.quant = QuantStub(qconfig)
+        self.conv1 = QConvBNAct(3, stem_c, 3, strides=2, padding=1, act="relu", **kw)
+        self.blocks = []
+        c = stem_c
+        for si, stage in enumerate(FROSTNET_SETTINGS[mode]):
+            for i, (k, ch, e, r, s) in enumerate(stage):
+                out_c = make_divisible(int(ch * width_mult))
+                blk = CascadePreExBottleneck(c, out_c, kernel_size=k, strides=s,
+                                             expand_ratio=e, reduce_factor=r,
+                                             fuse_int8=fuse_int8, **kw)
+                self.add_module(f"layer{si + 1}_{i}", blk)
+                self.blocks.append(blk)
+                c = out_c
+        self.last_layer = QConvBNAct(c, 1280, 1, act="relu", **kw)
+        self.classifier = QConvBNAct(1280, num_classes, 1, use_bn=False, use_bias=True,
+                                     act=None, **kw)
+
+    def block_specs(self, image_size: int):
+        """``[(name, FrostBlockSpec)]`` of the 18 (or fewer) blocks at ``image_size``."""
+        hw = ((image_size + 2 - 3) // 2 + 1,) * 2  # the stride-2 3x3 stem
+        specs = []
+        for name, blk in self.named_children():
+            if isinstance(blk, CascadePreExBottleneck):
+                specs.append((name, blk.spec(*hw)))
+                hw = specs[-1][1].out_hw
+        return specs
+
+    def prepare_int8(self, device, image_size: int) -> None:
+        """Freeze every module for ``image_size`` inputs on ``device``."""
+        g = self.quant.prepare_int8(device)
+        g = self.conv1.prepare_int8(g, device)
+        for blk, (_, spec) in zip(self.blocks, self.block_specs(image_size)):
+            g = blk.prepare_int8(g, device, (spec.h, spec.w))
+        g = self.last_layer.prepare_int8(g, device)
+        self.classifier.prepare_int8(g, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) float images -> (B, num_classes) float logits."""
+        if not hasattr(self.quant, "_out"):
+            raise RuntimeError("FrostNet runs frozen only: call quant.freeze(model) first")
+        x = self.conv1(self.quant(x))
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.last_layer(x)
+        x = global_avg_pool(x, keepdims=True)
+        x = dequant(self.classifier(x))
+        return x.reshape(x.shape[0], x.shape[-1])

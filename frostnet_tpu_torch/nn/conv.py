@@ -1,0 +1,145 @@
+"""QConvBNAct: conv + BN + activation, the INT8 serving branch.
+
+The variables are those of ``frostnet_tpu/nn/conv.py::QConvBNAct``, held as
+buffers under the same names: ``kernel`` (HWIO float), ``bias``, ``scale``
+and ``bias_bn`` (BN gamma/beta), ``mean`` and ``var`` (BN running stats),
+and the observers ``w_obs`` and ``act_obs``.
+
+``prepare_int8`` freezes the conv once: BN fold, weight quantization on the
+weight observer's grid (``fold_bn`` -> ``calculate_qparams`` ->
+``quantize``, the JAX chain op for op), column sums, the epilogue constants
+and the packed operands, all on the target device. ``forward`` then takes
+one of three routes:
+
+* 1x1: one INT8 matmul (``ops/int8_matmul``);
+* depthwise kxk: k*k shifted integer multiply-adds in torch;
+* dense kxk (the stem): zero-point-padded im2col patches and one INT8
+  matmul, whatever K the patches have.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
+from ..ops.requant import depthwise_acc, epilogue_constants, requant_epilogue
+from ..quant import QConfig, QNNPACK, calculate_qparams, fold_bn, quantize
+from ..quant.qtensor import QParams, QTensor
+from .quant_ops import Observer, observed_qparams
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+class QConvBNAct(nn.Module):
+    """Conv2d + optional BatchNorm + optional ReLU, quantized (INT8 serving)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Union[int, Sequence[int]] = 3, strides: int = 1,
+                 padding: int = 0, groups: int = 1, use_bn: bool = True,
+                 use_bias: bool = False, act: Optional[str] = "relu",
+                 qconfig: QConfig = QNNPACK, bn_eps: float = 1e-5):
+        super().__init__()
+        if act not in (None, "relu"):
+            raise ValueError(f"the INT8 port supports act None or 'relu', got {act!r}")
+        kh, kw = _pair(kernel_size)
+        self.in_features, self.features = in_features, features
+        self.kernel_size, self.strides, self.padding = (kh, kw), strides, padding
+        self.groups, self.use_bn, self.use_bias, self.act = groups, use_bn, use_bias, act
+        self.qconfig, self.bn_eps = qconfig, bn_eps
+        self.register_buffer("kernel", torch.zeros(kh, kw, in_features // groups, features))
+        if use_bias:
+            self.register_buffer("bias", torch.zeros(features))
+        if use_bn:
+            self.register_buffer("scale", torch.ones(features))
+            self.register_buffer("bias_bn", torch.zeros(features))
+            self.register_buffer("mean", torch.zeros(features))
+            self.register_buffer("var", torch.ones(features))
+        self.w_obs = Observer(features if qconfig.weight.per_channel else None)
+        self.act_obs = Observer(None)
+
+    @property
+    def depthwise(self) -> bool:
+        return self.groups > 1 and self.groups == self.in_features
+
+    def int8_params(self):
+        """(qw, w_scale, bias, out_scale, out_zp) on the CPU: the frozen INT8
+        operands (the JAX module's ``int8_params_only`` branch)."""
+        wspec = self.qconfig.weight
+        w = self.kernel.detach().cpu()
+        bias = self.bias.detach().cpu() if self.use_bias else None
+        if self.use_bn:
+            wf, bf = fold_bn(w, bias, self.scale.detach().cpu(), self.bias_bn.detach().cpu(),
+                             self.mean.detach().cpu(), self.var.detach().cpu(), self.bn_eps)
+        else:
+            wf = w
+            bf = bias if bias is not None else torch.zeros(self.features)
+        w_scale, w_zp = calculate_qparams(self.w_obs.state(), wspec)
+        qw = quantize(wf, w_scale, w_zp, wspec, channel_axis=-1 if wspec.per_channel else None)
+        out = observed_qparams(self.act_obs, self.qconfig.activation)
+        return qw, w_scale, bf, out.scale, out.zero_point
+
+    def prepare_int8(self, x: QParams, device) -> QParams:
+        """Freeze the conv for inputs on grid ``x``; returns the output grid."""
+        aspec = self.qconfig.activation
+        qw, w_scale, bf, out_s, out_zp = self.int8_params()
+        comb = torch.tensor(x.scale, dtype=torch.float32) * w_scale
+        relu = self.act == "relu"
+        kh, kw = self.kernel_size
+        self._in, self._out = x, QParams(out_s, out_zp)
+        self._out_t = self._out.tensors(device)
+        if kh == 1 and kw == 1 and self.groups == 1:
+            if self.padding:
+                raise ValueError("padded 1x1 convs are not part of the INT8 port")
+            self._route = "matmul"
+            self._op = conv1x1_operands(qw[0, 0], comb, bf, x.zero_point, out_s, out_zp,
+                                        relu, aspec.qmin, aspec.qmax, device)
+        elif self.depthwise and self.features == self.groups:
+            if kh != kw or self.padding != (kh - 1) // 2:
+                raise ValueError("the INT8 depthwise route takes square kernels with "
+                                 "'same' padding")
+            self._route = "depthwise"
+            self._taps = qw.reshape(kh * kw, self.features).to(device)
+            scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
+            self._dw = (scale.to(device), bias.to(device), mult)
+        elif self.groups == 1:
+            self._route = "im2col"
+            self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
+                                        comb, bf, x.zero_point, out_s, out_zp, relu,
+                                        aspec.qmin, aspec.qmax, device)
+        else:
+            raise ValueError(f"grouped conv (groups={self.groups}) is not part of the INT8 port")
+        return self._out
+
+    def _patches(self, q: torch.Tensor) -> torch.Tensor:
+        """Zero-point-padded im2col patches, columns in (dy, dx, cin) order."""
+        kh, kw = self.kernel_size
+        s, p = self.strides, self.padding
+        if p:
+            q = torch.nn.functional.pad(q, (0, 0, p, p, p, p), value=self._in.zero_point)
+        hp, wp = q.shape[1], q.shape[2]
+        ho, wo = (hp - kh) // s + 1, (wp - kw) // s + 1
+        cols = [q[:, dy:dy + (ho - 1) * s + 1:s, dx:dx + (wo - 1) * s + 1:s, :]
+                for dy in range(kh) for dx in range(kw)]
+        return torch.cat(cols, dim=-1)
+
+    def forward(self, x: QTensor) -> QTensor:
+        aspec = self.qconfig.activation
+        if self._route == "depthwise":
+            acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
+                                self._in.zero_point)
+            scale, bias, mult = self._dw
+            q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
+                                 self.act == "relu", aspec.qmin, aspec.qmax)
+            return QTensor(q, *self._out_t)
+        a = self.matmul_input(x.q)
+        q = int8_matmul_requant(a.reshape(-1, a.shape[-1]), self._op).reshape(a.shape[:3] + (self.features,))
+        return QTensor(q, *self._out_t)
+
+    def matmul_input(self, q: torch.Tensor) -> torch.Tensor:
+        """The (B, Ho, Wo, K) matmul operand of the 1x1 and im2col routes."""
+        if self._route == "matmul":
+            return q[:, ::self.strides, ::self.strides, :] if self.strides != 1 else q
+        return self._patches(q)

@@ -1,0 +1,19 @@
+"""The port's kernels: CUDA sources in ``csrc/``, wrappers and plain versions here.
+
+* ``int8_matmul``: INT8 matmul with the fused requant epilogue.
+* ``frost_block``: one whole INT8 Frost block.
+* ``requant``: the frozen graph's requant arithmetic as plain torch ops.
+"""
+from .frost_block import frost_block_int8
+from .int8_matmul import int8_matmul_requant
+
+KERNELS = {"int8_matmul_requant": int8_matmul_requant, "frost_block_int8": frost_block_int8}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,170 @@
+"""The INT8 artifact of the JAX package, read into the port.
+
+``frostnet_tpu.quant.export_int8`` writes one flat npz: every observed conv
+kernel as int8 with BN pre-folded (BN neutralized to gamma 1, mean 0,
+var 1-eps), observers as ``quant/<path>/<name>.min_val|max_val``, and a
+``__meta__`` JSON with the qconfig. :func:`load_int8` reads it into the
+JAX variables tree (numpy leaves, int8 kernels dequantized on their
+observer's grid), and :func:`from_jax_variables` fills a port model from any
+such tree. ``freeze`` then repeats the JAX chain op for op: dequantize here,
+``fold_bn``, ``calculate_qparams`` and ``quantize`` at freeze time.
+"""
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .fake_quant import dequantize
+from .observer import ObserverState, calculate_qparams
+from .qtypes import FBGEMM, QNNPACK, QConfig
+
+_QCONFIGS = {"qnnpack": QNNPACK, "fbgemm": FBGEMM}
+_OBS_LEAVES = ("min_val", "max_val")
+_BN_STATS = ("mean", "var")
+
+
+def _channel_axis(w: np.ndarray, obs: ObserverState) -> Optional[int]:
+    """Axis of ``w`` carrying the per-channel qparams, or None (per-tensor)."""
+    if np.ndim(obs.min_val) == 0:
+        return None
+    n = obs.min_val.shape[0]
+    for ax in range(w.ndim - 1, -1, -1):  # prefer trailing axes (HWIO)
+        if w.shape[ax] == n:
+            return ax
+    raise ValueError(f"no axis of {w.shape} matches per-channel size {n}")
+
+
+def artifact_qconfig(path: str) -> QConfig:
+    """The qconfig an artifact was exported with (its ``__meta__``)."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode()) if "__meta__" in data else {}
+    return _QCONFIGS.get(meta.get("qconfig", "qnnpack"), QNNPACK)
+
+
+def load_int8(path: str, qconfig: Optional[QConfig] = None) -> Dict[str, Any]:
+    """Load an ``export_int8`` artifact into a ``{params, batch_stats, quant}``
+    tree of numpy arrays (observers as :class:`ObserverState`)."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    qconfig = qconfig or artifact_qconfig(path)
+    wspec = qconfig.weight
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            if key == "__meta__":
+                continue
+            col, rest = key.split("/", 1)
+            node = tree.setdefault(col, {})
+            parts = rest.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+
+    def fix_quant(node: Dict) -> Dict:
+        out = {}
+        names = {k.split(".")[0] for k, v in node.items()
+                 if isinstance(v, np.ndarray) and "." in k}
+        for n in sorted(names):
+            out[n] = ObserverState(node[f"{n}.min_val"], node[f"{n}.max_val"])
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = fix_quant(v)
+            elif "." not in k:
+                out[k] = v
+        return out
+
+    quant = fix_quant(tree.get("quant", {}))
+
+    def fix_params(p: Dict, q: Dict) -> Dict:
+        out = {}
+        for k, v in p.items():
+            if isinstance(v, dict):
+                out[k] = fix_params(v, q.get(k, {}))
+            elif k == "kernel" and v.dtype == np.int8:
+                obs = q["w_obs"]
+                ch = _channel_axis(v, obs)
+                st = ObserverState(torch.as_tensor(obs.min_val), torch.as_tensor(obs.max_val))
+                scale, zp = calculate_qparams(st, wspec)
+                out[k] = dequantize(torch.as_tensor(v).to(torch.int32), scale, zp, ch).numpy()
+            else:
+                out[k] = v
+        return out
+
+    return {"params": fix_params(tree.get("params", {}), quant),
+            "batch_stats": tree.get("batch_stats", {}), "quant": quant}
+
+
+def flatten_variables(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX variables tree -> ``{"params/a/b/kernel": array, ...}``.
+
+    Observers become ``quant/<path>/<name>.min_val`` and ``.max_val`` leaves,
+    the key format of the INT8 artifact. Accepts ObserverState tuples or
+    ``{min_val, max_val}`` dicts.
+    """
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, ObserverState) or (
+                hasattr(node, "_fields") and tuple(node._fields) == _OBS_LEAVES):
+            flat[f"{prefix[:-1]}.min_val"] = np.asarray(node[0])
+            flat[f"{prefix[:-1]}.max_val"] = np.asarray(node[1])
+        elif isinstance(node, dict) and set(node) == set(_OBS_LEAVES) and prefix.startswith("quant/"):
+            flat[f"{prefix[:-1]}.min_val"] = np.asarray(node["min_val"])
+            flat[f"{prefix[:-1]}.max_val"] = np.asarray(node["max_val"])
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        else:
+            flat[prefix[:-1]] = np.asarray(node)
+
+    for col in ("params", "batch_stats", "quant"):
+        walk(tree.get(col, {}), f"{col}/")
+    return flat
+
+
+def variable_key(buffer_name: str) -> str:
+    """A port buffer name -> its key in the flat JAX layout.
+
+    ``layer3_1.conv2.kernel`` -> ``params/layer3_1/conv2/kernel``;
+    ``...mean`` -> ``batch_stats/...``; an observer's
+    ``layer3_1.conv2.w_obs.min_val`` -> ``quant/layer3_1/conv2/w_obs.min_val``.
+    """
+    parts = buffer_name.split(".")
+    if parts[-1] in _OBS_LEAVES:
+        return "quant/" + "/".join(parts[:-1]) + "." + parts[-1]
+    col = "batch_stats" if parts[-1] in _BN_STATS else "params"
+    return col + "/" + "/".join(parts)
+
+
+def model_variables(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's buffers under their flat JAX keys."""
+    return {variable_key(name): buf for name, buf in model.named_buffers()}
+
+
+def from_jax_variables(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Fill ``model``'s buffers from a JAX ``{params, batch_stats, quant}`` tree.
+
+    Every buffer must be present with its shape, and every leaf of the tree
+    must land in a buffer. Returns the model.
+    """
+    flat = flatten_variables(tree)
+    mine = model_variables(model)
+    missing = sorted(set(mine) - set(flat))
+    extra = sorted(set(flat) - set(mine))
+    if missing or extra:
+        raise ValueError(f"variables do not match the model: missing {missing[:5]}"
+                         f"{'...' if len(missing) > 5 else ''}, unexpected {extra[:5]}"
+                         f"{'...' if len(extra) > 5 else ''}")
+    with torch.no_grad():
+        for key, buf in mine.items():
+            src = torch.from_numpy(np.array(flat[key], np.float32))
+            if tuple(src.shape) != tuple(buf.shape):
+                raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(buf.shape)}")
+            buf.copy_(src)
+    return model

@@ -1,0 +1,144 @@
+"""Batched INT8 serving of FrostNet classifiers on the GPU.
+
+Loads an INT8 artifact written by the JAX package's ``export_int8``,
+freezes the model once on the device, and serves batched predictions with
+latency reporting. The report has the keys of ``frostnet_tpu.serve``:
+
+  * ``latency_ms`` and ``request_images_per_sec``: per request, with the
+    logits copied back to the host every batch (what a serving process
+    observes);
+  * ``pipeline_images_per_sec``: batches enqueued back to back, one
+    synchronisation at the end (a saturated server).
+
+Run: python -m frostnet_tpu_torch.serve --model frostnet_quant_large_1_0 \\
+       --artifact model_int8.npz --source synthetic --iters 20 [--fuse_int8]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from .models import create_model
+from .quant import freeze, from_jax_variables, load_int8
+from .quant.export import artifact_qconfig
+from .quant.freeze import resolve_device
+
+_CLS_DEFAULT = "frostnet_quant_large_1_0"
+
+
+class Int8Predictor:
+    """Frozen-INT8 classifier over an ``export_int8`` artifact."""
+
+    def __init__(self, model_name: str = _CLS_DEFAULT, num_classes: int = 1000,
+                 artifact: Optional[str] = None, image_size: int = 224,
+                 fuse_int8: bool = False, device="cuda"):
+        if artifact is None:
+            raise ValueError("pass artifact= (an export_int8 .npz)")
+        self.device = resolve_device(device)
+        self.image_size = image_size
+        self.model = create_model(model_name, num_classes=num_classes,
+                                  qconfig=artifact_qconfig(artifact), fuse_int8=fuse_int8)
+        from_jax_variables(self.model, load_int8(artifact))
+        self._apply = freeze(self.model, self.device, image_size=image_size)
+
+    def __call__(self, images) -> torch.Tensor:
+        """(B, S, S, 3) float images -> (B, C) logits (a tensor on the device)."""
+        return self._apply(images)
+
+    def predict_topk(self, images, k: int = 5):
+        logits = self(images).cpu().numpy()
+        idx = np.argsort(-logits, axis=-1)[:, :k]
+        return idx, np.take_along_axis(logits, idx, axis=-1)
+
+
+def _batches(args) -> Iterator[np.ndarray]:
+    rng = np.random.RandomState(0)
+    shape = (args.batch_size, args.image_size, args.image_size, 3)
+    while True:
+        yield rng.randn(*shape).astype(np.float32)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(args):
+    pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
+                         image_size=args.image_size, fuse_int8=args.fuse_int8,
+                         device=args.device)
+    gen = _batches(args)
+    pred(next(gen)).cpu()  # warm-up: builds the kernels on first use
+
+    lat = []
+    for _ in range(args.iters):
+        x = next(gen)
+        t0 = time.perf_counter()
+        pred(x).cpu()
+        lat.append(time.perf_counter() - t0)
+    lat_ms = np.sort(np.asarray(lat)) * 1000
+
+    _sync(pred.device)
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        pred(next(gen))
+    _sync(pred.device)
+    pipeline_ips = args.batch_size * args.iters / (time.perf_counter() - t0)
+
+    report = {
+        "workload": "cls",
+        "model": args.model,
+        "device": str(pred.device),
+        "fuse_int8": bool(args.fuse_int8),
+        "batch_size": args.batch_size,
+        "iters": args.iters,
+        "latency_ms": {"p50": round(float(np.percentile(lat_ms, 50)), 2),
+                       "p95": round(float(np.percentile(lat_ms, 95)), 2),
+                       "max": round(float(lat_ms[-1]), 2)},
+        "request_images_per_sec": round(args.batch_size / float(np.mean(lat_ms)) * 1000, 1),
+        "pipeline_images_per_sec": round(pipeline_ips, 1),
+    }
+    print(json.dumps(report, indent=2))
+
+    if args.output:
+        with open(args.output, "w") as f:
+            for _ in range(args.predict_batches):
+                idx, scores = pred.predict_topk(next(gen), k=args.topk)
+                for b in range(len(idx)):
+                    f.write(json.dumps({"topk": idx[b].tolist(),
+                                        "scores": [round(float(s), 4) for s in scores[b]]}) + "\n")
+        print(f"[serve] predictions -> {args.output}")
+    return report
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", default=_CLS_DEFAULT, help="FrostNet registry name")
+    p.add_argument("--artifact", required=True, help="export_int8 .npz")
+    p.add_argument("--num_classes", type=int, default=1000)
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--source", choices=("synthetic",), default="synthetic",
+                   help="request images; only synthetic is ported so far")
+    p.add_argument("--fuse_int8", action="store_true",
+                   help="run each Frost block as one fused CUDA kernel")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--output", default=None, help="write top-k jsonl here")
+    p.add_argument("--predict_batches", type=int, default=4)
+    p.add_argument("--topk", type=int, default=5)
+    return p
+
+
+def cli():
+    main(build_parser().parse_args())
+
+
+if __name__ == "__main__":
+    cli()

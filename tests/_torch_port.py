@@ -1,0 +1,42 @@
+"""Shared helpers of the PyTorch-port tests (tests/test_torch_*.py).
+
+The JAX side runs the way the reference serves: ``jax.jit`` closed over its
+variables and constants (what ``frostnet_tpu.quant.freeze`` does), so XLA
+folds and rewrites the requant arithmetic exactly as in the frozen graph.
+Inputs come from numpy seeds and pass between the packages as numpy arrays.
+"""
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def cuda_device():
+    """The CUDA device, or a skip: the port's kernels run on the GPU only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def calibrated_jax_variables(name, backend, size, num_classes=10, batch=2, seed=0):
+    """(model, variables, images): random init + two QAT calibration forwards."""
+    import jax
+    import jax.numpy as jnp
+
+    from frostnet_tpu import nn as fnn_q
+    from frostnet_tpu.models import create_model
+    from frostnet_tpu.quant import get_qconfig
+
+    model = create_model(name, num_classes=num_classes, qconfig=get_qconfig(backend))
+    rng = np.random.RandomState(seed)
+    images = rng.randn(batch, size, size, 3).astype(np.float32)
+    key = jax.random.PRNGKey(seed)
+    variables = jax.jit(model.init)(key, jnp.asarray(images))
+    calibrate = jax.jit(lambda v, xb: model.apply(
+        v, xb, mode=fnn_q.QAT, train=True, mutable=["batch_stats", "quant"],
+        rngs={"dropout": key}))
+    for _ in range(2):
+        xb = jnp.asarray(rng.randn(batch, size, size, 3).astype(np.float32))
+        _, updates = calibrate(variables, xb)
+        variables = {**variables, **updates}
+    return model, variables, images

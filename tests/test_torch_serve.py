@@ -1,0 +1,55 @@
+"""PyTorch port, serving: ``frostnet_tpu_torch.serve`` on the CPU."""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_port import calibrated_jax_variables
+from frostnet_tpu.quant import export_int8, freeze as jax_freeze
+from frostnet_tpu_torch import serve
+
+NAME, SIZE = "frostnet_quant_small_0_35", 32
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    model, variables, _ = calibrated_jax_variables(NAME, "qnnpack", SIZE)
+    path = str(tmp_path_factory.mktemp("serve") / "tiny_int8.npz")
+    export_int8(variables, path)
+    return model, variables, path
+
+
+def test_serve_main_reports_and_writes_topk(artifact, tmp_path):
+    _, _, path = artifact
+    out = str(tmp_path / "top.jsonl")
+    args = serve.build_parser().parse_args(
+        ["--model", NAME, "--artifact", path, "--num_classes", "10", "--image_size", str(SIZE),
+         "--batch_size", "2", "--iters", "2", "--device", "cpu", "--fuse_int8",
+         "--output", out, "--predict_batches", "2", "--topk", "3"])
+    report = serve.main(args)
+    for key in ("latency_ms", "request_images_per_sec", "pipeline_images_per_sec"):
+        assert key in report
+    assert set(report["latency_ms"]) == {"p50", "p95", "max"}
+    assert report["device"] == "cpu" and report["fuse_int8"] is True
+    lines = [json.loads(l) for l in open(out)]
+    assert len(lines) == 4 and all(len(r["topk"]) == 3 for r in lines)
+
+
+def test_predictor_matches_jax_freeze(artifact):
+    model, variables, path = artifact
+    images = np.random.RandomState(5).randn(3, SIZE, SIZE, 3).astype(np.float32)
+    want = np.asarray(jax_freeze(model, variables)(jnp.asarray(images)))
+    for fuse in (False, True):
+        pred = serve.Int8Predictor(NAME, num_classes=10, artifact=path, image_size=SIZE,
+                                   fuse_int8=fuse, device="cpu")
+        np.testing.assert_array_equal(pred(images).numpy(), want)
+        idx, scores = pred.predict_topk(images, k=2)
+        assert idx.shape == (3, 2) and (scores[:, 0] >= scores[:, 1]).all()
+
+
+def test_serve_requires_an_artifact():
+    with pytest.raises(SystemExit):
+        serve.build_parser().parse_args(["--device", "cpu"])
+    with pytest.raises(ValueError):
+        serve.Int8Predictor(NAME, device="cpu")
