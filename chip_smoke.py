@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port: build, check and time its kernels, serve.
+"""GPU smoke run of the PyTorch port: build, check and time its kernels, serve, train.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (each raises on failure, and any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from ``frostnet_tpu_torch/csrc``
-     (one nvcc per source, started together);
+  2. build every CUDA kernel of the serving and training paths from
+     ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together);
   3. hold each kernel against its plain torch version on the card, bit-exact:
      the 18 Frost-block shapes of frostnet_quant_large_1_0 at 224x224, batch 8,
      for qnnpack and fbgemm, and every INT8 matmul of the fused and unfused
@@ -22,7 +22,27 @@ Phases (each raises on failure, and any failure exits non-zero):
   6. timings with CUDA events: each kernel at its main-path shapes beside its
      bound, its plain version and ``torch._int_mm`` (GEMM only, where its
      shape rules allow), and images/s at batch 8 and 128, fused and unfused
-     (whose logits must agree at both batches).
+     (whose logits must agree at both batches);
+  7. the fake-quant kernel against its plain version, bit for bit, at every
+     per-tensor site of a full-width QAT forward (224x224, batch 8,
+     qnnpack; the inputs of a forward with fresh observers and of one with
+     calibrated ones), each in float32 and bfloat16: y, the STE mask, the
+     new observer state and the qparams; then the QAT_FROZEN pass on the
+     new state, and the STE gradient of the largest site;
+  8. the training main path against the committed JAX reference
+     (``testdata/*_train_reference.npz``): from ``numpy_init(seed 0)`` in
+     float32 with TF32 off, one FP32 step, ``start_qat``, two QAT steps and a
+     QAT_FROZEN eval step (QSGD lr 0.04, ``grouped_weight_decay(4e-5)``, the
+     GradBoost noise off); losses, top-1, every observer and every BN's
+     running statistics within the bands below; the fake-quant launches
+     per FP32 step (0), per QAT step and per eval forward;
+  9. the trained model frozen and served fused: 18 + 3 launches, finite
+     logits equal to the unfused ones;
+ 10. the training step as ``bench.py`` runs it (bf16, QSGD lr 0.04,
+     ``grouped_weight_decay(4e-5)``) at batch 128 and 256 (where it fits):
+     ms/step and images/s of the QAT and FP32 steps, peak memory, and the
+     fake-quant kernel at that step's sites beside its bound, its plain
+     version and ``torch.fused_moving_avg_obs_fake_quant``.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -38,32 +58,61 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from frostnet_tpu_torch import ops
 from frostnet_tpu_torch.models import CascadePreExBottleneck, create_model
-from frostnet_tpu_torch.nn import QConvBNAct
+from frostnet_tpu_torch.nn import FP32, INT8, QAT, QAT_FROZEN, Observer, QConvBNAct, quant_ops
 from frostnet_tpu_torch.ops import cuda_build
+from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
+                                               fake_quant_observe_plain)
 from frostnet_tpu_torch.ops.frost_block import (frost_block_int8, frost_block_int8_plain,
                                                 random_block_case)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
-from frostnet_tpu_torch.quant import get_qconfig
+from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
+from frostnet_tpu_torch.quant import (ObserverState, freeze, from_jax_variables, get_qconfig,
+                                      model_variables, numpy_init)
 from frostnet_tpu_torch.serve import Int8Predictor
 from frostnet_tpu_torch import serve
+from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
+                                      prep_image)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "frostnet_tpu_torch", "testdata")
 MODEL = "frostnet_quant_large_1_0"
 ARTIFACT = os.path.join(TESTDATA, f"{MODEL}_int8.npz")
 REFERENCE = os.path.join(TESTDATA, f"{MODEL}_reference.npz")
-IMAGE, BATCH = 224, 8
-# H100 SXM, dense: HBM rate and int8 tensor-core rate (NVIDIA data sheet)
+TRAIN_REFERENCE = os.path.join(TESTDATA, f"{MODEL}_train_reference.npz")
+IMAGE, BATCH, CLASSES = 224, 8, 1000
+# H100 SXM, dense: HBM rate, int8 tensor-core rate, float32 outside the
+# tensor cores (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+PEAK_F32_OPS_PER_S = 67e12
 BLOCK_SOURCE = "frostnet_tpu_torch/csrc/frost_block.cu"
 MATMUL_SOURCE = "frostnet_tpu_torch/csrc/int8_matmul.cu"
+FQ_SOURCE = "frostnet_tpu_torch/csrc/fake_quant.cu"
 BLOCK_REPLACES = "frostnet_tpu/ops/pallas_frost_block.py:354"
 MATMUL_REPLACES = "frostnet_tpu/ops/pallas_int8_matmul.py:42"
+FQ_REPLACES = "frostnet_tpu/ops/pallas_fake_quant.py:80"
+N_SITES = 166  # per-tensor sites of one qnnpack QAT forward of the model
+# Bands of the training check against the JAX reference (float32, TF32 off).
+# The FP32 step starts from the same weights: only the order of the float
+# sums differs (cuDNN against XLA on the CPU), relative ~1e-6.
+FP32_LOSS_REL = 1e-4
+# QAT: fed the same input, every layer agrees to ~1e-6 except where a value
+# sits on a rounding boundary and its code moves by one quantum; when that
+# value is a tensor's observed extreme, the whole tensor's grid moves and
+# the next layers carry it. The port on the CPU against the same reference:
+# QAT losses 0.9% and 0.6% apart, the eval loss 0.03%, observers 0.75% of
+# their range in the median and 16% at worst, BN means 0.27% of a std and
+# variances 2.7% in the median (tests/test_torch_train_step.py states the
+# same at 32x32).
+QAT_LOSS_REL = 0.05
+OBS_MEDIAN, OBS_WORST = 0.03, 0.5      # of the observed range
+BN_MEAN_MEDIAN, BN_VAR_MEDIAN = 0.05, 0.1  # |d mean| / std, |d var| / var
 
 
 def log(*args):
@@ -90,9 +139,32 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, nops / PEAK_INT8_OPS_PER_S
+def device_ms(fn, reps: int = 3) -> float:
+    """Device time of ``fn`` (ms per call): the summed durations of the
+    kernels it launches, from torch.profiler, without the host's gaps."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+
+
+def bound(nbytes: float, nops: float, peak_ops: float = PEAK_INT8_OPS_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, nops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fq_cost(x: torch.Tensor):
+    """(bytes, float32 operations) of one site: x read once, y and the mask
+    written once; ~10 operations an element (min, max, multiply, round,
+    add, two compares, clamp, subtract, multiply)."""
+    n = x.numel()
+    return n * (2 * x.element_size() + 1) + 16, 10.0 * n
 
 
 def matmul_cost(m, k, n):
@@ -122,7 +194,7 @@ def capture(model, images):
             hooks.append(mod.register_forward_hook(
                 lambda m, args, out, name=name: calls.append((name, m, args[0]))))
     with torch.inference_mode():
-        model(images)
+        model(images, mode=INT8)
     for h in hooks:
         h.remove()
     return calls
@@ -179,6 +251,271 @@ def check_equal(what, got, want):
         raise AssertionError(f"{what}: kernel != plain version "
                              f"({int((got != want).sum())} codes differ, max abs err {err})")
     return err
+
+
+def train_batch(k: int, batch: int = BATCH):
+    """Batch ``k`` of the committed training reference: uint8 NHWC images,
+    then labels, from ``RandomState(100 + k)``."""
+    rng = np.random.RandomState(100 + k)
+    return {"image": rng.randint(0, 256, (batch, IMAGE, IMAGE, 3)).astype(np.uint8),
+            "label": rng.randint(0, CLASSES, batch).astype(np.int64)}
+
+
+def capture_sites(model, images, mode):
+    """``[(x, min_val, max_val, spec)]`` at every per-tensor site of one
+    train-mode forward in ``mode``, in call order (the states as each site
+    found them). The forward itself runs as usual."""
+    sites, real = [], quant_ops.ObservedFakeQuant
+
+    class Recorder:
+        @staticmethod
+        def apply(x, obs, spec, observe):
+            sites.append((x.detach().clone(), obs.min_val.detach().clone(),
+                          obs.max_val.detach().clone(), spec))
+            return real.apply(x, obs, spec, observe)
+
+    quant_ops.ObservedFakeQuant = Recorder
+    try:
+        with torch.no_grad():
+            model(images, mode=mode, train=True)
+    finally:
+        quant_ops.ObservedFakeQuant = real
+    return sites
+
+
+def check_site(what, x, mn, mx, spec):
+    """The kernel against its plain version at one site: the QAT passes (y,
+    mask, new state, qparams), then the QAT_FROZEN pass on the new state."""
+    kmin, kmax = mn.clone(), mx.clone()
+    y, mask, qp = fake_quant_observe(x, kmin, kmax, spec, observe=True)
+    py, pmask, pst, ps, pz = fake_quant_observe_plain(x, ObserverState(mn, mx), spec, True)
+    got = (y, mask, kmin, kmax, qp[0], qp[1])
+    want = (py, pmask, pst.min_val, pst.max_val, ps, pz.to(torch.float32))
+    for name, g, w in zip(("y", "mask", "min_val", "max_val", "scale", "zero_point"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"fake_quant_observe {what}: {name} != plain version "
+                                 f"({int((g != w).sum())} differ)")
+    y2, m2, _ = fake_quant_observe(x, kmin, kmax, spec, observe=False)
+    py2, pm2, _, _, _ = fake_quant_observe_plain(x, pst, spec, observe=False)
+    if not (torch.equal(y2, py2) and torch.equal(m2, pm2)):
+        raise AssertionError(f"fake_quant_observe {what}: the QAT_FROZEN pass != plain version")
+    return float((y.float() - py.float()).abs().max())
+
+
+def check_fake_quant(dev):
+    """Phase 7: every per-tensor site of two full-width QAT forwards."""
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    checked, err = 0, 0.0
+    for k in range(2):  # fresh observers (the snap), then calibrated (the EMA)
+        sites = capture_sites(model, prep_image(torch.as_tensor(train_batch(k)["image"],
+                                                                device=dev)), QAT)
+        if len(sites) != N_SITES:
+            raise AssertionError(f"{len(sites)} per-tensor sites in a QAT forward, "
+                                 f"expected {N_SITES}")
+        for i, (x, mn, mx, spec) in enumerate(sites):
+            for dt in (torch.float32, torch.bfloat16):
+                err = max(err, check_site(f"forward {k} site {i} {tuple(x.shape)} {dt}",
+                                          x.to(dt), mn, mx, spec))
+                checked += 1
+    # the STE gradient of the largest site, through the autograd op
+    x, mn, mx, spec = max(sites, key=lambda s: s[0].numel())
+    obs = Observer().to(dev)
+    obs.min_val.copy_(mn)
+    obs.max_val.copy_(mx)
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    ObservedFakeQuant.apply(xg, obs, spec, True).backward(g)
+    _, pmask, _, _, _ = fake_quant_observe_plain(x, ObserverState(mn, mx), spec, True)
+    if not torch.equal(xg.grad, torch.where(pmask, g, torch.zeros((), device=dev))):
+        raise AssertionError("fake_quant_observe: STE gradient != where(plain mask, g, 0)")
+    torch.cuda.synchronize()
+    return checked, err, tuple(x.shape)
+
+
+def band_check(what, value, limit):
+    log(f"[train] {what}: measured {value:.6g} (band {limit:g})")
+    if not value <= limit:
+        raise AssertionError(f"{what}: {value} outside the band {limit}")
+
+
+def train_against_reference(dev):
+    """Phase 8: the training main path against the committed JAX reference.
+    Returns (state, launch counts of the run, report)."""
+    ref = np.load(TRAIN_REFERENCE)
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    fq = ops.fake_quant_observe
+    ops.reset_launch_counts()
+    state = create_train_state(model, tx, seed=0, device=dev)
+    steps = [make_train_step(FP32, num_classes=CLASSES), make_train_step(QAT, num_classes=CLASSES),
+             make_train_step(QAT, num_classes=CLASSES), make_eval_step(QAT_FROZEN, CLASSES)]
+    metrics, launches = [], []
+    for k, step in enumerate(steps):
+        if k == 1:
+            state.start_qat()
+        before = fq.launches
+        metrics.append({n: float(v) for n, v in step(state, train_batch(k)).items()})
+        launches.append(fq.launches - before)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    names = ["FP32 step", "QAT step 1", "QAT step 2", "QAT_FROZEN eval"]
+    for name, m, want_loss, want_top1 in zip(names, metrics, ref["loss"], ref["top1"]):
+        log(f"[train] {name}: loss {m['loss']:.6f} (JAX {want_loss:.6f}), top1 {m['top1']} "
+            f"(JAX {want_top1})")
+    expect = [0, 2 * N_SITES, 2 * N_SITES, N_SITES]
+    if launches != expect:
+        raise AssertionError(f"fake_quant_observe launches per phase {launches} != {expect}")
+    log(f"[train] fake_quant_observe launches: FP32 step {launches[0]}, QAT step {launches[1]} "
+        f"({N_SITES} sites x 2 passes), QAT_FROZEN forward {launches[3]}")
+    rep = {"metrics": metrics, "launches_per_phase": dict(zip(names, launches))}
+    rel = [abs(m["loss"] - float(w)) / float(w) for m, w in zip(metrics, ref["loss"])]
+    rep["loss_rel"] = rel
+    band_check("FP32 step loss, relative to JAX", rel[0], FP32_LOSS_REL)
+    band_check("QAT and eval losses, worst relative to JAX", max(rel[1:]), QAT_LOSS_REL)
+    top1 = max(abs(m["top1"] - float(w)) for m, w in zip(metrics, ref["top1"]))
+    band_check("top-1, worst difference", top1, 1.0 / BATCH)
+    mine = {k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()}
+    obs = []
+    for k in ref.files:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(ref[hi] - ref[k]), 1e-6)
+            obs.append(max(abs(float(mine[k] - ref[k])), abs(float(mine[hi] - ref[hi]))) / span)
+    if len(obs) != N_SITES or not all(np.isfinite(mine[k]).all() for k in mine):
+        raise AssertionError("observers missing or not finite after training")
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs))}
+    band_check("observers, median |diff| / range", float(np.median(obs)), OBS_MEDIAN)
+    band_check("observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+    bn_mean, bn_var = [], []
+    for k in ref.files:
+        if k.endswith("/mean"):
+            v = k[:-len("mean")] + "var"
+            bn_mean.append(float(np.max(np.abs(mine[k] - ref[k]) / np.sqrt(ref[v]))))
+            bn_var.append(float(np.max(np.abs(mine[v] - ref[v]) / ref[v])))
+    rep["bn"] = {"mean_over_std_median": float(np.median(bn_mean)), "mean_over_std_worst":
+                 float(max(bn_mean)), "var_rel_median": float(np.median(bn_var)),
+                 "var_rel_worst": float(max(bn_var))}
+    band_check("BN running means, median |diff| / std", float(np.median(bn_mean)), BN_MEAN_MEDIAN)
+    band_check("BN running variances, median |diff| / var", float(np.median(bn_var)),
+               BN_VAR_MEDIAN)
+    log(f"[train] worst BN: mean {max(bn_mean):.4g} of a std, var {max(bn_var):.4g} relative")
+    return state, counts, rep
+
+
+def serve_trained(state, dev):
+    """Phase 9: freeze the trained model and serve one batch, fused and unfused."""
+    images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    logits, counts = {}, {}
+    for fuse in (True, False):
+        port = create_model(MODEL, num_classes=CLASSES, fuse_int8=fuse)
+        port.load_state_dict(state.model.state_dict())
+        fn = freeze(port, dev, IMAGE)
+        ops.reset_launch_counts()
+        logits[fuse] = fn(images)
+        torch.cuda.synchronize()
+        counts[fuse] = ops.launch_counts()
+    want = {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0}
+    if counts[True] != want:
+        raise AssertionError(f"trained model, fused: launches {counts[True]} != {want}")
+    lg = logits[True]
+    if lg.shape != (BATCH, CLASSES) or not torch.isfinite(lg).all():
+        raise AssertionError(f"trained model: bad logits {tuple(lg.shape)}")
+    if not torch.equal(lg, logits[False]):
+        raise AssertionError("trained model: fused logits != unfused logits")
+    log(f"[train] trained model frozen and served fused: launches {counts[True]}, logits "
+        f"finite, == unfused, {len(torch.unique(lg))} distinct values")
+    return counts[True]
+
+
+def time_fake_quant_sites(sites):
+    """The fake-quant kernel over the sites of one QAT forward: device time
+    (profiler) and wall time (CUDA events around the back-to-back calls,
+    the wrappers' host work included), the plain version's time, the bound,
+    and the library yardstick ``torch.fused_moving_avg_obs_fake_quant``
+    (float32 only: it runs on float32 copies) timed the same two ways."""
+    states = [(mn.clone(), mx.clone()) for _, mn, mx, _ in sites]
+
+    def kernel_all():
+        for (x, _, _, spec), (lo, hi) in zip(sites, states):
+            fake_quant_observe(x, lo, hi, spec)
+
+    def plain_all():
+        for x, mn, mx, spec in sites:
+            fake_quant_observe_plain(x, ObserverState(mn, mx), spec)
+
+    out = {"ms": device_ms(kernel_all), "wall_ms": time_ms(kernel_all, reps=5),
+           "plain_ms": time_ms(plain_all, reps=1, warmup=1)}
+    nbytes = nops = 0.0
+    for x, _, _, _ in sites:
+        b, o = fq_cost(x)
+        nbytes, nops = nbytes + b, nops + o
+    out["bound_ms"], out["bound_by"] = bound(nbytes, nops, PEAK_F32_OPS_PER_S)
+    dev = sites[0][0].device
+    on = torch.ones(1, dtype=torch.long, device=dev)
+    lib_args = [(x.to(torch.float32), mn.reshape(1).clone(), mx.reshape(1).clone(),
+                 torch.ones(1, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), spec)
+                for x, mn, mx, spec in sites]
+
+    def library_all():  # the yardstick only: the port never calls it
+        for xf, rmin, rmax, scale, zp, spec in lib_args:
+            torch.fused_moving_avg_obs_fake_quant(xf, on, on, rmin, rmax, scale, zp, 0.01,
+                                                  spec.qmin, spec.qmax, 0, False, spec.symmetric)
+
+    try:
+        out["library_ms"] = device_ms(library_all)
+        out["library_wall_ms"] = time_ms(library_all, reps=5)
+    except RuntimeError as e:
+        log(f"[time] torch.fused_moving_avg_obs_fake_quant refused: {e}")
+        out["library_ms"] = out["library_wall_ms"] = None
+    del lib_args
+    return out
+
+
+def time_training(dev):
+    """Phase 10: the benchmarked training step (bf16, bench.py's optimizer)."""
+    out = {}
+    for b in (128, 256):
+        rec = {}
+        try:
+            model = create_model(MODEL, num_classes=CLASSES, dtype=torch.bfloat16)
+            tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5))
+            state = create_train_state(model, tx, seed=0, device=dev)
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(0, b).items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fp32_step = make_train_step(FP32, num_classes=CLASSES)
+            rec["fp32_ms_per_step"] = time_ms(lambda: fp32_step(state, batch), reps=5)
+            state.start_qat()
+            qat_step = make_train_step(QAT, num_classes=CLASSES)
+            rec["qat_ms_per_step"] = time_ms(lambda: qat_step(state, batch), reps=10)
+            rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        except torch.cuda.OutOfMemoryError as e:
+            if b == 128:
+                raise
+            log(f"[time] training batch {b} does not fit: {str(e).splitlines()[0]}")
+            out[f"bs{b}"] = {"fits": False}
+            break
+        rec["fp32_images_per_sec"] = b / rec["fp32_ms_per_step"] * 1e3
+        rec["qat_images_per_sec"] = b / rec["qat_ms_per_step"] * 1e3
+        log(f"[time] training batch {b} (bf16): QAT {rec['qat_ms_per_step']:.3f} ms/step "
+            f"{rec['qat_images_per_sec']:.1f} images/s; FP32 {rec['fp32_ms_per_step']:.3f} "
+            f"ms/step {rec['fp32_images_per_sec']:.1f} images/s; peak memory "
+            f"{rec['max_memory_allocated_gib']:.2f} GiB")
+        if b == 128:
+            sites = capture_sites(state.model, prep_image(batch["image"]), QAT)
+            fq = rec["fake_quant"] = dict(sites=len(sites), **time_fake_quant_sites(sites))
+            lib = "n/a" if fq["library_ms"] is None else (
+                f"{fq['library_ms']:.4f} device, {fq['library_wall_ms']:.4f} wall")
+            log(f"[time] fake_quant_observe, the {len(sites)} sites of a QAT forward at batch "
+                f"{b}: {fq['ms']:.4f} ms device, {fq['wall_ms']:.4f} ms wall (bound "
+                f"{fq['bound_ms']:.4f} {fq['bound_by']}, plain {fq['plain_ms']:.3f}, "
+                f"fused_moving_avg_obs_fake_quant {lib})")
+            del sites
+        out[f"bs{b}"] = rec
+        del state, model, batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None):
@@ -277,8 +614,8 @@ def main(argv=None):
         layers = check_layers(what, codes, ref)
         log(f"[serve] {what} launches per forward: {counts[fuse]}; codes == JAX reference "
             f"at {len(layers)} layers x {BATCH} images")
-    expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3},
-              False: {"frost_block_int8": 0, "int8_matmul_requant": 52}}
+    expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0},
+              False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0}}
     for fuse in (True, False):
         if counts[fuse] != expect[fuse]:
             raise AssertionError(f"launch counts {counts[fuse]} != {expect[fuse]}")
@@ -344,6 +681,27 @@ def main(argv=None):
                 f"{ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
     report["throughput"] = throughput
 
+    # 7. the fake-quant kernel at every per-tensor site of a full-width QAT forward
+    checked, max_err["fake_quant_observe"], largest = check_fake_quant(dev)
+    log(f"[check] fake_quant_observe == plain at {checked} site checks (2 QAT forwards x "
+        f"{N_SITES} sites x float32/bfloat16; QAT and QAT_FROZEN passes), STE gradient at "
+        f"{largest}")
+
+    # 8. the training main path against the committed JAX reference
+    state, train_counts, report["train_check"] = train_against_reference(dev)
+    log(f"[train] launches over the training run: {train_counts}")
+    if train_counts["fake_quant_observe"] == 0:
+        raise AssertionError("the training run launched no fake-quant kernel")
+
+    # 9. freeze the trained model and serve it
+    report["trained_serving_launches"] = serve_trained(state, dev)
+    del state
+    torch.cuda.empty_cache()
+
+    # 10. the benchmarked training step
+    report["training"] = time_training(dev)
+    fq_time = report["training"]["bs128"]["fake_quant"]
+
     def summary(name, source, replaces, fused_only):
         rows = [r for r in timing[name] if not fused_only or r.get("fused_path", True)]
         lib = [r["library_ms"] for r in rows]
@@ -358,7 +716,12 @@ def main(argv=None):
 
     kernels = {"kernels": [
         summary("frost_block_int8", BLOCK_SOURCE, BLOCK_REPLACES, False),
-        summary("int8_matmul_requant", MATMUL_SOURCE, MATMUL_REPLACES, True)]}
+        summary("int8_matmul_requant", MATMUL_SOURCE, MATMUL_REPLACES, True),
+        {"name": "fake_quant_observe", "route": "cuda", "source": FQ_SOURCE,
+         "replaces": FQ_REPLACES, "launches": train_counts["fake_quant_observe"],
+         "max_abs_err": max_err["fake_quant_observe"], "ms": fq_time["ms"],
+         "plain_ms": fq_time["plain_ms"], "bound_ms": fq_time["bound_ms"],
+         "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"]}]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

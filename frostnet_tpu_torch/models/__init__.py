@@ -1,8 +1,10 @@
 """Model registry: the 30 FrostNet names of the JAX package.
 
 ``create_model(name, **kwargs)`` mirrors ``frostnet_tpu.models.create_model``
-for ``frostnet_{quant_}{large|base|small}_{width}``. The port serves the
-quantized ones; a float name raises in the model's constructor.
+for ``frostnet_{quant_}{large|base|small}_{width}``; keyword arguments
+(``num_classes``, ``qconfig``, ``drop_rate``, ``dtype``, ``fuse_int8``) go to
+the model. The port has the quantized ones; a float name raises in the
+model's constructor.
 """
 from __future__ import annotations
 

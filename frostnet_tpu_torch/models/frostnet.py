@@ -1,14 +1,17 @@
-"""FrostNet, the quantization-friendly mobile CNN family, INT8 serving.
+"""FrostNet, the quantization-friendly mobile CNN family.
 
 The architecture and the module names are those of
 ``frostnet_tpu/models/frostnet.py`` (NHWC activations, HWIO weights), so
-each variable of a JAX checkpoint or INT8 artifact maps to one buffer here.
-The port serves the frozen INT8 graph: ``prepare_int8`` (called by
-``quant.freeze``) freezes every module once, and ``forward`` runs the
-integer pipeline on the device.
+each variable of a JAX checkpoint or INT8 artifact maps to one parameter or
+buffer here. ``forward(x, mode, train)`` runs one phase of the model's life:
+FP32 (the StatAssist warm-up), QAT and QAT_FROZEN (fake-quantized, with the
+observers stepping or frozen), or INT8, the frozen integer graph that
+``prepare_int8`` (called by ``quant.freeze``) builds once on the device.
+``dtype`` is the compute dtype of the float phases (parameters stay
+float32).
 
-``fuse_int8=True`` runs each Frost block as one CUDA kernel
-(``ops/frost_block``), bit-identical to the unfused path.
+``fuse_int8=True`` runs each Frost block of the INT8 graph as one CUDA
+kernel (``ops/frost_block``), bit-identical to the unfused path.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn import QAdd, QCat, QConvBNAct, QuantStub, dequant, global_avg_pool
+from ..nn import FP32, QAdd, QCat, QConvBNAct, QuantMode, QuantStub, dequant, global_avg_pool
 from ..ops.frost_block import (FrostBlockSpec, build_params, frost_block_int8,
                                launch_args, plan_launch)
 from ..quant import QConfig, QNNPACK
@@ -74,7 +77,7 @@ FROSTNET_SETTINGS = {
 
 
 class CascadePreExBottleneck(nn.Module):
-    """The Frost block (reference frostnet.py:81-145), INT8 serving.
+    """The Frost block (reference frostnet.py:81-145).
 
     CAS type: squeeze 1x1 -> concat with the input -> expand 1x1 ->
     depthwise kxk -> linear reduce 1x1 (+ residual when shape-preserving).
@@ -84,7 +87,7 @@ class CascadePreExBottleneck(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  strides: int = 1, expand_ratio: int = 6, reduce_factor: int = 4,
                  block_type: str = "CAS", qconfig: QConfig = QNNPACK,
-                 fuse_int8: bool = False):
+                 fuse_int8: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if in_channels // reduce_factor < 8:
             block_type = "MB"
@@ -97,7 +100,7 @@ class CascadePreExBottleneck(nn.Module):
         self.residual = strides == 1 and in_channels == out_channels
         n_channels = in_channels + (self.r_channels if self.has_squeeze else 0)
         self.e = n_channels * expand_ratio if self.has_expand else in_channels
-        kw = dict(qconfig=qconfig)
+        kw = dict(qconfig=qconfig, dtype=dtype)
         if self.has_squeeze:
             self.squeeze_conv = QConvBNAct(in_channels, self.r_channels, 1, act="relu", **kw)
             self.quant_cat = QCat(qconfig)
@@ -166,37 +169,41 @@ class CascadePreExBottleneck(nn.Module):
         self._out_t = out.tensors(device)
         return out
 
-    def forward(self, x: QTensor) -> QTensor:
-        if self.fuse_int8:
+    def forward(self, x, mode: QuantMode = FP32, train: bool = False):
+        if mode.int8 and self.fuse_int8:
             q = frost_block_int8(x.q, self._params, self._spec, self._plan, self._args)
             return QTensor(q, *self._out_t)
         out = x
         if self.has_squeeze:
-            out = self.quant_cat([self.squeeze_conv(x), x])
+            out = self.quant_cat([self.squeeze_conv(x, mode, train), x], mode)
         if self.has_expand:
-            out = self.conv1(out)
-        out = self.reduce_conv(self.conv2(out))
+            out = self.conv1(out, mode, train)
+        out = self.reduce_conv(self.conv2(out, mode, train), mode, train)
         if self.residual:
-            out = self.skip_add(x, out)
+            out = self.skip_add(x, out, mode)
         return out
 
 
 class FrostNet(nn.Module):
-    """FrostNet classifier (reference frostnet.py:150-351), INT8 serving.
+    """FrostNet classifier (reference frostnet.py:150-351).
 
     Module names follow the JAX model: ``quant``, ``conv1``, ``layer{s}_{i}``,
-    ``last_layer``, ``classifier``. Input: float NHWC images.
+    ``last_layer``, ``classifier``. Input: float NHWC images. Dropout before
+    the classifier is active in train mode and draws from the ``generator``
+    passed to ``forward``.
     """
 
     def __init__(self, num_classes: int = 1000, mode: str = "large",
-                 width_mult: float = 1.0, quantized: bool = True,
-                 qconfig: QConfig = QNNPACK, fuse_int8: bool = False):
+                 width_mult: float = 1.0, quantized: bool = True, drop_rate: float = 0.2,
+                 qconfig: QConfig = QNNPACK, fuse_int8: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not quantized:
-            raise ValueError("the port serves quantized FrostNets only (INT8); "
-                             "float models arrive with the training slice")
+            raise ValueError("the port has the quantized FrostNets only; "
+                             "the float ones are not ported yet")
         self.num_classes, self.fuse_int8 = num_classes, fuse_int8
-        kw = dict(qconfig=qconfig)
+        self.drop_rate, self.dtype = drop_rate, dtype
+        kw = dict(qconfig=qconfig, dtype=dtype)
         stem_c = make_divisible(int(32 * min(1.0, width_mult)))
         self.quant = QuantStub(qconfig)
         self.conv1 = QConvBNAct(3, stem_c, 3, strides=2, padding=1, act="relu", **kw)
@@ -234,14 +241,30 @@ class FrostNet(nn.Module):
         g = self.last_layer.prepare_int8(g, device)
         self.classifier.prepare_int8(g, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) float images -> (B, num_classes) float logits."""
-        if not hasattr(self.quant, "_out"):
-            raise RuntimeError("FrostNet runs frozen only: call quant.freeze(model) first")
-        x = self.conv1(self.quant(x))
+    def forward(self, x: torch.Tensor, mode: QuantMode = FP32, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, S, S, 3) float images -> (B, num_classes) logits.
+
+        In INT8 the model runs frozen (``quant.freeze``) and returns float32
+        logits; the float phases return them in the compute dtype.
+        """
+        if mode.int8 and not hasattr(self.quant, "_out"):
+            raise RuntimeError("INT8 runs frozen only: call quant.freeze(model) first")
+        x = self.conv1(self.quant(x, mode), mode, train)
         for blk in self.blocks:
-            x = blk(x)
-        x = self.last_layer(x)
+            x = blk(x, mode, train)
+        x = self.last_layer(x, mode, train)
         x = global_avg_pool(x, keepdims=True)
-        x = dequant(self.classifier(x))
+        if train and self.drop_rate > 0 and not mode.int8:
+            x = dropout(x, self.drop_rate, generator)
+        x = dequant(self.classifier(x, mode, train))
         return x.reshape(x.shape[0], x.shape[-1])
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep with probability ``1 - rate``, scale kept values
+    by ``1 / (1 - rate)``; the mask draws from ``generator``."""
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    return torch.where(mask.bool(), x / torch.full((), keep, dtype=x.dtype, device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,15 +1,36 @@
-"""QConvBNAct: conv + BN + activation, the INT8 serving branch.
+"""QConvBNAct: conv + BN + activation, quant-aware.
 
-The variables are those of ``frostnet_tpu/nn/conv.py::QConvBNAct``, held as
-buffers under the same names: ``kernel`` (HWIO float), ``bias``, ``scale``
-and ``bias_bn`` (BN gamma/beta), ``mean`` and ``var`` (BN running stats),
-and the observers ``w_obs`` and ``act_obs``.
+The variables are those of ``frostnet_tpu/nn/conv.py::QConvBNAct`` under the
+same names: the parameters ``kernel`` (HWIO float), ``bias``, ``scale`` and
+``bias_bn`` (BN gamma/beta), and the buffers ``mean`` and ``var`` (BN
+running stats) and the observers ``w_obs`` and ``act_obs``.
+
+``forward(x, mode, train)`` runs the phase ``mode`` names, as the JAX
+module does (activations NHWC at the boundary):
+
+* FP32: conv -> BN (batch statistics in train mode, running ones in eval)
+  -> act (the StatAssist warm-up);
+* QAT train: the ``torch.nn.intrinsic.qat.ConvBn2d`` recipe:
+  ``sf = gamma / sqrt(var + eps)``, the weight ``w * sf`` observed and
+  fake-quantized, conv, ``/ sf``, BN on batch statistics (biased variance
+  to normalize, unbiased into the running estimate, momentum 0.1), act;
+* QAT eval: running-statistics BN folded into the weight and bias, the
+  folded weight fake-quantized; without BN (the classifier) the weight
+  itself;
+* QAT and QAT_FROZEN then fake-quantize the activation on ``act_obs``'s
+  grid (``observe`` steps the observers), and the output is stored in the
+  compute ``dtype`` (bf16 for the benchmarked step);
+* INT8: the frozen graph (below).
+
+Convolutions run in ``dtype`` through ``torch.nn.functional.conv2d`` on
+permuted views, so the NHWC activations are ``channels_last`` tensors to
+cuDNN; BN runs in float32.
 
 ``prepare_int8`` freezes the conv once: BN fold, weight quantization on the
-weight observer's grid (``fold_bn`` -> ``calculate_qparams`` ->
+weight observer's grid (``fold_bn`` -> ``calculate_qparams_folded`` ->
 ``quantize``, the JAX chain op for op), column sums, the epilogue constants
-and the packed operands, all on the target device. ``forward`` then takes
-one of three routes:
+and the packed operands, all on the target device. The INT8 forward then
+takes one of three routes:
 
 * 1x1: one INT8 matmul (``ops/int8_matmul``);
 * depthwise kxk: k*k shifted integer multiply-adds in torch;
@@ -21,40 +42,44 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
 from ..ops.requant import depthwise_acc, epilogue_constants, requant_epilogue
-from ..quant import QConfig, QNNPACK, calculate_qparams, fold_bn, quantize
+from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
-from .quant_ops import Observer, observed_qparams
+from .mode import FP32, QuantMode
+from .quant_ops import Observer, observed_fake_quant, observed_qparams
+
 
 def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
 class QConvBNAct(nn.Module):
-    """Conv2d + optional BatchNorm + optional ReLU, quantized (INT8 serving)."""
+    """Conv2d + optional BatchNorm + optional ReLU, quant-aware."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 3, strides: int = 1,
                  padding: int = 0, groups: int = 1, use_bn: bool = True,
                  use_bias: bool = False, act: Optional[str] = "relu",
-                 qconfig: QConfig = QNNPACK, bn_eps: float = 1e-5):
+                 qconfig: QConfig = QNNPACK, bn_momentum: float = 0.1,
+                 bn_eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         if act not in (None, "relu"):
-            raise ValueError(f"the INT8 port supports act None or 'relu', got {act!r}")
+            raise ValueError(f"the port supports act None or 'relu', got {act!r}")
         kh, kw = _pair(kernel_size)
         self.in_features, self.features = in_features, features
         self.kernel_size, self.strides, self.padding = (kh, kw), strides, padding
         self.groups, self.use_bn, self.use_bias, self.act = groups, use_bn, use_bias, act
-        self.qconfig, self.bn_eps = qconfig, bn_eps
-        self.register_buffer("kernel", torch.zeros(kh, kw, in_features // groups, features))
+        self.qconfig, self.bn_momentum, self.bn_eps, self.dtype = qconfig, bn_momentum, bn_eps, dtype
+        self.kernel = nn.Parameter(torch.zeros(kh, kw, in_features // groups, features))
         if use_bias:
-            self.register_buffer("bias", torch.zeros(features))
+            self.bias = nn.Parameter(torch.zeros(features))
         if use_bn:
-            self.register_buffer("scale", torch.ones(features))
-            self.register_buffer("bias_bn", torch.zeros(features))
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias_bn = nn.Parameter(torch.zeros(features))
             self.register_buffer("mean", torch.zeros(features))
             self.register_buffer("var", torch.ones(features))
         self.w_obs = Observer(features if qconfig.weight.per_channel else None)
@@ -76,7 +101,7 @@ class QConvBNAct(nn.Module):
         else:
             wf = w
             bf = bias if bias is not None else torch.zeros(self.features)
-        w_scale, w_zp = calculate_qparams(self.w_obs.state(), wspec)
+        w_scale, w_zp = calculate_qparams_folded(self.w_obs.state(), wspec)
         qw = quantize(wf, w_scale, w_zp, wspec, channel_axis=-1 if wspec.per_channel else None)
         out = observed_qparams(self.act_obs, self.qconfig.activation)
         return qw, w_scale, bf, out.scale, out.zero_point
@@ -125,7 +150,59 @@ class QConvBNAct(nn.Module):
                 for dy in range(kh) for dx in range(kw)]
         return torch.cat(cols, dim=-1)
 
-    def forward(self, x: QTensor) -> QTensor:
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """NHWC ``x`` (*) HWIO ``w`` -> NHWC, in the compute dtype."""
+        xt = x.to(self.dtype).permute(0, 3, 1, 2)
+        wt = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = F.conv2d(xt, wt, None, self.strides, self.padding, 1, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+    def _batch_norm(self, y: torch.Tensor, train: bool) -> torch.Tensor:
+        """BN over NHWC ``y`` in float32; in train mode it normalizes with the
+        batch statistics and steps the running ones once."""
+        y = F.batch_norm(y.to(torch.float32).permute(0, 3, 1, 2), self.mean, self.var,
+                         self.scale, self.bias_bn, training=train,
+                         momentum=self.bn_momentum, eps=self.bn_eps)
+        return y.permute(0, 2, 3, 1)
+
+    def _float_forward(self, x: torch.Tensor, mode: QuantMode, train: bool) -> torch.Tensor:
+        wspec, aspec = self.qconfig.weight, self.qconfig.activation
+        w_axis = -1 if wspec.per_channel else None
+        bias = self.bias if self.use_bias else None
+        q_on = mode.fake_quant or mode.observe
+        if q_on and self.use_bn and train:
+            sf = bn_scale_factor(self.scale, self.var, self.bn_eps)
+            w_q = observed_fake_quant(self.kernel * sf, self.w_obs, wspec, mode, w_axis)
+            y = self._conv(x, w_q) / sf
+            if bias is not None:
+                y = y + bias
+            y = self._batch_norm(y, True)
+        elif q_on and self.use_bn:
+            wf, bf = fold_bn(self.kernel, bias, self.scale, self.bias_bn, self.mean, self.var,
+                             self.bn_eps)
+            w_q = observed_fake_quant(wf, self.w_obs, wspec, mode, w_axis)
+            y = self._conv(x, w_q) + bf
+        elif q_on:  # quantized conv without BN (the classifier)
+            w_q = observed_fake_quant(self.kernel, self.w_obs, wspec, mode, w_axis)
+            y = self._conv(x, w_q)
+            if bias is not None:
+                y = y + bias
+        else:
+            y = self._conv(x, self.kernel)
+            if bias is not None:
+                y = y + bias
+            if self.use_bn:
+                y = self._batch_norm(y, train)
+        if self.act == "relu":
+            y = F.relu(y)
+        if q_on:
+            y = observed_fake_quant(y, self.act_obs, aspec, mode)
+        return y.to(self.dtype)
+
+    def forward(self, x, mode: QuantMode = FP32, train: bool = False):
+        """NHWC float ``x`` in FP32/QAT/QAT_FROZEN; a QTensor in INT8 (frozen)."""
+        if not mode.int8:
+            return self._float_forward(x, mode, train)
         aspec = self.qconfig.activation
         if self._route == "depthwise":
             acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,

@@ -1,15 +1,19 @@
-"""Quantization boundary and observed-arithmetic modules, INT8 serving.
+"""Quantization boundary and observed-arithmetic modules.
 
 * :class:`Observer` holds one observer's state as buffers.
+* :func:`observed_fake_quant`: ``apply_observer`` of the JAX package, the
+  observer step and fake-quant of one site.
 * :class:`QuantStub` / :func:`dequant`: the QuantStub/DeQuantStub pair.
 * :class:`QAdd` / :class:`QCat`: the ``FloatFunctional`` requant points of
   skips and concats, each with its own activation observer.
 
-Each module is frozen once by ``prepare_int8``, which takes the input grids
-(known at freeze time) and returns the output grid; ``forward`` then runs
-only tensor ops on the device. ``qparams`` is the counterpart of the JAX
-modules' ``qparams_only`` branch (the fused block reads the grid and runs
-the op itself).
+``forward(..., mode)`` runs the phase ``mode`` names. In FP32 the modules
+pass values through; in QAT and QAT_FROZEN each output goes through
+:func:`observed_fake_quant`. In INT8 each module runs frozen: ``prepare_int8``
+takes the input grids (known at freeze time) and returns the output grid,
+and ``forward`` then runs only tensor ops on the device. ``qparams`` is the
+counterpart of the JAX modules' ``qparams_only`` branch (the fused block
+reads the grid and runs the op itself).
 """
 from __future__ import annotations
 
@@ -18,10 +22,13 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.fake_quant import ObservedFakeQuant
 from ..ops.requant import qadd_codes, reciprocal, requant_codes
-from ..quant import QConfig, QNNPACK, calculate_qparams
+from ..quant import (QConfig, QNNPACK, QSpec, calculate_qparams_folded,
+                     calculate_qparams_traced, fake_quantize, update_observer)
 from ..quant.observer import ObserverState
 from ..quant.qtensor import QParams, QTensor
+from .mode import FP32, QuantMode
 
 
 class Observer(nn.Module):
@@ -34,12 +41,40 @@ class Observer(nn.Module):
         self.register_buffer("max_val", torch.full(shape, float("-inf")))
 
     def state(self) -> ObserverState:
+        """A detached host copy of the state (for freezing)."""
         return ObserverState(self.min_val.detach().cpu(), self.max_val.detach().cpu())
+
+    def live(self) -> ObserverState:
+        """The state buffers themselves."""
+        return ObserverState(self.min_val, self.max_val)
 
 
 def observed_qparams(obs: Observer, spec) -> QParams:
-    scale, zp = calculate_qparams(obs.state(), spec)
+    """The frozen grid of an observer (``freeze``'s folded qparams)."""
+    scale, zp = calculate_qparams_folded(obs.state(), spec)
     return QParams(float(scale), int(zp))
+
+
+def observed_fake_quant(x: torch.Tensor, obs: Observer, spec: QSpec, mode: QuantMode,
+                        channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Observe ``x`` (``mode.observe``) and fake-quantize it (``mode.fake_quant``).
+
+    The JAX package's ``apply_observer``: the state steps first, in place and
+    outside autograd, and the qparams come from the updated state. A
+    per-tensor site runs the ``ops.fake_quant`` kernel on the GPU; a
+    per-channel site (fbgemm weights) runs torch ops.
+    """
+    if channel_axis is None and mode.fake_quant:
+        return ObservedFakeQuant.apply(x, obs, spec, mode.observe)
+    if mode.observe:
+        with torch.no_grad():
+            st = update_observer(obs.live(), x.detach(), spec, channel_axis)
+            obs.min_val.copy_(st.min_val)
+            obs.max_val.copy_(st.max_val)
+    if mode.fake_quant:
+        scale, zp = calculate_qparams_traced(obs.live(), spec)
+        x = fake_quantize(x, scale, zp, spec, channel_axis)
+    return x
 
 
 class QuantStub(nn.Module):
@@ -56,8 +91,10 @@ class QuantStub(nn.Module):
         self._out_t = self._out.tensors(device)
         return self._out
 
-    def forward(self, x: torch.Tensor) -> QTensor:
+    def forward(self, x: torch.Tensor, mode: QuantMode = FP32):
         spec = self.qconfig.activation
+        if not mode.int8:
+            return observed_fake_quant(x, self.act, spec, mode)
         q = torch.round(x * self._inv) + float(self._out.zero_point)
         return QTensor(torch.clamp(q, spec.qmin, spec.qmax).to(torch.uint8), *self._out_t)
 
@@ -89,7 +126,9 @@ class _QBinary(nn.Module):
 class QAdd(_QBinary):
     """FloatFunctional.add: ``rint(((qa - za) * sa + (qb - zb) * sb) / s)``."""
 
-    def forward(self, a: QTensor, b: QTensor) -> QTensor:
+    def forward(self, a, b, mode: QuantMode = FP32):
+        if not mode.int8:
+            return observed_fake_quant(a + b, self.act, self.qconfig.activation, mode)
         (sa, za), (sb, zb) = self._in
         q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
                        self.qconfig.activation.qmin, self.qconfig.activation.qmax)
@@ -99,7 +138,10 @@ class QAdd(_QBinary):
 class QCat(_QBinary):
     """FloatFunctional.cat along the channel axis."""
 
-    def forward(self, xs: Sequence[QTensor]) -> QTensor:
+    def forward(self, xs: Sequence, mode: QuantMode = FP32):
+        if not mode.int8:
+            return observed_fake_quant(torch.cat(list(xs), dim=-1), self.act,
+                                       self.qconfig.activation, mode)
         spec = self.qconfig.activation
         parts = [requant_codes(x.q, z, s, self._mult, self._out.zero_point,
                                spec.qmin, spec.qmax)

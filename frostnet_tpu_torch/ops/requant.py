@@ -24,7 +24,7 @@ before it runs. The port computes what that program computes, site by site
   (:func:`epilogue_constants`).
 * Weight quantization, BN folding and qparams are folded at compile time
   with IEEE division and separate roundings (``quant.quantize``,
-  ``quant.fold_bn``, ``quant.calculate_qparams``).
+  ``quant.fold_bn``, ``quant.calculate_qparams_folded``).
 
 These functions are the plain versions that the CUDA kernels reproduce;
 they run on any device (every step is an IEEE-exact torch op).

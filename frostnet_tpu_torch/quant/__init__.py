@@ -1,4 +1,4 @@
-"""INT8 quantization core: grids, observers, BN folding, freeze and artifacts."""
+"""Quantization core: grids, observers, fake quantization, BN folding, freeze, artifacts."""
 from .qtypes import (
     FBGEMM,
     FBGEMM_ACT,
@@ -11,17 +11,20 @@ from .qtypes import (
     QSpec,
     get_qconfig,
 )
-from .observer import ObserverState, calculate_qparams, init_observer
-from .fake_quant import dequantize, quantize
+from .observer import (ObserverState, batch_min_max, calculate_qparams_folded,
+                       calculate_qparams_traced, init_observer, update_observer)
+from .fake_quant import dequantize, fake_quantize, quantize
 from .folding import bn_scale_factor, fold_bn
 from .qtensor import QParams, QTensor
-from .export import from_jax_variables, load_int8
+from .export import from_jax_variables, load_int8, model_variables, numpy_init
 from .freeze import freeze
 
 __all__ = [
     "QSpec", "QConfig", "QNNPACK", "FBGEMM", "QNNPACK_ACT", "QNNPACK_WEIGHT",
     "FBGEMM_ACT", "FBGEMM_WEIGHT", "SCALE_EPS", "get_qconfig",
-    "ObserverState", "init_observer", "calculate_qparams",
-    "quantize", "dequantize", "fold_bn", "bn_scale_factor",
-    "QTensor", "QParams", "load_int8", "from_jax_variables", "freeze",
+    "ObserverState", "init_observer", "batch_min_max", "update_observer",
+    "calculate_qparams_folded", "calculate_qparams_traced",
+    "quantize", "dequantize", "fake_quantize", "fold_bn", "bn_scale_factor",
+    "QTensor", "QParams", "load_int8", "from_jax_variables", "model_variables",
+    "numpy_init", "freeze",
 ]

@@ -6,8 +6,11 @@ var 1-eps), observers as ``quant/<path>/<name>.min_val|max_val``, and a
 ``__meta__`` JSON with the qconfig. :func:`load_int8` reads it into the
 JAX variables tree (numpy leaves, int8 kernels dequantized on their
 observer's grid), and :func:`from_jax_variables` fills a port model from any
-such tree. ``freeze`` then repeats the JAX chain op for op: dequantize here,
-``fold_bn``, ``calculate_qparams`` and ``quantize`` at freeze time.
+such tree, parameters and buffers alike. ``freeze`` then repeats the JAX
+chain op for op: dequantize here, ``fold_bn``, ``calculate_qparams_folded``
+and ``quantize`` at freeze time. :func:`numpy_init` makes a fresh variables
+tree from a seed with numpy, so that both packages can start training from
+the same weights.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from .fake_quant import dequantize
-from .observer import ObserverState, calculate_qparams
+from .observer import ObserverState, calculate_qparams_folded
 from .qtypes import FBGEMM, QNNPACK, QConfig
 
 _QCONFIGS = {"qnnpack": QNNPACK, "fbgemm": FBGEMM}
@@ -54,32 +57,9 @@ def load_int8(path: str, qconfig: Optional[QConfig] = None) -> Dict[str, Any]:
         path += ".npz"
     qconfig = qconfig or artifact_qconfig(path)
     wspec = qconfig.weight
-    tree: Dict[str, Any] = {}
     with np.load(path) as data:
-        for key in data.files:
-            if key == "__meta__":
-                continue
-            col, rest = key.split("/", 1)
-            node = tree.setdefault(col, {})
-            parts = rest.split("/")
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = data[key]
-
-    def fix_quant(node: Dict) -> Dict:
-        out = {}
-        names = {k.split(".")[0] for k, v in node.items()
-                 if isinstance(v, np.ndarray) and "." in k}
-        for n in sorted(names):
-            out[n] = ObserverState(node[f"{n}.min_val"], node[f"{n}.max_val"])
-        for k, v in node.items():
-            if isinstance(v, dict):
-                out[k] = fix_quant(v)
-            elif "." not in k:
-                out[k] = v
-        return out
-
-    quant = fix_quant(tree.get("quant", {}))
+        tree = unflatten_variables({k: data[k] for k in data.files if k != "__meta__"})
+    quant = tree.get("quant", {})
 
     def fix_params(p: Dict, q: Dict) -> Dict:
         out = {}
@@ -90,7 +70,7 @@ def load_int8(path: str, qconfig: Optional[QConfig] = None) -> Dict[str, Any]:
                 obs = q["w_obs"]
                 ch = _channel_axis(v, obs)
                 st = ObserverState(torch.as_tensor(obs.min_val), torch.as_tensor(obs.max_val))
-                scale, zp = calculate_qparams(st, wspec)
+                scale, zp = calculate_qparams_folded(st, wspec)
                 out[k] = dequantize(torch.as_tensor(v).to(torch.int32), scale, zp, ch).numpy()
             else:
                 out[k] = v
@@ -129,7 +109,7 @@ def flatten_variables(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
 
 
 def variable_key(buffer_name: str) -> str:
-    """A port buffer name -> its key in the flat JAX layout.
+    """A port parameter or buffer name -> its key in the flat JAX layout.
 
     ``layer3_1.conv2.kernel`` -> ``params/layer3_1/conv2/kernel``;
     ``...mean`` -> ``batch_stats/...``; an observer's
@@ -143,15 +123,17 @@ def variable_key(buffer_name: str) -> str:
 
 
 def model_variables(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The model's buffers under their flat JAX keys."""
-    return {variable_key(name): buf for name, buf in model.named_buffers()}
+    """The model's parameters and buffers under their flat JAX keys."""
+    named = list(model.named_parameters()) + list(model.named_buffers())
+    return {variable_key(name): t for name, t in named}
 
 
 def from_jax_variables(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
-    """Fill ``model``'s buffers from a JAX ``{params, batch_stats, quant}`` tree.
+    """Fill ``model``'s parameters and buffers from a JAX
+    ``{params, batch_stats, quant}`` tree.
 
-    Every buffer must be present with its shape, and every leaf of the tree
-    must land in a buffer. Returns the model.
+    Every variable must be present with its shape, and every leaf of the
+    tree must land in one. Returns the model.
     """
     flat = flatten_variables(tree)
     mine = model_variables(model)
@@ -168,3 +150,57 @@ def from_jax_variables(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                 raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(buf.shape)}")
             buf.copy_(src)
     return model
+
+
+def unflatten_variables(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`flatten_variables`: a ``{params, batch_stats,
+    quant}`` tree, observers as :class:`ObserverState` pairs."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def observers(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = observers(v)
+            elif k.endswith(".min_val"):
+                name = k[:-len(".min_val")]
+                out[name] = ObserverState(v, node[f"{name}.max_val"])
+        return out
+
+    if "quant" in tree:
+        tree["quant"] = observers(tree["quant"])
+    return tree
+
+
+def numpy_init(model: nn.Module, seed: int = 0) -> Dict[str, Any]:
+    """A fresh ``{params, batch_stats, quant}`` tree for ``model``, from numpy.
+
+    The JAX package's initial values, drawn with ``np.random.RandomState(seed)``
+    in sorted key order: conv kernels kaiming-normal with fan-out
+    (``frostnet_tpu/nn/conv.py`` ``variance_scaling(2, "fan_out", "normal")``:
+    std ``sqrt(2 / (kh * kw * out))``, float32), BN scales and running
+    variances 1, biases and running means 0, observers at (+inf, -inf).
+    """
+    rng = np.random.RandomState(seed)
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in sorted(model_variables(model).items()):
+        shape = tuple(t.shape)
+        leaf = key.rsplit("/", 1)[1]
+        if leaf.endswith(".min_val"):
+            flat[key] = np.full(shape, np.inf, np.float32)
+        elif leaf.endswith(".max_val"):
+            flat[key] = np.full(shape, -np.inf, np.float32)
+        elif leaf == "kernel":
+            std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))
+            flat[key] = (rng.standard_normal(shape) * std).astype(np.float32)
+        elif leaf in ("scale", "var"):
+            flat[key] = np.ones(shape, np.float32)
+        else:
+            flat[key] = np.zeros(shape, np.float32)
+    return unflatten_variables(flat)

@@ -30,6 +30,8 @@ def freeze(model, device="cuda", image_size: int = 224) -> Callable:
     as a float32 tensor on ``device``. ``image_size`` fixes the fused blocks'
     launch plans.
     """
+    from ..nn.mode import INT8
+
     device = resolve_device(device)
     model.to(device).eval()
     model.prepare_int8(device, image_size)
@@ -38,6 +40,6 @@ def freeze(model, device="cuda", image_size: int = 224) -> Callable:
     def fn(images):
         x = torch.as_tensor(np.asarray(images, np.float32) if isinstance(images, np.ndarray)
                             else images)
-        return model(x.to(device=device, dtype=torch.float32))
+        return model(x.to(device=device, dtype=torch.float32), mode=INT8)
 
     return fn

@@ -1,0 +1,182 @@
+"""QAT training state and step factories (``frostnet_tpu/train/state.py``).
+
+The reference's phases (FP32 warm-up -> ``is_warmup = False`` -> QAT) are
+one model run in another ``mode``:
+
+* :class:`TrainState` holds the model (parameters, BN statistics and
+  observers live in it, on the device), the optimizer, the step count, the
+  ``torch.Generator`` of the dropout draws and the optional parameter EMA.
+  Unlike the JAX state it is updated in place: a step mutates the model's
+  parameters and buffers and the optimizer's state.
+* :func:`make_train_step` returns ``step(state, batch) -> metrics`` for one
+  phase: on-device uint8 normalization, forward in ``mode`` with
+  ``train=True`` (BN statistics and, in QAT, the observers step exactly
+  once), cross-entropy, backward, the optimizer step, the EMA. Metrics stay
+  on the device: nothing waits for the host.
+* ``state.start_qat()`` is the StatAssist hand-off (``set_warmup``).
+
+The JAX step's ``remat`` option is not ported: the JAX package measured it
+as a memory lever only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+from ..nn.mode import QAT, QuantMode
+from ..ops.requant import fma_f32
+from ..optim import set_warmup
+from ..quant.export import from_jax_variables, numpy_init
+from ..quant.freeze import resolve_device
+from ..utils.losses import cross_entropy
+from ..utils.metrics import topk_accuracy
+
+# the normalization of uint8 batches (data.IMAGENET_MEAN/STD of the JAX package)
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def prep_image(image: torch.Tensor, mean=None, std=None) -> torch.Tensor:
+    """uint8 NHWC batches are normalized on the device; float ones pass.
+
+    ``(x / 255 - mean) / std`` as the jitted JAX step computes it: XLA turns
+    each division by a constant into a multiply by its float32 reciprocal
+    and contracts the first multiply with the subtraction,
+    ``fma(x, f32(1/255), -mean) * f32(1/std)``.
+    """
+    if image.dtype != torch.uint8:
+        return image
+    inv255, neg_mean, inv_std = _norm_constants(
+        image.device, tuple(mean if mean is not None else _IMAGENET_MEAN),
+        tuple(std if std is not None else _IMAGENET_STD))
+    return fma_f32(image.to(torch.float32), inv255, neg_mean) * inv_std
+
+
+@functools.lru_cache(maxsize=None)
+def _norm_constants(device: torch.device, mean: tuple, std: tuple):
+    """(f32(1/255), -mean, f32(1/std)) on ``device``, copied there once: a
+    copy from the host waits for the device, so not on every step."""
+    mean = torch.tensor(mean, dtype=torch.float32)
+    std = torch.tensor(std, dtype=torch.float32)
+    inv255 = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(255.0)
+    return inv255.to(device), (-mean).to(device), (torch.ones(()) / std).to(device)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator
+    step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def start_qat(self) -> "TrainState":
+        """StatAssist hand-off: end the FP32 warm-up phase."""
+        set_warmup(self.optimizer, False)
+        return self
+
+
+def create_train_state(model: torch.nn.Module, tx: Callable, seed: int = 0, device="cuda",
+                       variables: Optional[dict] = None, ema_decay: float = 0.0) -> TrainState:
+    """Fill ``model`` with ``variables`` (a JAX-keyed tree; by default
+    ``numpy_init(model, seed)``), move it to ``device`` and build the
+    optimizer from the factory ``tx`` (``optim.get_optimizer``)."""
+    device = resolve_device(device)
+    from_jax_variables(model, variables if variables is not None else numpy_init(model, seed))
+    model.to(device)
+    optimizer = tx(model.parameters())
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    ema = ({n: p.detach().clone() for n, p in model.named_parameters()}
+           if ema_decay > 0 else None)
+    return TrainState(model=model, optimizer=optimizer, generator=gen, ema=ema)
+
+
+def _metrics(logits, labels, loss, num_classes):
+    out = {"loss": loss.detach().to(torch.float32)}
+    if logits.ndim == 2 and num_classes:
+        top1, top5 = topk_accuracy(logits.detach(), labels, (1, min(5, num_classes)))
+        out.update(top1=top1, top5=top5)
+    return out
+
+
+def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
+                    num_classes: Optional[int] = None, label_smoothing: float = 0.0,
+                    ema_decay: float = 0.0, input_mean=None, input_std=None) -> Callable:
+    """``step(state, batch) -> metrics`` for one phase.
+
+    ``batch`` is ``{"image": (B, S, S, 3) uint8 or float, "label": (B,)}``;
+    ``loss_fn(outputs, batch)`` overrides the cross-entropy on labels.
+    Metrics: loss, and top1/top5 when ``num_classes`` is given.
+    """
+    if loss_fn is None:
+        def loss_fn(outputs, batch):
+            return cross_entropy(outputs, batch["label"], label_smoothing=label_smoothing)
+
+    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        dev = state.device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        image = prep_image(batch["image"], input_mean, input_std)
+        logits = state.model(image, mode=mode, train=True, generator=state.generator)
+        loss = loss_fn(logits, batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        if state.ema is not None and ema_decay > 0:
+            with torch.no_grad():
+                for name, p in state.model.named_parameters():
+                    e = state.ema[name]
+                    e.copy_(e * ema_decay + p * (1 - ema_decay))
+        state.step += 1
+        return _metrics(logits, batch["label"], loss, num_classes)
+
+    return step
+
+
+def make_eval_step(mode: QuantMode, num_classes: Optional[int] = None, use_ema: bool = False,
+                   input_mean=None, input_std=None) -> Callable:
+    """``step(state, batch) -> metrics`` without updates (``train=False``);
+    ``use_ema`` evaluates the EMA parameters."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        dev = state.device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        image = prep_image(batch["image"], input_mean, input_std)
+        saved = None
+        if use_ema and state.ema is not None:
+            saved = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+            for n, p in state.model.named_parameters():
+                p.copy_(state.ema[n])
+        try:
+            logits = state.model(image, mode=mode)
+        finally:
+            if saved is not None:
+                for n, p in state.model.named_parameters():
+                    p.copy_(saved[n])
+        loss = cross_entropy(logits, batch["label"])
+        return _metrics(logits, batch["label"], loss, num_classes or logits.shape[-1])
+
+    return step
+
+
+@torch.no_grad()
+def recalibrate(state: TrainState, batches: Iterable, mode: QuantMode = QAT, seed: int = 0,
+                input_mean=None, input_std=None) -> TrainState:
+    """Re-estimate the BN running statistics and the observers: forwards in
+    train mode without optimizer updates (the reference's calibration
+    pass, generalized to N batches)."""
+    dev = state.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for batch in batches:
+        image = prep_image(torch.as_tensor(batch["image"]).to(dev), input_mean, input_std)
+        state.model(image, mode=mode, train=True, generator=gen)
+    return state

@@ -1,0 +1,32 @@
+"""Classification loss (``frostnet_tpu/utils/losses.py::cross_entropy``)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  class_weights: Optional[torch.Tensor] = None,
+                  ignore_index: Optional[int] = None,
+                  label_smoothing: float = 0.0) -> torch.Tensor:
+    """Weighted CE with an optional ignore label: torch's
+    ``nn.CrossEntropyLoss(weight, ignore_index)`` mean reduction (the
+    weighted mean), with label smoothing as the JAX package mixes it:
+    ``(1 - a) * nll + a * mean_c(-log p)``.
+
+    ``logits`` (..., C), ``labels`` integer (...,). Labels outside [0, C)
+    read class 0 (and count unless they are ``ignore_index``).
+    """
+    num_classes = logits.shape[-1]
+    labels = labels.to(torch.int64)
+    safe = torch.where((labels < 0) | (labels >= num_classes), torch.zeros_like(labels), labels)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe.unsqueeze(-1)).squeeze(-1)
+    if label_smoothing > 0.0:
+        nll = (1 - label_smoothing) * nll + label_smoothing * (-logp.mean(dim=-1))
+    w = torch.ones_like(nll) if class_weights is None else class_weights.to(nll.dtype)[safe]
+    if ignore_index is not None:
+        w = torch.where(labels == ignore_index, torch.zeros_like(w), w)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)

@@ -40,3 +40,42 @@ def calibrated_jax_variables(name, backend, size, num_classes=10, batch=2, seed=
         _, updates = calibrate(variables, xb)
         variables = {**variables, **updates}
     return model, variables, images
+
+
+def jax_variables(tree):
+    """A variables tree of the port (``numpy_init``, or read back from a port
+    model) as the JAX package takes it: jnp leaves, JAX ObserverStates."""
+    import jax
+    import jax.numpy as jnp
+
+    from frostnet_tpu import quant as jq
+    from frostnet_tpu_torch.quant import ObserverState
+
+    def obs(node):
+        if isinstance(node, ObserverState):
+            return jq.ObserverState(jnp.asarray(node.min_val), jnp.asarray(node.max_val))
+        if isinstance(node, dict):
+            return {k: obs(v) for k, v in node.items()}
+        return jnp.asarray(node)
+
+    return {col: obs(tree[col]) for col in ("params", "batch_stats", "quant") if col in tree}
+
+
+def jax_train_state(model, tree, tx):
+    """A JAX QATTrainState on the variables ``tree`` (port layout)."""
+    import jax
+    import jax.numpy as jnp
+
+    from frostnet_tpu.train.state import QATTrainState
+
+    v = jax_variables(tree)
+    return QATTrainState(step=jnp.zeros([], jnp.int32), params=v["params"],
+                         batch_stats=v["batch_stats"], quant=v["quant"],
+                         opt_state=tx.init(v["params"]), rng=jax.random.PRNGKey(0), tx=tx)
+
+
+def train_batch(k, batch, size, num_classes, seed=100):
+    """The k-th synthetic training batch: uint8 NHWC images and labels."""
+    rng = np.random.RandomState(seed + k)
+    return {"image": rng.randint(0, 256, (batch, size, size, 3)).astype(np.uint8),
+            "label": rng.randint(0, num_classes, batch).astype(np.int32)}

@@ -13,7 +13,11 @@ import pytest
 import torch
 
 from _torch_port import cuda_device  # noqa: F401  (fixture)
+from frostnet_tpu_torch import quant as tq
+from frostnet_tpu_torch.nn import Observer
 from frostnet_tpu_torch.ops import frost_block as tfb
+from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
+                                               fake_quant_observe_plain)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
 
@@ -62,3 +66,55 @@ def test_frost_block_kernel_matches_plain(cuda_device, case):
     got = tfb.frost_block_int8(x, p, spec)
     assert tfb.frost_block_int8.launches == before + 1
     assert torch.equal(got, tfb.frost_block_int8_plain(x, p, spec))
+
+
+# (shape, scale of the values, observer state before: None = fresh)
+FQ_CASES = [((8, 112, 112, 32), 3.0, None), ((8, 56, 56, 144), 1.0, (-0.5, 2.0)),
+            ((3, 3, 1, 720), 0.1, (-0.2, 0.3)), ((8, 1, 1, 1000), 20.0, (-30.0, 20.0)),
+            ((7, 13), 1.0, None), ((1,), 1.0, (0.0, 1.0))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("spec", ["qnnpack_act", "qnnpack_weight", "fbgemm_act"])
+@pytest.mark.parametrize("case", FQ_CASES, ids=lambda c: "x".join(map(str, c[0])))
+def test_fake_quant_kernel_matches_plain(cuda_device, case, spec, dtype):
+    shape, mag, st = case
+    tspec = {"qnnpack_act": tq.QNNPACK_ACT, "qnnpack_weight": tq.QNNPACK_WEIGHT,
+             "fbgemm_act": tq.FBGEMM_ACT}[spec]
+    g = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    x = (torch.randn(shape, generator=g, device=cuda_device) * mag).to(dtype)
+    mn, mx = (float("inf"), float("-inf")) if st is None else st
+    mn, mx = torch.tensor(mn, device=cuda_device), torch.tensor(mx, device=cuda_device)
+    kmin, kmax = mn.clone(), mx.clone()
+    before = fake_quant_observe.launches
+    y, mask, qp = fake_quant_observe(x, kmin, kmax, tspec)
+    assert fake_quant_observe.launches == before + 2
+    py, pmask, pst, ps, pz = fake_quant_observe_plain(x, tq.ObserverState(mn, mx), tspec)
+    assert y.dtype == dtype and torch.equal(y, py) and torch.equal(mask, pmask)
+    assert torch.equal(kmin, pst.min_val) and torch.equal(kmax, pst.max_val)
+    assert float(qp[0]) == float(ps) and float(qp[1]) == float(pz)
+    y2, m2, none = fake_quant_observe(x, kmin, kmax, tspec, observe=False)
+    assert none is None and fake_quant_observe.launches == before + 3
+    py2, pm2, _, _, _ = fake_quant_observe_plain(x, pst, tspec, observe=False)
+    assert torch.equal(y2, py2) and torch.equal(m2, pm2)
+    if x.numel() > 1:  # a view one element in takes the unaligned path
+        xs = x.reshape(-1)[1:]
+        ys, ms, _ = fake_quant_observe(xs, kmin.clone(), kmax.clone(), tspec)
+        pys, pms, _, _, _ = fake_quant_observe_plain(xs, pst, tspec)
+        assert torch.equal(ys, pys) and torch.equal(ms, pms)
+
+
+def test_fake_quant_ste_gradient(cuda_device):
+    x = torch.randn(8, 28, 28, 40, device=cuda_device) * 2
+    obs = Observer().to(cuda_device)
+    obs.min_val.fill_(-1.0)
+    obs.max_val.fill_(1.5)
+    st = obs.state()
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn_like(x)
+    ObservedFakeQuant.apply(xg, obs, tq.QNNPACK_ACT, True).backward(g)
+    _, mask, _, _, _ = fake_quant_observe_plain(
+        x, tq.ObserverState(st.min_val.to(cuda_device), st.max_val.to(cuda_device)),
+        tq.QNNPACK_ACT)
+    assert torch.equal(xg.grad, torch.where(mask, g, torch.zeros((), device=cuda_device)))
+    assert (~mask).any() and mask.any()

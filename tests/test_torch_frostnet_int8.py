@@ -16,6 +16,7 @@ from frostnet_tpu.quant import export_int8, freeze as jax_freeze, get_qconfig as
 from frostnet_tpu.quant import load_int8 as jax_load_int8
 from frostnet_tpu_torch import ops
 from frostnet_tpu_torch.models import create_model, list_models
+from frostnet_tpu_torch.nn import INT8
 from frostnet_tpu_torch.quant import freeze, from_jax_variables, get_qconfig, load_int8
 from frostnet_tpu_torch.quant.export import flatten_variables, model_variables
 
@@ -38,7 +39,8 @@ def test_port_serves_jax_artifact_bit_exact(tmp_path, name, backend, size):
         got = freeze(port, device="cpu", image_size=size)(images)
         assert got.dtype == torch.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got.numpy(), want)
-    assert ops.launch_counts() == {"int8_matmul_requant": 0, "frost_block_int8": 0}
+    assert ops.launch_counts() == {"int8_matmul_requant": 0, "frost_block_int8": 0,
+                                   "fake_quant_observe": 0}
 
 
 def test_port_serves_calibrated_variables_bit_exact():
@@ -81,7 +83,7 @@ def test_registry_and_float_names():
 def test_forward_needs_freeze():
     port = create_model("frostnet_quant_small_0_35", num_classes=10)
     with pytest.raises(RuntimeError, match="freeze"):
-        port(torch.zeros(1, 32, 32, 3))
+        port(torch.zeros(1, 32, 32, 3), mode=INT8)
 
 
 def test_from_jax_variables_rejects_mismatched_trees():

@@ -94,7 +94,7 @@ def test_plain_matches_jax_int8_conv1x1(case):
 
     conv = from_jax_variables(tnn.QConvBNAct(cin, cout, 1, qconfig=tqc, **kw), variables)
     conv.prepare_int8(tq.QParams(float(grid[0]), int(grid[1])), torch.device("cpu"))
-    got = conv(tq.QTensor(torch.as_tensor(xq), None, None)).q
+    got = conv(tq.QTensor(torch.as_tensor(xq), None, None), tnn.INT8).q
     np.testing.assert_array_equal(got.numpy(), want)
     assert int(got.max()) <= qmax
 

@@ -44,7 +44,7 @@ def test_calculate_qparams_matches_jax(spec):
     state = jq.ObserverState(jnp.asarray(mins), jnp.asarray(maxs))
     # freeze() folds qparams at compile time: close over the state
     js, jz = jax.jit(lambda: jq.calculate_qparams(state, jspec))()
-    ts, tz = tq.calculate_qparams(tq.ObserverState(torch.as_tensor(mins),
+    ts, tz = tq.calculate_qparams_folded(tq.ObserverState(torch.as_tensor(mins),
                                                    torch.as_tensor(maxs)), tspec)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
@@ -54,9 +54,9 @@ def test_calculate_qparams_matches_jax(spec):
 
 
 def test_calculate_qparams_scalar_and_fresh_observer():
-    s, z = tq.calculate_qparams(tq.init_observer(), tq.QNNPACK_ACT)
+    s, z = tq.calculate_qparams_folded(tq.init_observer(), tq.QNNPACK_ACT)
     assert float(s) == 1.0 and int(z) == 0 and s.dim() == 0
-    s, z = tq.calculate_qparams(tq.init_observer(5), tq.FBGEMM_WEIGHT)
+    s, z = tq.calculate_qparams_folded(tq.init_observer(5), tq.FBGEMM_WEIGHT)
     assert s.shape == (5,) and (z == 0).all()
     assert tq.SCALE_EPS == float(np.finfo(np.float32).eps)
 
@@ -190,7 +190,7 @@ def test_residual_add_rounding_follows_the_fusion():
                          JQTensor(jnp.asarray(a), *ga), JQTensor(jnp.asarray(b), *gb))
     served = _jax_served_qadd(jqc, obs, a, b, ga, gb)
 
-    s_out, z_out = tq.calculate_qparams(tq.ObserverState(torch.tensor(-3.1), torch.tensor(4.3)),
+    s_out, z_out = tq.calculate_qparams_folded(tq.ObserverState(torch.tensor(-3.1), torch.tensor(4.3)),
                                         tq.QNNPACK_ACT)
     mult = np.float32(reciprocal(s_out))
     xa = a.astype(np.float32) - np.float32(17)
@@ -218,7 +218,7 @@ def test_quant_stub_qadd_qcat_match_frozen_jax(backend):
     want = _jax_frozen(jnn.QuantStub(jqc), {"quant": obs}, jnp.asarray(x))
     stub = from_jax_variables(tnn.QuantStub(tqc), {"quant": obs})
     stub.prepare_int8(dev)
-    np.testing.assert_array_equal(stub(torch.as_tensor(x)).q.numpy(), want)
+    np.testing.assert_array_equal(stub(torch.as_tensor(x), tnn.INT8).q.numpy(), want)
 
     shape = (8, 64, 64, 32)
     a = rng.randint(0, qmax + 1, shape).astype(np.uint8)
@@ -232,9 +232,9 @@ def test_quant_stub_qadd_qcat_match_frozen_jax(backend):
     want = _jax_served_qadd(jqc, obs, a, b, ga, gb)
     add = from_jax_variables(tnn.QAdd(tqc), {"quant": obs})
     add.prepare_int8(grids, dev)
-    np.testing.assert_array_equal(add(ta, tb).q.numpy(), want)
+    np.testing.assert_array_equal(add(ta, tb, tnn.INT8).q.numpy(), want)
 
     want = _jax_frozen(jnn.QCat(jqc), {"quant": obs}, [ja, jb])
     cat = from_jax_variables(tnn.QCat(tqc), {"quant": obs})
     cat.prepare_int8(grids, dev)
-    np.testing.assert_array_equal(cat([ta, tb]).q.numpy(), want)
+    np.testing.assert_array_equal(cat([ta, tb], tnn.INT8).q.numpy(), want)
