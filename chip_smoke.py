@@ -42,7 +42,32 @@ Phases (each raises on failure, and any failure exits non-zero):
      ``grouped_weight_decay(4e-5)``) at batch 128 and 256 (where it fits):
      ms/step and images/s of the QAT and FP32 steps, peak memory, and the
      fake-quant kernel at that step's sites beside its bound, its plain
-     version and ``torch.fused_moving_avg_obs_fake_quant``.
+     version and ``torch.fused_moving_avg_obs_fake_quant``;
+ 11. the dense 3x3 INT8 conv kernel against its plain version, bit for bit:
+     at the 20 dense 3x3 stride-1 convs of the GAN generator
+     (``resnet_9blocks``, ngf 64, 256x256, batch 4) on the inputs the
+     committed artifact's forward gives them, at the same shapes on an
+     fbgemm grid (per-channel scales, qmax 127) with and without ReLU, and
+     on a ragged shape (13x21, 68 -> 36 channels) for its edge tiles; and
+     the matmul kernel at the generator's 3 im2col convs (the stem, K=147,
+     and the strided downs, K=576 and 1152) the same two ways;
+ 12. the GAN main path, with cuDNN's TF32 at its default (phases 1-10 run
+     with it off): ``GanPredictor`` serves the committed artifact
+     (``testdata/resnet_9blocks_int8.npz``) at batch 4; the codes of every
+     layer must match the committed digests of the JAX ``freeze()`` codes,
+     the output must lie within ``GAN_TAIL_BAND`` of the committed JAX
+     output while the tail run in TF32 must not, and one forward must
+     launch the conv kernel 20 times and the matmul kernel 3 times; then
+     ``serve.main --workload gan``;
+ 13. timings: the conv kernel at each of its 20 shapes at batch 8 beside its
+     bound, its plain version and ``torch._int_mm`` on the im2col operand
+     (GEMM only), and the matmul kernel at the 3 im2col convs the same way;
+     GAN serving ms/batch and images/s at batch 1, 8 and 16; and one
+     profiled forward at batch 8 split into the conv kernel, the matmul
+     kernel and the torch ops between them.
+The ``kernels`` line sums each kernel over its main paths: the matmul
+kernel over the fused FrostNet forward (batch 8) and the GAN forward
+(batch 8 for times, one forward each for launches).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -69,12 +94,14 @@ from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_obs
                                                fake_quant_observe_plain)
 from frostnet_tpu_torch.ops.frost_block import (frost_block_int8, frost_block_int8_plain,
                                                 random_block_case)
+from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
+                                              conv3x3_s1_int8_plain)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
 from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
-from frostnet_tpu_torch.quant import (ObserverState, freeze, from_jax_variables, get_qconfig,
-                                      model_variables, numpy_init)
-from frostnet_tpu_torch.serve import Int8Predictor
+from frostnet_tpu_torch.quant import (ObserverState, QTensor, freeze, from_jax_variables,
+                                      get_qconfig, model_variables, numpy_init)
+from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
 from frostnet_tpu_torch import serve
 from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
                                       prep_image)
@@ -97,6 +124,20 @@ FQ_SOURCE = "frostnet_tpu_torch/csrc/fake_quant.cu"
 BLOCK_REPLACES = "frostnet_tpu/ops/pallas_frost_block.py:354"
 MATMUL_REPLACES = "frostnet_tpu/ops/pallas_int8_matmul.py:42"
 FQ_REPLACES = "frostnet_tpu/ops/pallas_fake_quant.py:80"
+CONV_SOURCE = "frostnet_tpu_torch/csrc/int8_conv.cu"
+CONV_REPLACES = "frostnet_tpu/ops/pallas_int8_conv.py:145"
+GAN = "resnet_9blocks"
+GAN_ARTIFACT = os.path.join(TESTDATA, f"{GAN}_int8.npz")
+GAN_REFERENCE = os.path.join(TESTDATA, f"{GAN}_reference.npz")
+GAN_IMAGE, GAN_BATCH = 256, 4
+GAN_LAUNCHES = {"int8_matmul_requant": 3, "frost_block_int8": 0, "fake_quant_observe": 0,
+                "int8_conv": 20}
+# The GAN's float32 tail after tanh against the committed JAX output,
+# absolute: XLA's space-to-depth route and cuDNN sum the 7x7 conv in other
+# orders. Measured 5.8e-6 on the CPU (tests/test_torch_gan_fixture.py, the
+# same band) and 5.66e-6 on the H100; the tail run in TF32 misses it by
+# ~1.7e-3, which phase 12 checks.
+GAN_TAIL_BAND = 3e-5
 N_SITES = 166  # per-tensor sites of one qnnpack QAT forward of the model
 # Bands of the training check against the JAX reference (float32, TF32 off).
 # The FP32 step starts from the same weights: only the order of the float
@@ -201,15 +242,18 @@ def capture(model, images):
 
 
 def layer_codes(pred, images):
-    """(logits, {layer: codes}) of one ``pred(images)`` call: the outputs of
-    the model's top-level modules and, as ``pool``, the classifier's input.
-    The hooks only keep references, so the call's launches are unchanged."""
+    """(output, {layer: codes}) of one ``pred(images)`` call: the codes each
+    top-level module of the model outputs and, as ``pool``, the classifier's
+    input. The hooks only keep references, so the call's launches are
+    unchanged."""
     codes, hooks = {}, []
 
     def keep(name):
         def hook(mod, args, out):
-            codes["pool" if name == "classifier" else name] = (args[0] if name == "classifier"
-                                                               else out).q
+            if name == "classifier":
+                codes["pool"] = args[0].q
+            elif isinstance(out, QTensor):
+                codes[name] = out.q
         return hook
 
     for name, mod in pred.model.named_children():
@@ -415,7 +459,8 @@ def serve_trained(state, dev):
         logits[fuse] = fn(images)
         torch.cuda.synchronize()
         counts[fuse] = ops.launch_counts()
-    want = {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0}
+    want = {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
+            "int8_conv": 0}
     if counts[True] != want:
         raise AssertionError(f"trained model, fused: launches {counts[True]} != {want}")
     lg = logits[True]
@@ -518,6 +563,262 @@ def time_training(dev):
     return out
 
 
+def gan_images(seed: int, batch: int, size: int = GAN_IMAGE) -> np.ndarray:
+    """Seeded images in [-1, 1] (those of the committed GAN reference)."""
+    return np.random.RandomState(seed).uniform(-1, 1, (batch, size, size, 3)).astype(np.float32)
+
+
+def capture_convs(pred, images, route):
+    """``[(name, conv, input codes)]`` of the convs on INT8 route ``route``
+    (``dense3x3`` or ``im2col``) of one forward."""
+    calls, hooks = [], []
+    for name, mod in pred.model.named_modules():
+        if isinstance(mod, QConvBNAct) and getattr(mod, "_route", None) == route:
+            hooks.append(mod.register_forward_hook(
+                lambda m, args, out, name=name: calls.append((name, m, args[0].q))))
+    try:
+        pred(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def conv3x3_cost(x_shape, cout):
+    """(bytes, operations) of one conv: codes read once, weights and the
+    epilogue vectors once, uint8 codes written once."""
+    b, h, w, cin = x_shape
+    return b * h * w * (cin + cout) + 9 * cin * cout + 12 * cout, 2.0 * b * h * w * 9 * cin * cout
+
+
+def matmul_operand(mod, x):
+    """The (M, K) uint8 operand a conv's matmul or im2col route gives the
+    matmul kernel for input codes ``x``."""
+    a = mod.matmul_input(x)
+    return a.reshape(-1, a.shape[-1]).contiguous()
+
+
+def int_mm_ms(a, wt, reps):
+    """``torch._int_mm`` on the int8 operand (codes - 128) and the packed
+    (N, K) weight: the GEMM-only yardstick, timed; None where its shape
+    rules refuse (M <= 16, K or N not a multiple of 8)."""
+    m, k = a.shape
+    if m <= 16 or k % 8 or wt.shape[0] % 8:
+        return None
+    a8 = (a.to(torch.int16) - 128).to(torch.int8)
+    w8 = wt[:, :k].contiguous().t()
+    try:  # the yardstick only: the port never calls it
+        return time_ms(lambda: torch._int_mm(a8, w8), reps=reps)
+    except RuntimeError as e:
+        log(f"[time] torch._int_mm refused {m}x{k}x{wt.shape[0]}: {e}")
+        return None
+
+
+def check_gan_matmuls(pred, images, dev):
+    """Phase 11, the matmul kernel at the GAN's im2col convs (the stem and
+    the strided downs): on the inputs one forward gives it, and at the same
+    shapes on an fbgemm grid (per-channel scales, qmax 127) with and without
+    ReLU, each output spread over more than 32 codes."""
+    calls = capture_convs(pred, images, "im2col")
+    if len(calls) != GAN_LAUNCHES["int8_matmul_requant"]:
+        raise AssertionError(f"{len(calls)} im2col convs in a GAN forward, expected "
+                             f"{GAN_LAUNCHES['int8_matmul_requant']}")
+    err, shapes = 0, []
+    for i, (name, mod, x) in enumerate(calls):
+        a, op = matmul_operand(mod, x), mod._op
+        err = max(err, check_equal(f"int8_matmul_requant gan {name} (fixture)",
+                                   int8_matmul_requant(a, op), int8_matmul_requant_plain(a, op)))
+        g = torch.Generator().manual_seed(100 + i)
+        qw = op.wt[:, :op.k].t().cpu()
+        a127 = torch.randint(0, 128, a.shape, generator=g, dtype=torch.uint8).to(dev)
+        # per-channel scales that put the accumulator's spread (a - 60 has a
+        # std of ~36.7) at ~40 output steps of 0.021
+        col = qw.to(torch.float32).norm(dim=0).clamp_min(1.0)
+        comb = (torch.rand(op.n, generator=g) * 0.5 + 0.75) * (40 * 0.021 / 36.7) / col
+        for relu in (False, True):
+            fb = conv1x1_operands(qw, comb, torch.randn(op.n, generator=g) * 0.05, 60, 0.021,
+                                  17, relu, 0, 127, dev)
+            got = int8_matmul_requant(a127, fb)
+            err = max(err, check_equal(f"int8_matmul_requant gan {name} (fbgemm grid, "
+                                       f"relu={relu})", got, int8_matmul_requant_plain(a127, fb)))
+            if len(torch.unique(got)) <= 32:
+                raise AssertionError(f"int8_matmul_requant gan {name} (fbgemm grid, relu={relu}): "
+                                     f"only {len(torch.unique(got))} distinct codes")
+        shapes.append((name, tuple(a.shape), op.n))
+    return err, shapes
+
+
+def check_int8_conv(pred, dev):
+    """Phase 11: the conv kernel against its plain version."""
+    calls = capture_convs(pred, gan_images(0, GAN_BATCH), "dense3x3")
+    if len(calls) != GAN_LAUNCHES["int8_conv"]:
+        raise AssertionError(f"{len(calls)} dense 3x3 convs in a forward, expected "
+                             f"{GAN_LAUNCHES['int8_conv']}")
+    err, checked = 0, 0
+    for i, (name, mod, x) in enumerate(calls):
+        op = mod._op
+        err = max(err, check_equal(f"int8_conv {name} (fixture)", conv3x3_s1_int8(x, op),
+                                   conv3x3_s1_int8_plain(x, op)))
+        g = torch.Generator().manual_seed(i)
+        x127 = torch.randint(0, 128, tuple(x.shape), generator=g, dtype=torch.uint8).to(dev)
+        qw = op.weight().permute(2, 3, 1, 0).cpu()
+        for relu in (False, True):
+            fb = conv3x3_operands(qw, torch.rand(op.cout, generator=g) * 2e-5 + 1e-5,
+                                  torch.randn(op.cout, generator=g) * 0.05, 60, 0.05, 17,
+                                  relu, 0, 127, dev)
+            err = max(err, check_equal(f"int8_conv {name} (fbgemm grid, relu={relu})",
+                                       conv3x3_s1_int8(x127, fb), conv3x3_s1_int8_plain(x127, fb)))
+        checked += 3
+    g = torch.Generator().manual_seed(99)
+    for qmax in (255, 127):
+        x = torch.randint(0, qmax + 1, (3, 13, 21, 68), generator=g, dtype=torch.uint8).to(dev)
+        qw = torch.randint(-127, 128, (3, 3, 68, 36), generator=g, dtype=torch.int8)
+        comb = torch.tensor(3e-5) if qmax == 255 else torch.rand(36, generator=g) * 3e-5 + 1e-5
+        for relu in (False, True):
+            op = conv3x3_operands(qw, comb, torch.randn(36, generator=g) * 0.1, 101, 0.04, 9,
+                                  relu, 0, qmax, dev)
+            err = max(err, check_equal(f"int8_conv ragged 13x21 68->36 (qmax {qmax}, relu={relu})",
+                                       conv3x3_s1_int8(x, op), conv3x3_s1_int8_plain(x, op)))
+            checked += 1
+    torch.cuda.synchronize()
+    return err, checked, [(name, tuple(x.shape), mod._op.cout) for name, mod, x in calls]
+
+
+def tail_tf32(tail, x):
+    """The GAN's float tail (7x7 conv, bias, tanh) on its NHWC input ``x``
+    with cuDNN's TF32 allowed: the control that shows the band would catch
+    a tail that ran in TF32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        w = tail.kernel.detach().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return torch.tanh(y + tail.bias.detach())
+
+
+def serve_gan(pred):
+    """Phase 12: the GAN main path against the committed JAX reference, with
+    cuDNN's TF32 at its default (allowed). Returns (launch counts, the
+    output's distance to JAX's, the TF32 control's distance)."""
+    ref = np.load(GAN_REFERENCE)
+    images = gan_images(int(ref["image_seed"]), GAN_BATCH)
+    if tuple(ref["image_shape"]) != images.shape:
+        raise AssertionError(f"reference images {tuple(ref['image_shape'])} != {images.shape}")
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("phase 12 runs with cuDNN's TF32 at its default (allowed)")
+    tail_in = []
+    hook = pred.model.tail.register_forward_hook(lambda m, args, out: tail_in.append(args[0]))
+    ops.reset_launch_counts()
+    try:
+        out, codes = layer_codes(pred, images)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    layers = check_layers("gan", codes, ref)
+    if counts != GAN_LAUNCHES:
+        raise AssertionError(f"GAN launches per forward {counts} != {GAN_LAUNCHES}")
+    out = out.cpu().numpy()
+    if out.shape != images.shape or not np.isfinite(out).all():
+        raise AssertionError(f"bad GAN output {out.shape}")
+    want = ref["output"]
+    err = float(np.abs(out[:len(want)] - want).max())
+    tf32 = tail_tf32(pred.model.tail, tail_in[0][:len(want)]).cpu().numpy()
+    err_tf32 = float(np.abs(tf32 - want).max())
+    log(f"[gan] launches per forward: {counts}; codes == JAX reference at {len(layers)} layers "
+        f"x {GAN_BATCH} images; output within {err:.3g} of the JAX output (band "
+        f"{GAN_TAIL_BAND:g}); the tail in TF32 would be {err_tf32:.3g} from it")
+    if not err <= GAN_TAIL_BAND:
+        raise AssertionError(f"GAN output {err} from the JAX output, band {GAN_TAIL_BAND}")
+    if not err_tf32 > GAN_TAIL_BAND:
+        raise AssertionError(f"the TF32 control ({err_tf32}) passes the band {GAN_TAIL_BAND}: "
+                             f"the band cannot tell a TF32 tail")
+    return counts, err, err_tf32
+
+
+def profile_gan(pred, x):
+    """One profiled forward: device ms and launches of the conv kernel, the
+    matmul kernel and the torch ops (and the torch ops' largest kernels),
+    and the device's idle share."""
+    pred(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    split = {"int8_conv": [0.0, 0], "int8_matmul_requant": [0.0, 0], "torch ops": [0.0, 0]}
+    by_name = {}
+    for e in kernels:
+        key = ("int8_conv" if "conv3x3_s1_int8" in e.name else
+               "int8_matmul_requant" if "int8_matmul_requant" in e.name else "torch ops")
+        ms = e.time_range.elapsed_us() / 1e3
+        split[key][0] += ms
+        split[key][1] += 1
+        if key == "torch ops":
+            top = by_name.setdefault(e.name[:90], [0.0, 0])
+            top[0] += ms
+            top[1] += 1
+    window = (max(e.time_range.end for e in kernels)
+              - min(e.time_range.start for e in kernels)) / 1e3
+    busy = sum(v[0] for v in split.values())
+    return {"device_ms": {k: v[0] for k, v in split.items()},
+            "launches": {k: v[1] for k, v in split.items()},
+            "busy_ms": busy, "window_ms": window, "idle_share": 1.0 - busy / window,
+            "torch_ops_top": sorted(([n, v[0], v[1]] for n, v in by_name.items()),
+                                    key=lambda r: -r[1])[:8]}
+
+
+def time_gan(pred, dev):
+    """Phase 13: the conv kernel per shape at batch 8, the matmul kernel at
+    the GAN's im2col convs, serving, a profile."""
+    rows, mm_rows = [], []
+    x8 = gan_images(1, 8)
+    for name, mod, x in capture_convs(pred, x8, "dense3x3"):
+        op = mod._op
+        ms = time_ms(lambda: conv3x3_s1_int8(x, op), reps=20)
+        plain_ms = time_ms(lambda: conv3x3_s1_int8_plain(x, op), reps=2, warmup=1)
+        b_ms, b_by = bound(*conv3x3_cost(tuple(x.shape), op.cout))
+        a = mod.matmul_input(x).reshape(-1, 9 * op.cin)
+        wt = op.wt[:, :, :op.cin].reshape(op.cout, -1)  # (Cout, 9*Cin)
+        lib_ms = int_mm_ms(a, wt, reps=20)
+        del a
+        b, h, w, cin = x.shape
+        rows.append(dict(shape=f"{name} {b}x{h}x{w}x{cin}->{op.cout}", ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"[time] int8_conv {rows[-1]['shape']}: {ms:.4f} ms (bound {b_ms:.4f} {b_by}, "
+            f"plain {plain_ms:.3f}, _int_mm {'n/a' if lib_ms is None else f'{lib_ms:.4f}'})")
+    for name, mod, x in capture_convs(pred, x8, "im2col"):
+        a, op = matmul_operand(mod, x), mod._op
+        m, k = a.shape
+        ms = time_ms(lambda: int8_matmul_requant(a, op), reps=20)
+        plain_ms = time_ms(lambda: int8_matmul_requant_plain(a, op), reps=2, warmup=1)
+        b_ms, b_by = bound(*matmul_cost(m, k, op.n))
+        lib_ms = int_mm_ms(a, op.wt, reps=20)
+        mm_rows.append(dict(shape=f"gan {name} {m}x{k}x{op.n}", path="gan", ms=ms,
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"[time] int8_matmul_requant {mm_rows[-1]['shape']}: {ms:.4f} ms (bound {b_ms:.4f} "
+            f"{b_by}, plain {plain_ms:.3f}, _int_mm "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'})")
+    throughput = {}
+    for b in (1, 8, 16):
+        xb = torch.as_tensor(gan_images(2, b), device=dev)
+        ms = time_ms(lambda: pred(xb), reps=10 if b < 16 else 5, warmup=1)
+        throughput[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3}
+        log(f"[time] GAN serving batch {b}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
+    prof = profile_gan(pred, torch.as_tensor(gan_images(3, 8), device=dev))
+    log(f"[time] GAN forward at batch 8, device ms: " + ", ".join(
+        f"{k} {v:.3f} ({prof['launches'][k]} launches)" for k, v in prof["device_ms"].items())
+        + f"; busy {prof['busy_ms']:.3f} of a {prof['window_ms']:.3f} ms window "
+        f"(idle {100 * prof['idle_share']:.1f}%)")
+    for name, ms, n in prof["torch_ops_top"]:
+        log(f"    torch op {ms:.3f} ms x{n} {name}")
+    return rows, mm_rows, throughput, prof
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -577,8 +878,7 @@ def main(argv=None):
                                   frost_block_int8_plain(inp.q, mod._params, mod._spec))
                 max_err["frost_block_int8"] = max(max_err["frost_block_int8"], err)
             elif mod._route in ("matmul", "im2col"):
-                a = mod.matmul_input(inp.q)
-                a = a.reshape(-1, a.shape[-1]).contiguous()
+                a = matmul_operand(mod, inp.q)
                 err = check_equal(f"{name} (fixture)", int8_matmul_requant(a, mod._op),
                                   int8_matmul_requant_plain(a, mod._op))
                 # the same shape on the fbgemm grid: per-channel scales, qmax 127
@@ -614,8 +914,10 @@ def main(argv=None):
         layers = check_layers(what, codes, ref)
         log(f"[serve] {what} launches per forward: {counts[fuse]}; codes == JAX reference "
             f"at {len(layers)} layers x {BATCH} images")
-    expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0},
-              False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0}}
+    expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
+                     "int8_conv": 0},
+              False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
+                      "int8_conv": 0}}
     for fuse in (True, False):
         if counts[fuse] != expect[fuse]:
             raise AssertionError(f"launch counts {counts[fuse]} != {expect[fuse]}")
@@ -651,16 +953,10 @@ def main(argv=None):
             ms = time_ms(lambda: int8_matmul_requant(a, op), reps=50)
             plain_ms = time_ms(lambda: int8_matmul_requant_plain(a, op), reps=3, warmup=1)
             b_ms, b_by = bound(*matmul_cost(m, k, op.n))
-            lib_ms = None
-            if m > 16 and k % 8 == 0 and op.n % 8 == 0:
-                a8 = (a.to(torch.int16) - 128).to(torch.int8)
-                w8 = op.wt[:, :k].contiguous().t()
-                try:  # the yardstick only: the port never calls it
-                    lib_ms = time_ms(lambda: torch._int_mm(a8, w8), reps=50)
-                except RuntimeError as e:
-                    log(f"[time] torch._int_mm refused {m}x{k}x{op.n}: {e}")
-            entry = dict(shape=f"{name} {m}x{k}x{op.n}", fused_path=fuse, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            lib_ms = int_mm_ms(a, op.wt, reps=50)
+            entry = dict(shape=f"{name} {m}x{k}x{op.n}", path="fused" if fuse else "unfused",
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms)
             timing["int8_matmul_requant"].append(entry)
             log(f"[time] int8_matmul_requant {'fused' if fuse else 'unfused'} {entry['shape']}: "
                 f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain {plain_ms:.3f}, "
@@ -701,13 +997,44 @@ def main(argv=None):
     # 10. the benchmarked training step
     report["training"] = time_training(dev)
     fq_time = report["training"]["bs128"]["fake_quant"]
+    torch.cuda.empty_cache()
 
-    def summary(name, source, replaces, fused_only):
-        rows = [r for r in timing[name] if not fused_only or r.get("fused_path", True)]
+    # The GAN phases run with cuDNN's TF32 at its default (allowed): the
+    # generator's float tail turns it off for its own conv.
+    torch.backends.cudnn.allow_tf32 = True
+
+    # 11. the dense 3x3 conv kernel at the GAN's 20 shapes, an fbgemm grid, a
+    # ragged shape; the matmul kernel at the GAN's 3 im2col convs
+    gan = GanPredictor(GAN, artifact=GAN_ARTIFACT, image_size=GAN_IMAGE, device=dev)
+    max_err["int8_conv"], checked, conv_shapes = check_int8_conv(gan, dev)
+    log(f"[check] int8_conv == plain at {checked} cases: the {len(conv_shapes)} convs of the "
+        f"GAN forward (batch {GAN_BATCH}) on the fixture's inputs and on an fbgemm grid with "
+        f"and without ReLU, and a ragged shape; shapes {sorted(set(s[1:] for s in conv_shapes))}")
+    err, gan_mm_shapes = check_gan_matmuls(gan, gan_images(0, GAN_BATCH), dev)
+    max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"], err)
+    log(f"[check] int8_matmul_requant == plain at the GAN's {len(gan_mm_shapes)} im2col convs "
+        f"(batch {GAN_BATCH}), on the fixture's inputs and on an fbgemm grid with and without "
+        f"ReLU: {gan_mm_shapes}")
+
+    # 12. the GAN main path
+    gan_counts, report["gan_tail_err"], report["gan_tail_err_tf32"] = serve_gan(gan)
+    report["gan_serve_main"] = serve.main(serve.build_parser().parse_args(
+        ["--workload", "gan", "--artifact", GAN_ARTIFACT, "--iters", "20"]))
+
+    # 13. GAN timings
+    (timing["int8_conv"], gan_mm_rows, report["gan_throughput"],
+     report["gan_profile"]) = time_gan(gan, dev)
+    timing["int8_matmul_requant"] += gan_mm_rows
+    conv_rows = timing["int8_conv"]
+
+    def summary(name, source, replaces, paths, launches):
+        """One kernel's entry over the timing rows of its main paths (each
+        row at its path's batch) and the launches of one forward of each."""
+        rows = [r for r in timing[name] if r.get("path") in paths]
         lib = [r["library_ms"] for r in rows]
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[True][name], "max_abs_err": max_err[name],
+                "launches": launches, "max_abs_err": max_err[name],
                 "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": "bytes" if by_bytes * 2 >= sum(r["bound_ms"] for r in rows)
@@ -715,13 +1042,22 @@ def main(argv=None):
                 "library_ms": None if None in lib else sum(lib)}
 
     kernels = {"kernels": [
-        summary("frost_block_int8", BLOCK_SOURCE, BLOCK_REPLACES, False),
-        summary("int8_matmul_requant", MATMUL_SOURCE, MATMUL_REPLACES, True),
+        summary("frost_block_int8", BLOCK_SOURCE, BLOCK_REPLACES, (None,),
+                counts[True]["frost_block_int8"]),
+        summary("int8_matmul_requant", MATMUL_SOURCE, MATMUL_REPLACES, ("fused", "gan"),
+                counts[True]["int8_matmul_requant"] + gan_counts["int8_matmul_requant"]),
         {"name": "fake_quant_observe", "route": "cuda", "source": FQ_SOURCE,
          "replaces": FQ_REPLACES, "launches": train_counts["fake_quant_observe"],
          "max_abs_err": max_err["fake_quant_observe"], "ms": fq_time["ms"],
          "plain_ms": fq_time["plain_ms"], "bound_ms": fq_time["bound_ms"],
-         "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"]}]}
+         "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"]},
+        {"name": "int8_conv", "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+         "launches": gan_counts["int8_conv"], "max_abs_err": max_err["int8_conv"],
+         "ms": sum(r["ms"] for r in conv_rows), "plain_ms": sum(r["plain_ms"] for r in conv_rows),
+         "bound_ms": sum(r["bound_ms"] for r in conv_rows),
+         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in conv_rows)
+         else "bytes", "library_ms": (None if None in [r["library_ms"] for r in conv_rows]
+                                      else sum(r["library_ms"] for r in conv_rows))}]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -1,7 +1,7 @@
 """frostnet_tpu_torch: the PyTorch + CUDA port of frostnet_tpu.
 
 The JAX package ``frostnet_tpu`` stays the reference; this package imports
-neither it nor JAX. The first slice is INT8 serving of the FrostNet
-classifiers (``serve.py``), with hand-written CUDA kernels for Hopper
-(``csrc/``) behind ``ops/``.
+neither it nor JAX. It serves the FrostNet classifiers and the GAN
+generator (``gan/``) in INT8 (``serve.py``) and trains the classifiers,
+with hand-written CUDA kernels for Hopper (``csrc/``) behind ``ops/``.
 """

@@ -3,7 +3,9 @@
 The variables are those of ``frostnet_tpu/nn/conv.py::QConvBNAct`` under the
 same names: the parameters ``kernel`` (HWIO float), ``bias``, ``scale`` and
 ``bias_bn`` (BN gamma/beta), and the buffers ``mean`` and ``var`` (BN
-running stats) and the observers ``w_obs`` and ``act_obs``.
+running stats) and the observers ``w_obs`` and ``act_obs``. A block made
+with ``quantized=False`` (the GAN generator's float tail) has no observers
+and runs in float in every phase, INT8 included.
 
 ``forward(x, mode, train)`` runs the phase ``mode`` names, as the JAX
 module does (activations NHWC at the boundary):
@@ -24,27 +26,34 @@ module does (activations NHWC at the boundary):
 
 Convolutions run in ``dtype`` through ``torch.nn.functional.conv2d`` on
 permuted views, so the NHWC activations are ``channels_last`` tensors to
-cuDNN; BN runs in float32.
+cuDNN; BN runs in float32. The conv of a float block (``quantized=False``)
+runs in float32 on the card whatever the caller set: TF32, which cuDNN
+allows by default, is off for the call. The convs of quantized blocks
+follow the caller's TF32 setting.
 
 ``prepare_int8`` freezes the conv once: BN fold, weight quantization on the
 weight observer's grid (``fold_bn`` -> ``calculate_qparams_folded`` ->
 ``quantize``, the JAX chain op for op), column sums, the epilogue constants
 and the packed operands, all on the target device. The INT8 forward then
-takes one of three routes:
+takes one of four routes:
 
 * 1x1: one INT8 matmul (``ops/int8_matmul``);
 * depthwise kxk: k*k shifted integer multiply-adds in torch;
-* dense kxk (the stem): zero-point-padded im2col patches and one INT8
-  matmul, whatever K the patches have.
+* dense 3x3 stride 1 with 'same' padding (the GAN's ResnetBlock and up
+  convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
+* any other dense kxk (the stems, strided convs): zero-point-padded im2col
+  patches and one INT8 matmul, whatever K the patches have.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
 from ..ops.requant import depthwise_acc, epilogue_constants, requant_epilogue
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
@@ -57,22 +66,40 @@ def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+@contextlib.contextmanager
+def _full_f32(x: torch.Tensor, on: bool):
+    """TF32 off for cuDNN while a float32 conv on the card runs, if ``on``."""
+    if not on or x.device.type != "cuda" or x.dtype != torch.float32:
+        yield
+        return
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 class QConvBNAct(nn.Module):
-    """Conv2d + optional BatchNorm + optional ReLU, quant-aware."""
+    """Conv2d + optional BatchNorm + optional activation, quant-aware."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 3, strides: int = 1,
                  padding: int = 0, groups: int = 1, use_bn: bool = True,
                  use_bias: bool = False, act: Optional[str] = "relu",
-                 qconfig: QConfig = QNNPACK, bn_momentum: float = 0.1,
-                 bn_eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+                 quantized: bool = True, qconfig: QConfig = QNNPACK,
+                 bn_momentum: float = 0.1, bn_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if act not in (None, "relu"):
-            raise ValueError(f"the port supports act None or 'relu', got {act!r}")
+        acts = (None, "relu") if quantized else (None, "relu", "tanh")
+        if act not in acts:
+            raise ValueError(f"the port supports act {acts} on a "
+                             f"{'quantized' if quantized else 'float'} block, got {act!r}")
         kh, kw = _pair(kernel_size)
         self.in_features, self.features = in_features, features
         self.kernel_size, self.strides, self.padding = (kh, kw), strides, padding
         self.groups, self.use_bn, self.use_bias, self.act = groups, use_bn, use_bias, act
+        self.quantized = quantized
         self.qconfig, self.bn_momentum, self.bn_eps, self.dtype = qconfig, bn_momentum, bn_eps, dtype
         self.kernel = nn.Parameter(torch.zeros(kh, kw, in_features // groups, features))
         if use_bias:
@@ -82,8 +109,9 @@ class QConvBNAct(nn.Module):
             self.bias_bn = nn.Parameter(torch.zeros(features))
             self.register_buffer("mean", torch.zeros(features))
             self.register_buffer("var", torch.ones(features))
-        self.w_obs = Observer(features if qconfig.weight.per_channel else None)
-        self.act_obs = Observer(None)
+        if quantized:
+            self.w_obs = Observer(features if qconfig.weight.per_channel else None)
+            self.act_obs = Observer(None)
 
     @property
     def depthwise(self) -> bool:
@@ -129,6 +157,10 @@ class QConvBNAct(nn.Module):
             self._taps = qw.reshape(kh * kw, self.features).to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
             self._dw = (scale.to(device), bias.to(device), mult)
+        elif (kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1 and self.groups == 1:
+            self._route = "dense3x3"
+            self._op = conv3x3_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
+                                        aspec.qmin, aspec.qmax, device)
         elif self.groups == 1:
             self._route = "im2col"
             self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
@@ -154,7 +186,8 @@ class QConvBNAct(nn.Module):
         """NHWC ``x`` (*) HWIO ``w`` -> NHWC, in the compute dtype."""
         xt = x.to(self.dtype).permute(0, 3, 1, 2)
         wt = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(xt, wt, None, self.strides, self.padding, 1, self.groups)
+        with _full_f32(xt, not self.quantized):
+            y = F.conv2d(xt, wt, None, self.strides, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
     def _batch_norm(self, y: torch.Tensor, train: bool) -> torch.Tensor:
@@ -169,7 +202,7 @@ class QConvBNAct(nn.Module):
         wspec, aspec = self.qconfig.weight, self.qconfig.activation
         w_axis = -1 if wspec.per_channel else None
         bias = self.bias if self.use_bias else None
-        q_on = mode.fake_quant or mode.observe
+        q_on = self.quantized and (mode.fake_quant or mode.observe)
         if q_on and self.use_bn and train:
             sf = bn_scale_factor(self.scale, self.var, self.bn_eps)
             w_q = observed_fake_quant(self.kernel * sf, self.w_obs, wspec, mode, w_axis)
@@ -195,13 +228,16 @@ class QConvBNAct(nn.Module):
                 y = self._batch_norm(y, train)
         if self.act == "relu":
             y = F.relu(y)
+        elif self.act == "tanh":
+            y = torch.tanh(y)
         if q_on:
             y = observed_fake_quant(y, self.act_obs, aspec, mode)
         return y.to(self.dtype)
 
     def forward(self, x, mode: QuantMode = FP32, train: bool = False):
-        """NHWC float ``x`` in FP32/QAT/QAT_FROZEN; a QTensor in INT8 (frozen)."""
-        if not mode.int8:
+        """NHWC float ``x`` in FP32/QAT/QAT_FROZEN and into a float block; a
+        QTensor into a quantized block in INT8 (frozen)."""
+        if not mode.int8 or not self.quantized:
             return self._float_forward(x, mode, train)
         aspec = self.qconfig.activation
         if self._route == "depthwise":
@@ -211,6 +247,8 @@ class QConvBNAct(nn.Module):
             q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
                                  self.act == "relu", aspec.qmin, aspec.qmax)
             return QTensor(q, *self._out_t)
+        if self._route == "dense3x3":
+            return QTensor(conv3x3_s1_int8(x.q, self._op), *self._out_t)
         a = self.matmul_input(x.q)
         q = int8_matmul_requant(a.reshape(-1, a.shape[-1]), self._op).reshape(a.shape[:3] + (self.features,))
         return QTensor(q, *self._out_t)

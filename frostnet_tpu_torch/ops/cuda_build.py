@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "frostnet_tpu_torch"
-SOURCES = ("int8_matmul", "frost_block", "fake_quant")
+SOURCES = ("int8_matmul", "frost_block", "fake_quant", "int8_conv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

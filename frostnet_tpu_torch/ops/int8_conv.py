@@ -1,0 +1,149 @@
+"""Dense 3x3 stride-1 INT8 conv with the fused requant epilogue (CUDA kernel
+``csrc/int8_conv.cu``).
+
+Replaces the Pallas TPU kernel ``frostnet_tpu/ops/pallas_int8_conv.py::
+conv3x3_s1_int8``. It computes what the frozen JAX graph computes for a dense
+3x3 stride-1 INT8 conv with 'same' padding (``frostnet_tpu/nn/conv.py`` INT8
+branch, the s32 ``lax.conv`` and its epilogue)::
+
+    acc = sum_{dy,dx,c} (x - zp_in)[h+dy-1, w+dx-1, c] * qw[dy, dx, c, o]   int32,
+          taps outside the image are 0 (they read the zero point)
+    y   = fma(float(acc), scale[o], bias[o]), then ReLU if asked
+    out = clamp(rint(y * out_mult) + out_zp, qmin, qmax) -> uint8
+
+``x`` is the (B, H, W, Cin) uint8 codes, unpadded and unshifted: the kernel
+pads with the zero point itself and adds ``zterm = -zp_in * sum(qw)``. The
+TPU kernel's VMEM gate (``usable``, ``pick_h_tile``) has no counterpart:
+the CUDA kernel takes any H and W and any Cin and Cout that are multiples of
+4, masking its edge tiles; a CUDA tensor it cannot take raises.
+
+:func:`conv3x3_s1_int8` launches the kernel for CUDA tensors and runs
+:func:`conv3x3_s1_int8_plain` for CPU tensors only. What bounds the kernel
+and how it is built is in the source note of the ``.cu`` file.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .requant import epilogue_constants, requant_epilogue
+
+KC = 32  # input channels per kernel stage; the packed weight pads Cin to it
+
+
+@dataclasses.dataclass
+class Conv3x3Operands:
+    """Frozen operands of one dense 3x3 stride-1 INT8 conv."""
+
+    wt: torch.Tensor        # (Cout, 9, cin_pad) int8: qw[dy, dx, c, o] at [o, 3*dy+dx, c]
+    cin: int
+    zp_in: int
+    zterm: torch.Tensor     # (Cout,) int32 = -zp_in * sum(qw[..., o])
+    scale: torch.Tensor     # (Cout,) f32
+    bias: torch.Tensor      # (Cout,) f32
+    out_mult: float
+    out_zp: int
+    relu: bool
+    qmin: int
+    qmax: int
+
+    @property
+    def cout(self) -> int:
+        return self.wt.shape[0]
+
+    def weight(self) -> torch.Tensor:
+        """The (Cout, Cin, 3, 3) int8 weight (torch's conv layout)."""
+        return self.wt[:, :, :self.cin].reshape(self.cout, 3, 3, self.cin).permute(0, 3, 1, 2)
+
+
+def conv3x3_operands(qw: torch.Tensor, comb: torch.Tensor, bias: torch.Tensor, in_zp: int,
+                     out_scale, out_zp, relu: bool, qmin: int, qmax: int,
+                     device) -> Conv3x3Operands:
+    """Pack a frozen conv: ``qw`` (3, 3, Cin, Cout) int8, ``comb`` the input
+    scale times the weight scale (0-dim when per-tensor), ``bias`` the folded
+    float bias, ``in_zp`` the input zero point."""
+    kh, kw, cin, cout = qw.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"a 3x3 weight is needed, got {tuple(qw.shape)}")
+    cin_pad = -(-cin // KC) * KC
+    wt = torch.zeros((cout, 9, cin_pad), dtype=torch.int8)
+    wt[:, :, :cin] = qw.to(torch.int8).permute(3, 0, 1, 2).reshape(cout, 9, cin)
+    zterm = -int(in_zp) * qw.to(torch.int32).sum(dim=(0, 1, 2))
+    scale, bias, out_mult = epilogue_constants(comb, bias, out_scale, relu)
+    return Conv3x3Operands(
+        wt=wt.to(device), cin=cin, zp_in=int(in_zp), zterm=zterm.to(torch.int32).to(device),
+        scale=scale.reshape(cout).to(device), bias=bias.reshape(cout).to(device),
+        out_mult=float(out_mult), out_zp=int(out_zp), relu=bool(relu),
+        qmin=int(qmin), qmax=int(qmax))
+
+
+def conv3x3_acc(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
+    """The int32 accumulator, zero-point term included, as a float64 conv.
+
+    Every product and partial sum is an integer below 9 * Cin * 255 * 128
+    (< 2^31 at the generator's widths), exact in float64 in any order. A
+    library conv may still transform its operands (cuDNN's Winograd and FFT
+    algorithms do, on the card), so the sum is rounded to the nearest integer
+    before the cast: such errors are far below 0.5 in float64.
+    """
+    xs = (x.to(torch.float64) - float(op.zp_in)).permute(0, 3, 1, 2).contiguous()
+    acc = F.conv2d(xs, op.weight().to(torch.float64).contiguous(), None, 1, 1)
+    return torch.round(acc).permute(0, 2, 3, 1).to(torch.int32)
+
+
+def conv3x3_s1_int8_plain(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
+    """The kernel's function in torch ops: (B, H, W, Cin) codes -> (B, H, W, Cout)."""
+    return requant_epilogue(conv3x3_acc(x, op), op.scale, op.bias, op.out_mult, op.out_zp,
+                            op.relu, op.qmin, op.qmax)
+
+
+def _bind():
+    lib = cuda_build.load("int8_conv")
+    fn = lib.frost_conv3x3_s1_int8
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, f, f, p]
+        fn.restype = i
+        lib.frost_conv3x3_error_string.argtypes = [i]
+        lib.frost_conv3x3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
+    """(B, H, W, Cin) uint8 -> (B, H, W, Cout) uint8 through the CUDA kernel.
+
+    CPU tensors take the plain version; a CUDA tensor launches the kernel
+    (or raises). Each launch adds one to ``conv3x3_s1_int8.launches``.
+    """
+    if x.dim() != 4 or x.shape[3] != op.cin:
+        raise ValueError(f"x must be (B, H, W, {op.cin}), got {tuple(x.shape)}")
+    if x.dtype != torch.uint8:
+        raise TypeError(f"x must be uint8 codes, got {x.dtype}")
+    if x.device != op.wt.device:
+        raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
+    if x.device.type == "cpu":
+        return conv3x3_s1_int8_plain(x, op)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if op.cin % 4 or op.cout % 4:
+        raise ValueError(f"the kernel takes Cin and Cout in multiples of 4, got "
+                         f"{op.cin} -> {op.cout}")
+    x = x.contiguous()
+    b, h, w, _ = x.shape
+    out = torch.empty((b, h, w, op.cout), dtype=torch.uint8, device=x.device)
+    lib = _bind()
+    err = lib.frost_conv3x3_s1_int8(
+        x.data_ptr(), op.wt.data_ptr(), op.zterm.data_ptr(), op.scale.data_ptr(),
+        op.bias.data_ptr(), out.data_ptr(), b, h, w, op.cin, op.cout, op.wt.shape[2],
+        op.zp_in, int(op.relu), op.out_mult, float(op.out_zp), float(op.qmin),
+        float(op.qmax), torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, lib.frost_conv3x3_error_string, "conv3x3_s1_int8")
+    conv3x3_s1_int8.launches += 1
+    return out
+
+
+conv3x3_s1_int8.launches = 0

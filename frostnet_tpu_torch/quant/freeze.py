@@ -24,11 +24,12 @@ def resolve_device(device) -> torch.device:
 
 
 def freeze(model, device="cuda", image_size: int = 224) -> Callable:
-    """Return ``fn(images) -> logits`` running ``model``'s frozen INT8 graph.
+    """Return ``fn(images) -> output`` running ``model``'s frozen INT8 graph.
 
-    ``images`` are (B, S, S, 3) float NHWC (numpy or torch); logits come back
-    as a float32 tensor on ``device``. ``image_size`` fixes the fused blocks'
-    launch plans.
+    ``images`` are (B, S, S, 3) float NHWC (numpy or torch); the model's
+    float32 output (a classifier's logits, a generator's images) comes back
+    as a tensor on ``device``. ``image_size`` fixes the fused blocks' launch
+    plans.
     """
     from ..nn.mode import INT8
 

@@ -1,8 +1,11 @@
-"""Batched INT8 serving of FrostNet classifiers on the GPU.
+"""Batched INT8 serving on the GPU: FrostNet classifiers and the GAN generator.
 
 Loads an INT8 artifact written by the JAX package's ``export_int8``,
 freezes the model once on the device, and serves batched predictions with
-latency reporting. The report has the keys of ``frostnet_tpu.serve``:
+latency reporting. ``--workload cls`` (the default) serves a FrostNet
+classifier, ``--workload gan`` the pix2pix/CycleGAN ResnetGenerator
+(``--model resnet_9blocks`` by default, 256x256 images). The report has the
+keys of ``frostnet_tpu.serve``:
 
   * ``latency_ms`` and ``request_images_per_sec``: per request, with the
     logits copied back to the host every batch (what a serving process
@@ -12,6 +15,7 @@ latency reporting. The report has the keys of ``frostnet_tpu.serve``:
 
 Run: python -m frostnet_tpu_torch.serve --model frostnet_quant_large_1_0 \\
        --artifact model_int8.npz --source synthetic --iters 20 [--fuse_int8]
+     python -m frostnet_tpu_torch.serve --workload gan --artifact netG_int8.npz
 """
 from __future__ import annotations
 
@@ -23,12 +27,14 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from .gan import define_g
 from .models import create_model
 from .quant import freeze, from_jax_variables, load_int8
 from .quant.export import artifact_qconfig
 from .quant.freeze import resolve_device
 
 _CLS_DEFAULT = "frostnet_quant_large_1_0"
+_DEFAULTS = {"cls": (_CLS_DEFAULT, 224), "gan": ("resnet_9blocks", 256)}
 
 
 class Int8Predictor:
@@ -56,6 +62,24 @@ class Int8Predictor:
         return idx, np.take_along_axis(logits, idx, axis=-1)
 
 
+class GanPredictor:
+    """Frozen-INT8 ResnetGenerator over an ``export_int8`` artifact."""
+
+    def __init__(self, net_g: str = "resnet_9blocks", ngf: int = 64,
+                 artifact: Optional[str] = None, image_size: int = 256, device="cuda"):
+        if artifact is None:
+            raise ValueError("pass artifact= (an export_int8 .npz)")
+        self.device = resolve_device(device)
+        self.image_size = image_size
+        self.model = define_g(ngf=ngf, netG=net_g, qconfig=artifact_qconfig(artifact))
+        from_jax_variables(self.model, load_int8(artifact))
+        self._apply = freeze(self.model, self.device, image_size=image_size)
+
+    def __call__(self, images) -> torch.Tensor:
+        """(B, S, S, 3) images in [-1, 1] -> (B, S, S, 3) float32 in [-1, 1]."""
+        return self._apply(images)
+
+
 def _batches(args) -> Iterator[np.ndarray]:
     rng = np.random.RandomState(0)
     shape = (args.batch_size, args.image_size, args.image_size, 3)
@@ -69,9 +93,19 @@ def _sync(device: torch.device) -> None:
 
 
 def main(args):
-    pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
-                         image_size=args.image_size, fuse_int8=args.fuse_int8,
-                         device=args.device)
+    model, size = _DEFAULTS[args.workload]
+    args.model = args.model or model
+    args.image_size = args.image_size or size
+    if args.workload == "gan":
+        if args.fuse_int8 or args.output:
+            raise SystemExit("--fuse_int8 and --output are classification-only; the GAN's "
+                             "PNG output is not ported yet")
+        pred = GanPredictor(args.model, ngf=args.ngf, artifact=args.artifact,
+                            image_size=args.image_size, device=args.device)
+    else:
+        pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
+                             image_size=args.image_size, fuse_int8=args.fuse_int8,
+                             device=args.device)
     gen = _batches(args)
     pred(next(gen)).cpu()  # warm-up: builds the kernels on first use
 
@@ -91,7 +125,7 @@ def main(args):
     pipeline_ips = args.batch_size * args.iters / (time.perf_counter() - t0)
 
     report = {
-        "workload": "cls",
+        "workload": args.workload,
         "model": args.model,
         "device": str(pred.device),
         "fuse_int8": bool(args.fuse_int8),
@@ -119,10 +153,15 @@ def main(args):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default=_CLS_DEFAULT, help="FrostNet registry name")
+    p.add_argument("--workload", choices=tuple(_DEFAULTS), default="cls",
+                   help="cls: a FrostNet classifier; gan: the ResnetGenerator")
+    p.add_argument("--model", default=None,
+                   help=f"FrostNet registry name, or the generator (resnet_6blocks, "
+                        f"resnet_9blocks); default {_CLS_DEFAULT} / resnet_9blocks")
     p.add_argument("--artifact", required=True, help="export_int8 .npz")
     p.add_argument("--num_classes", type=int, default=1000)
-    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--ngf", type=int, default=64, help="generator width (gan)")
+    p.add_argument("--image_size", type=int, default=None, help="default 224 / 256")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--iters", type=int, default=30)
     p.add_argument("--source", choices=("synthetic",), default="synthetic",

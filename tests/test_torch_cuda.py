@@ -15,9 +15,12 @@ import torch
 from _torch_port import cuda_device  # noqa: F401  (fixture)
 from frostnet_tpu_torch import quant as tq
 from frostnet_tpu_torch.nn import Observer
+from frostnet_tpu_torch import ops
 from frostnet_tpu_torch.ops import frost_block as tfb
 from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
                                                fake_quant_observe_plain)
+from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
+                                              conv3x3_s1_int8_plain)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
 
@@ -118,3 +121,53 @@ def test_fake_quant_ste_gradient(cuda_device):
         tq.QNNPACK_ACT)
     assert torch.equal(xg.grad, torch.where(mask, g, torch.zeros((), device=cuda_device)))
     assert (~mask).any() and mask.any()
+
+
+# (H, W, Cin, Cout) of the GAN generator's 20 dense 3x3 convs (18 block convs,
+# up0, up1), and a ragged shape for the kernel's edge tiles
+CONV_SHAPES = [(64, 64, 256, 256), (128, 128, 256, 128), (256, 256, 128, 64), (13, 21, 68, 36)]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("qmax", [255, 127], ids=["qnnpack", "fbgemm"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "{}x{}_{}to{}".format(*s))
+def test_int8_conv_kernel_matches_plain(cuda_device, shape, qmax, relu):
+    h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(h + cin)
+    x = torch.randint(0, qmax + 1, (2, h, w, cin), generator=g, dtype=torch.uint8)
+    qw = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+    comb = torch.tensor(2e-5) if qmax == 255 else torch.rand(cout, generator=g) * 2e-5 + 1e-5
+    op = conv3x3_operands(qw, comb, torch.randn(cout, generator=g) * 0.1, 91, 0.03, 11, relu,
+                          0, qmax, cuda_device)
+    x = x.to(cuda_device)
+    before = conv3x3_s1_int8.launches
+    got = conv3x3_s1_int8(x, op)
+    assert conv3x3_s1_int8.launches == before + 1
+    want = conv3x3_s1_int8_plain(x, op)
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 32
+
+
+def test_gan_predictor_launches(cuda_device):
+    """The committed GAN fixture served with cuDNN's TF32 at its default
+    (allowed): the float tail turns it off itself, so the output stays
+    within the CPU band (3e-5 after tanh) of the committed JAX output; a
+    TF32 tail misses it by ~1.7e-3 (emulated on the CPU)."""
+    from chip_smoke import GAN_ARTIFACT, GAN_REFERENCE, GAN_TAIL_BAND, gan_images
+    from frostnet_tpu_torch.serve import GanPredictor
+
+    ref = np.load(GAN_REFERENCE)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # cuDNN's default
+    try:
+        pred = GanPredictor(artifact=GAN_ARTIFACT, device=cuda_device)
+        ops.reset_launch_counts()
+        out = pred(gan_images(int(ref["image_seed"]), 4))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 0,
+                                   "fake_quant_observe": 0, "int8_conv": 20}
+    assert out.shape == (4, 256, 256, 3) and bool(torch.isfinite(out).all())
+    want = ref["output"]
+    assert float(np.abs(out[:len(want)].cpu().numpy() - want).max()) <= GAN_TAIL_BAND

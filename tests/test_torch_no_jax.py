@@ -26,8 +26,9 @@ def _port_sources():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import frostnet_tpu_torch, frostnet_tpu_torch.serve, "
-            "frostnet_tpu_torch.models, frostnet_tpu_torch.ops, frostnet_tpu_torch.train, "
-            "frostnet_tpu_torch.optim, frostnet_tpu_torch.utils, chip_smoke; "
+            "frostnet_tpu_torch.gan, frostnet_tpu_torch.models, frostnet_tpu_torch.ops, "
+            "frostnet_tpu_torch.train, frostnet_tpu_torch.optim, frostnet_tpu_torch.utils, "
+            "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -54,7 +55,7 @@ def test_entry_points_default_to_cuda():
     from frostnet_tpu_torch.models import create_model
     from frostnet_tpu_torch.optim import get_optimizer
     from frostnet_tpu_torch.quant.freeze import resolve_device
-    from frostnet_tpu_torch.serve import Int8Predictor
+    from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
     from frostnet_tpu_torch.train import create_train_state
 
     artifact = os.path.join(PORT, "testdata", "frostnet_quant_large_1_0_int8.npz")
@@ -62,6 +63,8 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present; this checks the CPU-only refusal")
     with pytest.raises(RuntimeError, match="CUDA"):
         Int8Predictor(artifact=artifact)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GanPredictor(artifact=os.path.join(PORT, "testdata", "resnet_9blocks_int8.npz"))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_port import calibrated_jax_variables
+from _torch_port import calibrated_gan_variables, calibrated_jax_variables
 from frostnet_tpu.quant import export_int8, freeze as jax_freeze
 from frostnet_tpu_torch import serve
 
@@ -53,3 +53,44 @@ def test_serve_requires_an_artifact():
         serve.build_parser().parse_args(["--device", "cpu"])
     with pytest.raises(ValueError):
         serve.Int8Predictor(NAME, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gan_artifact(tmp_path_factory):
+    from frostnet_tpu.gan.networks import define_g
+
+    variables = calibrated_gan_variables(define_g(ngf=8, netG="resnet_6blocks"), 1, SIZE)
+    path = str(tmp_path_factory.mktemp("serve_gan") / "netG_int8.npz")
+    export_int8(variables, path)
+    return path
+
+
+def test_serve_main_gan_reports(gan_artifact):
+    args = serve.build_parser().parse_args(
+        ["--workload", "gan", "--model", "resnet_6blocks", "--ngf", "8", "--artifact",
+         gan_artifact, "--image_size", str(SIZE), "--batch_size", "2", "--iters", "2",
+         "--device", "cpu"])
+    report = serve.main(args)
+    assert report["workload"] == "gan" and report["model"] == "resnet_6blocks"
+    for key in ("batch_size", "iters", "latency_ms", "request_images_per_sec",
+                "pipeline_images_per_sec"):
+        assert key in report
+    assert set(report["latency_ms"]) == {"p50", "p95", "max"}
+    pred = serve.GanPredictor("resnet_6blocks", ngf=8, artifact=gan_artifact, image_size=SIZE,
+                              device="cpu")
+    out = pred(np.random.RandomState(1).uniform(-1, 1, (2, SIZE, SIZE, 3)).astype(np.float32))
+    assert out.shape == (2, SIZE, SIZE, 3) and float(out.abs().max()) <= 1.0
+
+
+def test_serve_gan_defaults_and_refusals(gan_artifact):
+    with pytest.raises(SystemExit):  # no artifact
+        serve.build_parser().parse_args(["--workload", "gan", "--device", "cpu"])
+    with pytest.raises(ValueError):
+        serve.GanPredictor(device="cpu")
+    with pytest.raises(SystemExit):  # PNG output is not ported
+        serve.main(serve.build_parser().parse_args(
+            ["--workload", "gan", "--artifact", gan_artifact, "--device", "cpu",
+             "--output", "out"]))
+    args = serve.build_parser().parse_args(["--workload", "gan", "--artifact", gan_artifact])
+    assert args.model is None and args.image_size is None  # resnet_9blocks at 256 in main
+    assert serve._DEFAULTS["gan"] == ("resnet_9blocks", 256)
