@@ -7,11 +7,16 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each raises on failure, and any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the serving and training paths from
-     ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together);
+     ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together), and
+     read the dense conv's and the matmul's SASS (``cuobjdump -sass``): both
+     must issue int8 tensor-core instructions (GMMA) and no dp4a (IDP);
   3. hold each kernel against its plain torch version on the card, bit-exact:
      the 18 Frost-block shapes of frostnet_quant_large_1_0 at 224x224, batch 8,
-     for qnnpack and fbgemm, and every INT8 matmul of the fused and unfused
-     forwards (on the inputs those forwards give it, and with an fbgemm grid);
+     for qnnpack and fbgemm, every INT8 matmul of the fused and unfused
+     forwards (on the inputs those forwards give it, and with an fbgemm grid),
+     and the matmul at shapes that cut its tiles (``MATMUL_EDGES``: M=8 and
+     392, K=27 and 147, K=1152 with N=256, N=1000 and 300), u8 and s8, qnnpack and
+     fbgemm, and with rows that are not 16-byte aligned;
   4. the main path: serve the committed artifact through ``Int8Predictor``
      fused and unfused; the codes of every layer (QuantStub, stem, the 18
      blocks, last_layer, pool) must match the committed digests of the JAX
@@ -20,9 +25,14 @@ Phases (each raises on failure, and any failure exits non-zero):
      and 52 matmuls (unfused) per forward;
   5. ``serve.main`` for 20 iterations;
   6. timings with CUDA events: each kernel at its main-path shapes beside its
-     bound, its plain version and ``torch._int_mm`` (GEMM only, where its
-     shape rules allow), and images/s at batch 8 and 128, fused and unfused
-     (whose logits must agree at both batches);
+     bound (with the achieved TOP/s and TB/s and the share of the bound), its
+     plain version and ``torch._int_mm`` (GEMM only, where its shape rules
+     allow), and images/s at batch 8 and 128, fused and unfused (whose logits
+     must agree at both batches). Every kernel's ``ms`` is the wall time of
+     back-to-back calls; the matmul and conv rows also give ``device_ms``
+     (a CUDA graph of many launches, replayed: the wrappers' host work, which
+     bounds the wall time at small shapes, stays out), their rates and bound
+     share come from it, and ``torch._int_mm`` is timed both ways;
   7. the fake-quant kernel against its plain version, bit for bit, at every
      per-tensor site of a full-width QAT forward (224x224, batch 8,
      qnnpack; the inputs of a forward with fresh observers and of one with
@@ -48,9 +58,11 @@ Phases (each raises on failure, and any failure exits non-zero):
      (``resnet_9blocks``, ngf 64, 256x256, batch 4) on the inputs the
      committed artifact's forward gives them, at the same shapes on an
      fbgemm grid (per-channel scales, qmax 127) with and without ReLU, and
-     on a ragged shape (13x21, 68 -> 36 channels) for its edge tiles; and
-     the matmul kernel at the generator's 3 im2col convs (the stem, K=147,
-     and the strided downs, K=576 and 1152) the same two ways;
+     on ragged shapes for its edge tiles (13x21, 68 -> 36 channels, and
+     37x75, 68 -> 132: W past its 64 columns, Cout past its 128 channels,
+     Cin not a multiple of its 32-channel chunk); and the matmul kernel at
+     the generator's 3 im2col convs (the stem, K=147, and the strided downs,
+     K=576 and 1152) the same two ways;
  12. the GAN main path, with cuDNN's TF32 at its default (phases 1-10 run
      with it off): ``GanPredictor`` serves the committed artifact
      (``testdata/resnet_9blocks_int8.npz``) at batch 4; the codes of every
@@ -60,14 +72,19 @@ Phases (each raises on failure, and any failure exits non-zero):
      launch the conv kernel 20 times and the matmul kernel 3 times; then
      ``serve.main --workload gan``;
  13. timings: the conv kernel at each of its 20 shapes at batch 8 beside its
-     bound, its plain version and ``torch._int_mm`` on the im2col operand
-     (GEMM only), and the matmul kernel at the 3 im2col convs the same way;
+     bound (achieved TOP/s, share of the bound), its plain version and
+     ``torch._int_mm`` on the im2col operand (GEMM only), and the matmul
+     kernel at the 3 im2col convs the same way (achieved TB/s and TOP/s);
      GAN serving ms/batch and images/s at batch 1, 8 and 16; and one
      profiled forward at batch 8 split into the conv kernel, the matmul
      kernel and the torch ops between them.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
-(batch 8 for times, one forward each for launches).
+(batch 8 for times, one forward each for launches). Its ``ms`` and
+``library_ms`` are wall times of back-to-back calls, except the fake-quant
+kernel's, which are torch.profiler device time; the matmul and conv entries
+add ``device_ms`` and ``library_device_ms``. A matmul's bound counts its
+own K, not the zero columns the im2col route pads rows with.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -77,6 +94,7 @@ import argparse
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -139,6 +157,10 @@ GAN_LAUNCHES = {"int8_matmul_requant": 3, "frost_block_int8": 0, "fake_quant_obs
 # ~1.7e-3, which phase 12 checks.
 GAN_TAIL_BAND = 3e-5
 N_SITES = 166  # per-tensor sites of one qnnpack QAT forward of the model
+# (M, K, N) of matmuls that cut the kernel's tiles (64 or 128 rows; 64, 128
+# or 256 columns; 128-byte K chunks; TMA only for 16-byte aligned rows)
+MATMUL_EDGES = [(8, 27, 1000), (8, 1280, 1000), (392, 320, 1280), (392, 576, 128),
+                (5000, 147, 64), (4096, 1152, 256), (1000, 40, 72), (17000, 576, 300)]
 # Bands of the training check against the JAX reference (float32, TF32 off).
 # The FP32 step starts from the same weights: only the order of the float
 # sums differs (cuDNN against XLA on the CPU), relative ~1e-6.
@@ -180,6 +202,31 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of ``fn`` (ms per call): ``reps`` calls captured in one
+    CUDA graph, one replay timed with CUDA events. The host's work (the
+    wrappers' Python and ctypes, longer than a small kernel) stays out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int = 3) -> float:
     """Device time of ``fn`` (ms per call): the summed durations of the
     kernels it launches, from torch.profiler, without the host's gaps."""
@@ -200,6 +247,74 @@ def bound(nbytes: float, nops: float, peak_ops: float = PEAK_INT8_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rates(nbytes: float, nops: float, ms: float, bound_ms: float):
+    """Achieved TOP/s and TB/s of one call, and the share of its bound."""
+    return {"tops": nops / ms / 1e9, "tbps": nbytes / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+def rates_text(r) -> str:
+    return (f"{r['tops']:.1f} TOP/s, {r['tbps']:.3f} TB/s, {100 * r['bound_share']:.1f}% of "
+            f"the bound")
+
+
+def check_sass():
+    """Phase 2: the dense conv and the matmul issue int8 tensor-core
+    instructions (wgmma: GMMA in SASS) and no dp4a (IDP)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    found = {}
+    for name in ("int8_conv", "int8_matmul"):
+        sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        ops = {}
+        for line in sass.splitlines():
+            for word in line.replace(";", " ").split():
+                if "GMMA" in word or word.startswith("IDP"):
+                    ops[word] = ops.get(word, 0) + 1
+        gmma = sum(n for w, n in ops.items() if "GMMA" in w)
+        dp4a = sum(n for w, n in ops.items() if w.startswith("IDP"))
+        if gmma == 0 or dp4a:
+            raise AssertionError(f"{name}: {gmma} tensor-core (GMMA) and {dp4a} dp4a (IDP) "
+                                 f"instructions in its SASS; expected GMMA only: {ops}")
+        found[name] = ops
+    return found
+
+
+def edge_case_matmul(m, k, n, signed, qmax, dev, seed):
+    """Seeded (x, operands) of one matmul: per-tensor scale on qnnpack,
+    per-channel on fbgemm, each output spread over many codes."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randint(-128, 128, (m, k), generator=g).to(torch.int8) if signed else
+         torch.randint(0, qmax + 1, (m, k), generator=g).to(torch.uint8))
+    comb = (torch.rand(n if qmax == 127 else (), generator=g) * 2e-4 + 1e-4) / k ** 0.5
+    op = conv1x1_operands(torch.randint(-128, 128, (k, n), generator=g, dtype=torch.int8), comb,
+                          torch.randn(n, generator=g), 113, 0.02, 7, not signed, 0, qmax, dev)
+    return x.to(dev), op
+
+
+def check_matmul_edges(dev):
+    """Phase 3c: the matmul kernel at ``MATMUL_EDGES``, u8 and s8, qnnpack
+    and fbgemm, and the same inputs one byte into their storage (no row
+    16-byte aligned)."""
+    err, checked = 0, 0
+    for i, (m, k, n) in enumerate(MATMUL_EDGES):
+        for signed in (False, True):
+            for qmax in (255, 127):
+                x, op = edge_case_matmul(m, k, n, signed, qmax, dev, seed=1000 + i)
+                want = int8_matmul_requant_plain(x, op)
+                what = f"int8_matmul_requant edge {m}x{k}x{n} {'s8' if signed else 'u8'} qmax {qmax}"
+                err = max(err, check_equal(what, int8_matmul_requant(x, op), want))
+                if len(torch.unique(want)) <= 16:
+                    raise AssertionError(f"{what}: only {len(torch.unique(want))} distinct codes")
+                buf = torch.empty(m * k + 1, dtype=x.dtype, device=dev)
+                xs = buf[1:].view(m, k)
+                xs.copy_(x)
+                err = max(err, check_equal(what + " (unaligned rows)", int8_matmul_requant(xs, op),
+                                           want))
+                checked += 2
+    torch.cuda.synchronize()
+    return err, checked
+
+
 def fq_cost(x: torch.Tensor):
     """(bytes, float32 operations) of one site: x read once, y and the mask
     written once; ~10 operations an element (min, max, multiply, round,
@@ -209,8 +324,16 @@ def fq_cost(x: torch.Tensor):
 
 
 def matmul_cost(m, k, n):
-    # x read once, weight once, zterm/scale/bias vectors, uint8 out written once
+    """(bytes, operations) of one matmul of the function's own K: x read
+    once, the weight once, zterm/scale/bias vectors, uint8 out written once.
+    Zero columns a caller pads x's rows with are not counted."""
     return m * k + k * n + 12 * n + m * n, 2.0 * m * n * k
+
+
+def matmul_shape(a, op) -> str:
+    """``MxKxN`` of a matmul, and the row length of x where it is padded."""
+    m, k = a.shape
+    return f"{m}x{op.k}x{op.n}" + ("" if k == op.k else f" (x rows padded to {k})")
 
 
 def block_cost(spec, batch):
@@ -600,18 +723,43 @@ def matmul_operand(mod, x):
 
 def int_mm_ms(a, wt, reps):
     """``torch._int_mm`` on the int8 operand (codes - 128) and the packed
-    (N, K) weight: the GEMM-only yardstick, timed; None where its shape
-    rules refuse (M <= 16, K or N not a multiple of 8)."""
+    (N, K) weight: the GEMM-only yardstick, as (CUDA-event wall ms, device
+    ms); (None, None) where its shape rules refuse (M <= 16, K or N not a
+    multiple of 8)."""
     m, k = a.shape
     if m <= 16 or k % 8 or wt.shape[0] % 8:
-        return None
+        return None, None
     a8 = (a.to(torch.int16) - 128).to(torch.int8)
     w8 = wt[:, :k].contiguous().t()
     try:  # the yardstick only: the port never calls it
-        return time_ms(lambda: torch._int_mm(a8, w8), reps=reps)
+        return (time_ms(lambda: torch._int_mm(a8, w8), reps=reps),
+                graph_ms(lambda: torch._int_mm(a8, w8), reps))
     except RuntimeError as e:
         log(f"[time] torch._int_mm refused {m}x{k}x{wt.shape[0]}: {e}")
-        return None
+        return None, None
+
+
+def kernel_row(shape, fn, plain, cost, lib, reps, plain_reps=2):
+    """One timing row of the conv or matmul kernel: ``ms``, the CUDA-event
+    wall time of back-to-back calls (the other kernels' measure), and
+    ``device_ms`` (``graph_ms``: many of these launches are shorter than the
+    wrapper's host work, which the wall time includes); the plain version,
+    the bound, the rates and bound share on the device time, and
+    ``torch._int_mm`` both ways (``lib`` from ``int_mm_ms``)."""
+    b_ms, b_by = bound(*cost)
+    row = dict(shape=shape, ms=time_ms(fn, reps=reps), device_ms=graph_ms(fn, reps),
+               plain_ms=time_ms(plain, reps=plain_reps, warmup=1), bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib[0], library_device_ms=lib[1])
+    row.update(rates(*cost, row["device_ms"], b_ms))
+    return row
+
+
+def row_text(r) -> str:
+    lib = "n/a" if r["library_ms"] is None else (
+        f"{r['library_ms']:.4f} wall, {r['library_device_ms']:.4f} device")
+    return (f"{r['ms']:.4f} ms wall, {r['device_ms']:.4f} device, {rates_text(r)} on the device "
+            f"time (bound {r['bound_ms']:.4f} {r['bound_by']}, plain {r['plain_ms']:.3f}, "
+            f"_int_mm {lib})")
 
 
 def check_gan_matmuls(pred, images, dev):
@@ -670,16 +818,22 @@ def check_int8_conv(pred, dev):
                                        conv3x3_s1_int8(x127, fb), conv3x3_s1_int8_plain(x127, fb)))
         checked += 3
     g = torch.Generator().manual_seed(99)
-    for qmax in (255, 127):
-        x = torch.randint(0, qmax + 1, (3, 13, 21, 68), generator=g, dtype=torch.uint8).to(dev)
-        qw = torch.randint(-127, 128, (3, 3, 68, 36), generator=g, dtype=torch.int8)
-        comb = torch.tensor(3e-5) if qmax == 255 else torch.rand(36, generator=g) * 3e-5 + 1e-5
-        for relu in (False, True):
-            op = conv3x3_operands(qw, comb, torch.randn(36, generator=g) * 0.1, 101, 0.04, 9,
-                                  relu, 0, qmax, dev)
-            err = max(err, check_equal(f"int8_conv ragged 13x21 68->36 (qmax {qmax}, relu={relu})",
-                                       conv3x3_s1_int8(x, op), conv3x3_s1_int8_plain(x, op)))
-            checked += 1
+    for h, w, cin, cout in ((13, 21, 68, 36), (37, 75, 68, 132)):
+        for qmax in (255, 127):
+            x = torch.randint(0, qmax + 1, (3, h, w, cin), generator=g, dtype=torch.uint8).to(dev)
+            qw = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+            comb = (torch.tensor(3e-5) if qmax == 255 else
+                    torch.rand(cout, generator=g) * 3e-5 + 1e-5)
+            for relu in (False, True):
+                op = conv3x3_operands(qw, comb, torch.randn(cout, generator=g) * 0.1, 101, 0.04, 9,
+                                      relu, 0, qmax, dev)
+                want = conv3x3_s1_int8_plain(x, op)
+                err = max(err, check_equal(f"int8_conv ragged {h}x{w} {cin}->{cout} (qmax {qmax}, "
+                                           f"relu={relu})", conv3x3_s1_int8(x, op), want))
+                if len(torch.unique(want)) <= 32:
+                    raise AssertionError(f"int8_conv ragged {h}x{w}: only "
+                                         f"{len(torch.unique(want))} distinct codes")
+                checked += 1
     torch.cuda.synchronize()
     return err, checked, [(name, tuple(x.shape), mod._op.cout) for name, mod, x in calls]
 
@@ -779,30 +933,26 @@ def time_gan(pred, dev):
     x8 = gan_images(1, 8)
     for name, mod, x in capture_convs(pred, x8, "dense3x3"):
         op = mod._op
-        ms = time_ms(lambda: conv3x3_s1_int8(x, op), reps=20)
-        plain_ms = time_ms(lambda: conv3x3_s1_int8_plain(x, op), reps=2, warmup=1)
-        b_ms, b_by = bound(*conv3x3_cost(tuple(x.shape), op.cout))
-        a = mod.matmul_input(x).reshape(-1, 9 * op.cin)
-        wt = op.wt[:, :, :op.cin].reshape(op.cout, -1)  # (Cout, 9*Cin)
-        lib_ms = int_mm_ms(a, wt, reps=20)
+        a = mod.matmul_input(x)
+        a = a.reshape(-1, a.shape[-1])
+        wt = torch.nn.functional.pad(op.weight().permute(0, 2, 3, 1).reshape(op.cout, -1),
+                                     (0, a.shape[1] - 9 * op.cin))  # (Cout, K), (dy, dx, c)
+        lib = int_mm_ms(a, wt, reps=20)
         del a
         b, h, w, cin = x.shape
-        rows.append(dict(shape=f"{name} {b}x{h}x{w}x{cin}->{op.cout}", ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"[time] int8_conv {rows[-1]['shape']}: {ms:.4f} ms (bound {b_ms:.4f} {b_by}, "
-            f"plain {plain_ms:.3f}, _int_mm {'n/a' if lib_ms is None else f'{lib_ms:.4f}'})")
+        rows.append(kernel_row(f"{name} {b}x{h}x{w}x{cin}->{op.cout}",
+                               lambda: conv3x3_s1_int8(x, op), lambda: conv3x3_s1_int8_plain(x, op),
+                               conv3x3_cost(tuple(x.shape), op.cout), lib, reps=20))
+        log(f"[time] int8_conv {rows[-1]['shape']}: {row_text(rows[-1])}")
     for name, mod, x in capture_convs(pred, x8, "im2col"):
         a, op = matmul_operand(mod, x), mod._op
-        m, k = a.shape
-        ms = time_ms(lambda: int8_matmul_requant(a, op), reps=20)
-        plain_ms = time_ms(lambda: int8_matmul_requant_plain(a, op), reps=2, warmup=1)
-        b_ms, b_by = bound(*matmul_cost(m, k, op.n))
-        lib_ms = int_mm_ms(a, op.wt, reps=20)
-        mm_rows.append(dict(shape=f"gan {name} {m}x{k}x{op.n}", path="gan", ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-        log(f"[time] int8_matmul_requant {mm_rows[-1]['shape']}: {ms:.4f} ms (bound {b_ms:.4f} "
-            f"{b_by}, plain {plain_ms:.3f}, _int_mm "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'})")
+        mm_rows.append(kernel_row(f"gan {name} {matmul_shape(a, op)}",
+                                  lambda: int8_matmul_requant(a, op),
+                                  lambda: int8_matmul_requant_plain(a, op),
+                                  matmul_cost(a.shape[0], op.k, op.n),
+                                  int_mm_ms(a, op.wt, reps=20), reps=20))
+        mm_rows[-1]["path"] = "gan"
+        log(f"[time] int8_matmul_requant {mm_rows[-1]['shape']}: {row_text(mm_rows[-1])}")
     throughput = {}
     for b in (1, 8, 16):
         xb = torch.as_tensor(gan_images(2, b), device=dev)
@@ -846,6 +996,8 @@ def main(argv=None):
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    report["sass"] = check_sass()
+    log(f"[build] int8 tensor-core instructions, no dp4a: {report['sass']}")
 
     # 3a. the block kernel at the 18 main-path shapes, qnnpack and fbgemm
     max_err = {"frost_block_int8": 0, "int8_matmul_requant": 0}
@@ -898,6 +1050,12 @@ def main(argv=None):
             f"{sum(isinstance(m, CascadePreExBottleneck) for _, m, _ in calls)} block and "
             f"{len(shapes)} matmul inputs == plain")
 
+    # 3c. the matmul kernel at shapes that cut its tiles
+    err, checked = check_matmul_edges(dev)
+    max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"], err)
+    log(f"[check] int8_matmul_requant == plain at {checked} edge cases: {MATMUL_EDGES}, u8/s8, "
+        f"qnnpack/fbgemm, aligned and unaligned rows")
+
     # 4. the main path: fused serving of the artifact, then the unfused one
     ref = np.load(REFERENCE)
     want = torch.as_tensor(ref["logits"])
@@ -949,18 +1107,13 @@ def main(argv=None):
             f"{b_by}, plain {plain_ms:.3f})")
     for fuse in (True, False):
         for name, a, op in mm_shapes[fuse]:
-            m, k = a.shape
-            ms = time_ms(lambda: int8_matmul_requant(a, op), reps=50)
-            plain_ms = time_ms(lambda: int8_matmul_requant_plain(a, op), reps=3, warmup=1)
-            b_ms, b_by = bound(*matmul_cost(m, k, op.n))
-            lib_ms = int_mm_ms(a, op.wt, reps=50)
-            entry = dict(shape=f"{name} {m}x{k}x{op.n}", path="fused" if fuse else "unfused",
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms)
+            entry = kernel_row(f"{name} {matmul_shape(a, op)}", lambda: int8_matmul_requant(a, op),
+                               lambda: int8_matmul_requant_plain(a, op),
+                               matmul_cost(a.shape[0], op.k, op.n), int_mm_ms(a, op.wt, reps=50),
+                               reps=50, plain_reps=3)
+            entry["path"] = "fused" if fuse else "unfused"
             timing["int8_matmul_requant"].append(entry)
-            log(f"[time] int8_matmul_requant {'fused' if fuse else 'unfused'} {entry['shape']}: "
-                f"{ms:.4f} ms (bound {b_ms:.4f} {b_by}, plain {plain_ms:.3f}, "
-                f"_int_mm {'n/a' if lib_ms is None else f'{lib_ms:.4f}'})")
+            log(f"[time] int8_matmul_requant {entry['path']} {entry['shape']}: {row_text(entry)}")
     report["timing"] = timing
 
     throughput = {}
@@ -1009,7 +1162,8 @@ def main(argv=None):
     max_err["int8_conv"], checked, conv_shapes = check_int8_conv(gan, dev)
     log(f"[check] int8_conv == plain at {checked} cases: the {len(conv_shapes)} convs of the "
         f"GAN forward (batch {GAN_BATCH}) on the fixture's inputs and on an fbgemm grid with "
-        f"and without ReLU, and a ragged shape; shapes {sorted(set(s[1:] for s in conv_shapes))}")
+        f"and without ReLU, and two ragged shapes; shapes "
+        f"{sorted(set(s[1:] for s in conv_shapes))}")
     err, gan_mm_shapes = check_gan_matmuls(gan, gan_images(0, GAN_BATCH), dev)
     max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"], err)
     log(f"[check] int8_matmul_requant == plain at the GAN's {len(gan_mm_shapes)} im2col convs "
@@ -1025,21 +1179,27 @@ def main(argv=None):
     (timing["int8_conv"], gan_mm_rows, report["gan_throughput"],
      report["gan_profile"]) = time_gan(gan, dev)
     timing["int8_matmul_requant"] += gan_mm_rows
-    conv_rows = timing["int8_conv"]
 
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
-        row at its path's batch) and the launches of one forward of each."""
+        row at its path's batch) and the launches of one forward of each:
+        ``ms`` and ``library_ms`` wall, and where the rows have it
+        ``device_ms`` and ``library_device_ms``."""
         rows = [r for r in timing[name] if r.get("path") in paths]
-        lib = [r["library_ms"] for r in rows]
+
+        def total(key):
+            vals = [r[key] for r in rows]
+            return None if None in vals else sum(vals)
+
         by_bytes = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": max_err[name],
-                "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-                "bound_ms": sum(r["bound_ms"] for r in rows),
-                "bound_by": "bytes" if by_bytes * 2 >= sum(r["bound_ms"] for r in rows)
-                else "operations",
-                "library_ms": None if None in lib else sum(lib)}
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": max_err[name], "ms": total("ms"),
+                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                 "bound_by": "bytes" if by_bytes * 2 >= total("bound_ms") else "operations",
+                 "library_ms": total("library_ms")}
+        if "device_ms" in rows[0]:
+            entry.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"))
+        return entry
 
     kernels = {"kernels": [
         summary("frost_block_int8", BLOCK_SOURCE, BLOCK_REPLACES, (None,),
@@ -1051,13 +1211,7 @@ def main(argv=None):
          "max_abs_err": max_err["fake_quant_observe"], "ms": fq_time["ms"],
          "plain_ms": fq_time["plain_ms"], "bound_ms": fq_time["bound_ms"],
          "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"]},
-        {"name": "int8_conv", "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
-         "launches": gan_counts["int8_conv"], "max_abs_err": max_err["int8_conv"],
-         "ms": sum(r["ms"] for r in conv_rows), "plain_ms": sum(r["plain_ms"] for r in conv_rows),
-         "bound_ms": sum(r["bound_ms"] for r in conv_rows),
-         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in conv_rows)
-         else "bytes", "library_ms": (None if None in [r["library_ms"] for r in conv_rows]
-                                      else sum(r["library_ms"] for r in conv_rows))}]}
+        summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -22,13 +22,6 @@ __device__ __forceinline__ int dp4a_us(uint32_t a, uint32_t b, int c) {
   return d;
 }
 
-// signed 8-bit x signed 8-bit four-way dot product accumulated into int32
-__device__ __forceinline__ int dp4a_ss(uint32_t a, uint32_t b, int c) {
-  int d;
-  asm("dp4a.s32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 __device__ __forceinline__ uint8_t clamp_code(float q, float qmin, float qmax) {
   return (uint8_t)__float2int_rn(fminf(fmaxf(q, qmin), qmax));
 }

@@ -171,7 +171,9 @@ class QConvBNAct(nn.Module):
         return self._out
 
     def _patches(self, q: torch.Tensor) -> torch.Tensor:
-        """Zero-point-padded im2col patches, columns in (dy, dx, cin) order."""
+        """Zero-point-padded im2col patches, columns in (dy, dx, cin) order,
+        then zero columns up to a multiple of 16: the matmul kernel reads
+        16-byte aligned rows, and the packed weight is zero there."""
         kh, kw = self.kernel_size
         s, p = self.strides, self.padding
         if p:
@@ -180,6 +182,9 @@ class QConvBNAct(nn.Module):
         ho, wo = (hp - kh) // s + 1, (wp - kw) // s + 1
         cols = [q[:, dy:dy + (ho - 1) * s + 1:s, dx:dx + (wo - 1) * s + 1:s, :]
                 for dy in range(kh) for dx in range(kw)]
+        pad = -(kh * kw * q.shape[3]) % 16
+        if pad:
+            cols.append(q.new_zeros(q.shape[0], ho, wo, pad))
         return torch.cat(cols, dim=-1)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -254,7 +259,9 @@ class QConvBNAct(nn.Module):
         return QTensor(q, *self._out_t)
 
     def matmul_input(self, q: torch.Tensor) -> torch.Tensor:
-        """The (B, Ho, Wo, K) matmul operand of the 1x1 and im2col routes."""
+        """The (B, Ho, Wo, K') matmul operand of the 1x1 and im2col routes:
+        K' is the conv's K on the 1x1 route; the im2col route pads it with
+        zero columns to a multiple of 16 (``_patches``)."""
         if self._route == "matmul":
             return q[:, ::self.strides, ::self.strides, :] if self.strides != 1 else q
         return self._patches(q)

@@ -39,7 +39,11 @@ KC = 32  # input channels per kernel stage; the packed weight pads Cin to it
 class Conv3x3Operands:
     """Frozen operands of one dense 3x3 stride-1 INT8 conv."""
 
-    wt: torch.Tensor        # (Cout, 9, cin_pad) int8: qw[dy, dx, c, o] at [o, 3*dy+dx, c]
+    # (cin_pad / KC, 9, KC / 16, Cout, 16) int8: qw[dy, dx, c, o] at
+    # [c // KC, 3*dy+dx, (c % KC) // 16, o, c % 16], zero past Cin. One
+    # chunk's 16-channel slice of one tap is contiguous over o, as the
+    # kernel stages it (16 bytes per output channel).
+    wt: torch.Tensor
     cin: int
     zp_in: int
     zterm: torch.Tensor     # (Cout,) int32 = -zp_in * sum(qw[..., o])
@@ -53,11 +57,12 @@ class Conv3x3Operands:
 
     @property
     def cout(self) -> int:
-        return self.wt.shape[0]
+        return self.wt.shape[3]
 
     def weight(self) -> torch.Tensor:
         """The (Cout, Cin, 3, 3) int8 weight (torch's conv layout)."""
-        return self.wt[:, :, :self.cin].reshape(self.cout, 3, 3, self.cin).permute(0, 3, 1, 2)
+        w = self.wt.permute(3, 1, 0, 2, 4).reshape(self.cout, 9, -1)[:, :, :self.cin]
+        return w.reshape(self.cout, 3, 3, self.cin).permute(0, 3, 1, 2)
 
 
 def conv3x3_operands(qw: torch.Tensor, comb: torch.Tensor, bias: torch.Tensor, in_zp: int,
@@ -72,6 +77,7 @@ def conv3x3_operands(qw: torch.Tensor, comb: torch.Tensor, bias: torch.Tensor, i
     cin_pad = -(-cin // KC) * KC
     wt = torch.zeros((cout, 9, cin_pad), dtype=torch.int8)
     wt[:, :, :cin] = qw.to(torch.int8).permute(3, 0, 1, 2).reshape(cout, 9, cin)
+    wt = wt.reshape(cout, 9, cin_pad // KC, KC // 16, 16).permute(2, 1, 3, 0, 4).contiguous()
     zterm = -int(in_zp) * qw.to(torch.int32).sum(dim=(0, 1, 2))
     scale, bias, out_mult = epilogue_constants(comb, bias, out_scale, relu)
     return Conv3x3Operands(
@@ -138,7 +144,7 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
     lib = _bind()
     err = lib.frost_conv3x3_s1_int8(
         x.data_ptr(), op.wt.data_ptr(), op.zterm.data_ptr(), op.scale.data_ptr(),
-        op.bias.data_ptr(), out.data_ptr(), b, h, w, op.cin, op.cout, op.wt.shape[2],
+        op.bias.data_ptr(), out.data_ptr(), b, h, w, op.cin, op.cout, op.wt.shape[0] * KC,
         op.zp_in, int(op.relu), op.out_mult, float(op.out_zp), float(op.qmin),
         float(op.qmax), torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, lib.frost_conv3x3_error_string, "conv3x3_s1_int8")

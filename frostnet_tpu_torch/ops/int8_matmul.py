@@ -11,6 +11,9 @@ INT8 1x1 convolution (``frostnet_tpu/nn/conv.py`` INT8 branch)::
 ``x`` is the (M, K) uint8 activation codes (or int8 values). Taking the
 codes unshifted gives the same int32 as the JAX package's ``(q - 128)``
 form. The TPU kernel is the case of no ReLU, ``zterm = 0`` and [0, 255].
+``x`` may carry extra columns up to the packed weight's row length (the
+im2col route pads its rows to 16 bytes): they meet zero weights and are
+ignored.
 
 :func:`int8_matmul_requant` launches the kernel for CUDA tensors and runs
 :func:`int8_matmul_requant_plain` for CPU tensors only. What bounds the
@@ -26,7 +29,9 @@ import torch
 from . import cuda_build
 from .requant import epilogue_constants, requant_epilogue
 
-K_ALIGN = 64  # weight rows are zero-padded to a multiple of the kernel's K step
+# weight rows are zero-padded to a multiple of K_ALIGN bytes (the launcher
+# checks it; TMA fills zeros from there to the end of a 128-byte K chunk)
+K_ALIGN = 64
 
 
 @dataclasses.dataclass
@@ -87,7 +92,7 @@ def int8_matmul_requant_plain(x: torch.Tensor, op: MatmulOperands) -> torch.Tens
     these int8 products exactly.
     """
     w = op.wt[:, :op.k].to(torch.float64).t()
-    acc = (x.to(torch.float64) @ w).to(torch.int32) + op.zterm
+    acc = (x[:, :op.k].to(torch.float64) @ w).to(torch.int32) + op.zterm
     return requant_epilogue(acc, op.scale, op.bias, op.out_mult, op.out_zp,
                             op.relu, op.qmin, op.qmax)
 
@@ -105,13 +110,14 @@ def _bind():
 
 
 def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
-    """(M, K) uint8/int8 -> (M, N) uint8 through the CUDA kernel.
+    """(M, K') uint8/int8 -> (M, N) uint8 through the CUDA kernel.
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel
     (or raises). Each launch adds one to ``int8_matmul_requant.launches``.
     """
-    if x.dim() != 2 or x.shape[1] != op.k:
-        raise ValueError(f"x must be (M, {op.k}), got {tuple(x.shape)}")
+    if x.dim() != 2 or not op.k <= x.shape[1] <= op.wt.shape[1]:
+        raise ValueError(f"x must be (M, K) with {op.k} <= K <= {op.wt.shape[1]}, "
+                         f"got {tuple(x.shape)}")
     if x.dtype not in (torch.uint8, torch.int8):
         raise TypeError(f"x must be uint8 or int8, got {x.dtype}")
     if x.device != op.wt.device:
@@ -126,7 +132,7 @@ def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
     lib = _bind()
     err = lib.frost_int8_matmul_requant(
         x.data_ptr(), op.wt.data_ptr(), op.zterm.data_ptr(), op.scale.data_ptr(),
-        op.bias.data_ptr(), out.data_ptr(), m, op.n, op.k, op.wt.shape[1],
+        op.bias.data_ptr(), out.data_ptr(), m, op.n, x.shape[1], op.wt.shape[1],
         int(x.dtype == torch.uint8), int(op.relu), op.out_mult, float(op.out_zp),
         float(op.qmin), float(op.qmax), torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, lib.frost_int8_matmul_error_string, "int8_matmul_requant")

@@ -26,8 +26,13 @@ from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_re
 
 pytestmark = pytest.mark.cuda
 
+# the model's shapes, then shapes that cut the kernel's tiles (64 or 128
+# rows, 64, 128 or 256 columns, 128-byte K chunks): M=8 and 392, the stems'
+# K=27 and 147 (rows not 16-byte aligned), K=1152 with N=256, N=1000
 MATMUL_SHAPES = [(256, 136, 816), (100, 24, 144), (17, 8, 40),
-                 (100352, 27, 32), (392, 320, 1280), (8, 1280, 1000)]
+                 (100352, 27, 32), (392, 320, 1280), (8, 1280, 1000),
+                 (8, 27, 1000), (392, 576, 128), (5000, 147, 64), (4096, 1152, 256),
+                 (1000, 40, 72), (17000, 576, 300)]
 
 BLOCKS = [
     dict(h=14, w=14, cin=96, cout=96, kernel=5, stride=1, has_squeeze=True,
@@ -45,20 +50,43 @@ BLOCKS = [
 ]
 
 
+def _matmul_case(m, k, n, signed, qmax, device, seed=1):
+    rng = np.random.RandomState(seed)
+    lo, hi, dt = (-128, 128, np.int8) if signed else (0, qmax + 1, np.uint8)
+    x = torch.as_tensor(rng.randint(lo, hi, (m, k)).astype(dt), device=device)
+    # scales that spread each output over many codes (per channel on fbgemm)
+    comb = rng.rand(n if qmax == 127 else 1).astype(np.float32) * 2e-4 + 1e-4
+    op = conv1x1_operands(torch.as_tensor(rng.randint(-128, 128, (k, n)).astype(np.int8)),
+                          torch.as_tensor(comb.reshape(-1) if qmax == 127 else comb[0]) /
+                          np.sqrt(k),
+                          torch.as_tensor(rng.randn(n).astype(np.float32)), 113, 0.02, 7,
+                          not signed, 0, qmax, device)
+    return x, op
+
+
+@pytest.mark.parametrize("qmax", [255, 127], ids=["qnnpack", "fbgemm"])
 @pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
 @pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
-def test_int8_matmul_kernel_matches_plain(cuda_device, m, k, n, signed):
-    rng = np.random.RandomState(1)
-    lo, hi, dt = (-128, 128, np.int8) if signed else (0, 256, np.uint8)
-    x = torch.as_tensor(rng.randint(lo, hi, (m, k)).astype(dt), device=cuda_device)
-    op = conv1x1_operands(torch.as_tensor(rng.randint(-128, 128, (k, n)).astype(np.int8)),
-                          torch.as_tensor(rng.rand(n).astype(np.float32) * 1e-4),
-                          torch.as_tensor(rng.randn(n).astype(np.float32)), 113, 0.02, 7,
-                          not signed, 0, 255, cuda_device)
+def test_int8_matmul_kernel_matches_plain(cuda_device, m, k, n, signed, qmax):
+    x, op = _matmul_case(m, k, n, signed, qmax, cuda_device)
     before = int8_matmul_requant.launches
     got = int8_matmul_requant(x, op)
     assert int8_matmul_requant.launches == before + 1
-    assert torch.equal(got, int8_matmul_requant_plain(x, op))
+    want = int8_matmul_requant_plain(x, op)
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 16
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 64, 72), (130, 1152, 256), (77, 147, 64)])
+def test_int8_matmul_kernel_unaligned_rows(cuda_device, m, k, n):
+    """x one byte into its storage: no row is 16-byte aligned, so every K
+    takes the kernel's aligned-word path."""
+    x, op = _matmul_case(m, k, n, False, 255, cuda_device, seed=2)
+    buf = torch.empty(m * k + 1, dtype=torch.uint8, device=cuda_device)
+    xs = buf[1:].view(m, k)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16 != 0
+    assert torch.equal(int8_matmul_requant(xs, op), int8_matmul_requant_plain(x, op))
 
 
 @pytest.mark.parametrize("case", BLOCKS, ids=lambda c: f"{c['h']}x{c['cin']}_e{c['c_e']}_k{c['kernel']}s{c['stride']}")
@@ -124,8 +152,11 @@ def test_fake_quant_ste_gradient(cuda_device):
 
 
 # (H, W, Cin, Cout) of the GAN generator's 20 dense 3x3 convs (18 block convs,
-# up0, up1), and a ragged shape for the kernel's edge tiles
-CONV_SHAPES = [(64, 64, 256, 256), (128, 128, 256, 128), (256, 256, 128, 64), (13, 21, 68, 36)]
+# up0, up1), and ragged shapes for the kernel's edge tiles (4 rows x 64
+# columns x 64 or 128 channels, 32-channel chunks; 16-byte loads only where
+# Cin is a multiple of 16): W and Cout past a tile, Cin not a multiple of 32
+CONV_SHAPES = [(64, 64, 256, 256), (128, 128, 256, 128), (256, 256, 128, 64), (13, 21, 68, 36),
+               (37, 75, 68, 132), (6, 70, 48, 52), (9, 130, 100, 200)]
 
 
 @pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])

@@ -23,7 +23,7 @@ from frostnet_tpu.nn.conv import set_pallas_int8_dense
 from frostnet_tpu.quant.qtensor import QTensor as JQTensor
 from frostnet_tpu_torch import nn as tnn
 from frostnet_tpu_torch import quant as tq
-from frostnet_tpu_torch.ops.int8_conv import (conv3x3_acc, conv3x3_operands, conv3x3_s1_int8,
+from frostnet_tpu_torch.ops.int8_conv import (KC, conv3x3_acc, conv3x3_operands, conv3x3_s1_int8,
                                               conv3x3_s1_int8_plain)
 from frostnet_tpu_torch.quant.export import from_jax_variables
 
@@ -88,6 +88,52 @@ def test_plain_matches_jax_freeze(backend, act):
     assert conv3x3_s1_int8.launches == before  # a CPU tensor launches nothing
     np.testing.assert_array_equal(got, want)
     _spread(want, jqc.activation.qmax)
+
+
+# Shapes that cut the CUDA kernel's tiles (4 rows x 64 columns x 64 or 128
+# output channels, 32-channel chunks): W past 64, Cout past 128 and not a
+# multiple of 64, Cin not a multiple of 32 or of 16.
+EDGE_SHAPES = [(5, 75, 68, 132), (6, 70, 48, 52), (3, 66, 100, 200)]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=lambda s: "{}x{}_{}to{}".format(*s))
+@pytest.mark.parametrize("backend", ["qnnpack", "fbgemm"])
+def test_plain_matches_jax_freeze_at_tile_edges(backend, shape):
+    h, w, cin, cout = shape
+    act = "relu" if backend == "fbgemm" else None
+    variables, xq, grid = _case(backend, act, cin, cout, 1, seed=cin + cout)
+    xq = np.random.RandomState(cout).randint(0, jq.get_qconfig(backend).activation.qmax + 1,
+                                             (2, h, w, cin)).astype(np.uint8)
+    jqc = jq.get_qconfig(backend)
+    want = _frozen_jax_conv(jnn.QConvBNAct(cout, 3, padding=1, act=act, qconfig=jqc),
+                            variables, xq, grid)
+    conv = _port_conv(backend, act, cin, cout, variables, grid)
+    assert conv._route == "dense3x3"
+    got = conv(tq.QTensor(torch.as_tensor(xq), None, None), tnn.INT8).q.numpy()
+    np.testing.assert_array_equal(got, want)
+    _spread(want, jqc.activation.qmax)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 8), (68, 132), (256, 256)])
+def test_weight_packing(cin, cout):
+    """The kernel reads wt[c // KC, 3*dy+dx, (c % KC) // 16, o, c % 16]
+    int8, c zero-padded to a multiple of KC (its 32-channel chunk): each
+    chunk's 16-channel slice of a tap is contiguous over o. The packing
+    round-trips."""
+    qw = torch.as_tensor(np.random.RandomState(cin).randint(-128, 128, (3, 3, cin, cout))
+                         .astype(np.int8))
+    op = conv3x3_operands(qw, torch.tensor(0.01), torch.zeros(cout), 3, 1.0, 0, False, 0, 255,
+                          "cpu")
+    cin_pad = -(-cin // KC) * KC
+    assert KC == 32 and op.wt.dtype == torch.int8 and op.wt.is_contiguous()
+    assert tuple(op.wt.shape) == (cin_pad // KC, 9, KC // 16, cout, 16)
+    flat = op.wt.permute(1, 0, 2, 4, 3).reshape(9, cin_pad, cout)  # [tap, c, o]
+    assert not flat[:, cin:].any()
+    assert torch.equal(flat[:, :cin].reshape(3, 3, cin, cout), qw)
+    c, o = cin - 1, cout - 1  # one element by the formula
+    assert int(op.wt[c // KC, 8, (c % KC) // 16, o, c % 16]) == int(qw[2, 2, c, o])
+    assert torch.equal(op.weight().permute(2, 3, 1, 0), qw)
+    assert (op.cin, op.cout) == (cin, cout)
 
 
 @pytest.mark.parametrize("hw", [8, 16])

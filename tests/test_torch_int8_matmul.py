@@ -17,12 +17,16 @@ from frostnet_tpu.ops.pallas_int8_matmul import reference_int8_matmul_requant
 from frostnet_tpu.quant.qtensor import QTensor as JQTensor
 from frostnet_tpu_torch import nn as tnn
 from frostnet_tpu_torch import quant as tq
-from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
+from frostnet_tpu_torch.ops.int8_matmul import (K_ALIGN, conv1x1_operands, int8_matmul_requant,
                                                 pack_operands)
 from frostnet_tpu_torch.ops.requant import reciprocal
 from frostnet_tpu_torch.quant.export import from_jax_variables
 
-SHAPES = [(256, 136, 816), (100, 24, 144), (17, 8, 40)]  # tests/test_pallas_int8_matmul.py
+# tests/test_pallas_int8_matmul.py, then shapes that cut the CUDA kernel's
+# tiles: the classifier (M=8, N=1000), last_layer (M=392), the stems' K=27
+# and K=147 (rows not 4-byte aligned), a GAN down's K=1152 with N=256
+SHAPES = [(256, 136, 816), (100, 24, 144), (17, 8, 40),
+          (8, 1280, 1000), (392, 320, 1280), (300, 27, 16), (200, 147, 64), (136, 1152, 256)]
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
@@ -44,6 +48,22 @@ def test_plain_matches_jax_reference(m, k, n):
     got = int8_matmul_requant(torch.as_tensor(x8), op)
     assert int8_matmul_requant.launches == before  # a CPU tensor launches nothing
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,n", [(27, 16), (147, 64), (1152, 256), (1280, 1000)])
+def test_weight_packing(k, n):
+    """The kernel reads wt[n, k] int8 rows of ldw bytes, ldw a multiple of
+    K_ALIGN (the row padding its launcher requires), zero past K; the
+    packing round-trips."""
+    w = torch.as_tensor(np.random.RandomState(k).randint(-128, 128, (k, n)).astype(np.int8))
+    op = pack_operands(w, torch.zeros(n, dtype=torch.int32), torch.ones(n), torch.zeros(n), 1.0,
+                       0, False, 0, 255, "cpu")
+    assert K_ALIGN == 64 and op.wt.dtype == torch.int8 and op.wt.is_contiguous()
+    assert tuple(op.wt.shape) == (n, -(-k // K_ALIGN) * K_ALIGN) and op.k == k
+    assert not op.wt[:, k:].any()
+    assert torch.equal(op.wt[:, :k].t(), w)
+    assert (op.zterm.dtype, op.scale.dtype, op.bias.dtype) == (torch.int32, torch.float32,
+                                                               torch.float32)
 
 
 def _frozen_jax_conv(module, variables, xq, grid):
