@@ -8,11 +8,13 @@ Phases (each raises on failure, and any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the serving and training paths from
      ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together), and
-     read the dense conv's and the matmul's SASS (``cuobjdump -sass``): both
-     must issue int8 tensor-core instructions (GMMA) and no dp4a (IDP);
+     read the Frost block's, the dense conv's and the matmul's SASS
+     (``cuobjdump -sass``): each must issue int8 tensor-core instructions
+     (IMMA from mma.sync, or GMMA from wgmma) and no dp4a (IDP);
   3. hold each kernel against its plain torch version on the card, bit-exact:
-     the 18 Frost-block shapes of frostnet_quant_large_1_0 at 224x224, batch 8,
-     for qnnpack and fbgemm, every INT8 matmul of the fused and unfused
+     the 18 Frost-block shapes of frostnet_quant_large_1_0 at 224x224, at
+     batch 1, 8 and 128 (each its own launch plan: cluster size, tile,
+     chunk), for qnnpack and fbgemm, every INT8 matmul of the fused and unfused
      forwards (on the inputs those forwards give it, and with an fbgemm grid),
      and the matmul at shapes that cut its tiles (``MATMUL_EDGES``: M=8 and
      392, K=27 and 147, K=1152 with N=256, N=1000 and 300), u8 and s8, qnnpack and
@@ -29,10 +31,14 @@ Phases (each raises on failure, and any failure exits non-zero):
      plain version and ``torch._int_mm`` (GEMM only, where its shape rules
      allow), and images/s at batch 8 and 128, fused and unfused (whose logits
      must agree at both batches). Every kernel's ``ms`` is the wall time of
-     back-to-back calls; the matmul and conv rows also give ``device_ms``
-     (a CUDA graph of many launches, replayed: the wrappers' host work, which
-     bounds the wall time at small shapes, stays out), their rates and bound
-     share come from it, and ``torch._int_mm`` is timed both ways;
+     back-to-back calls; the block, matmul and conv rows also give
+     ``device_ms`` (a CUDA graph of many launches, replayed: the wrappers'
+     host work, which bounds the wall time at small shapes, stays out), their
+     rates and bound share come from it, and ``torch._int_mm`` is timed both
+     ways; the blocks' wall and device time summed at batch 1 and 128
+     too (``time_blocks`` of ``scripts/time_frost_block.py``); one
+     profiled fused forward at batch 8 split into the block kernel, the
+     matmul kernel and the torch ops, with the device's idle share;
   7. the fake-quant kernel against its plain version, bit for bit, at every
      per-tensor site of a full-width QAT forward (224x224, batch 8,
      qnnpack; the inputs of a forward with fresh observers and of one with
@@ -82,8 +88,8 @@ The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
 ``library_ms`` are wall times of back-to-back calls, except the fake-quant
-kernel's, which are torch.profiler device time; the matmul and conv entries
-add ``device_ms`` and ``library_device_ms``. A matmul's bound counts its
+kernel's, which are torch.profiler device time; the block, matmul and conv
+entries add ``device_ms`` and ``library_device_ms``. A matmul's bound counts its
 own K, not the zero columns the im2col route pads rows with.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
@@ -111,7 +117,7 @@ from frostnet_tpu_torch.ops import cuda_build
 from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
                                                fake_quant_observe_plain)
 from frostnet_tpu_torch.ops.frost_block import (frost_block_int8, frost_block_int8_plain,
-                                                random_block_case)
+                                                plan_launch, random_block_case, sm_count)
 from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
                                               conv3x3_s1_int8_plain)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
@@ -123,6 +129,7 @@ from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
 from frostnet_tpu_torch import serve
 from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
                                       prep_image)
+from scripts.time_frost_block import time_blocks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "frostnet_tpu_torch", "testdata")
@@ -131,6 +138,7 @@ ARTIFACT = os.path.join(TESTDATA, f"{MODEL}_int8.npz")
 REFERENCE = os.path.join(TESTDATA, f"{MODEL}_reference.npz")
 TRAIN_REFERENCE = os.path.join(TESTDATA, f"{MODEL}_train_reference.npz")
 IMAGE, BATCH, CLASSES = 224, 8, 1000
+BLOCK_BATCHES = (1, 8, 128)  # phase 3a: each batch size has its own launch plan
 # H100 SXM, dense: HBM rate, int8 tensor-core rate, float32 outside the
 # tensor cores (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -258,23 +266,24 @@ def rates_text(r) -> str:
 
 
 def check_sass():
-    """Phase 2: the dense conv and the matmul issue int8 tensor-core
-    instructions (wgmma: GMMA in SASS) and no dp4a (IDP)."""
+    """Phase 2: the Frost block, the dense conv and the matmul issue int8
+    tensor-core instructions (mma.sync: IMMA in SASS; wgmma: GMMA) and no
+    dp4a (IDP)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
-    for name in ("int8_conv", "int8_matmul"):
+    for name in ("frost_block", "int8_conv", "int8_matmul"):
         sass = subprocess.run([tool, "-sass", str(cuda_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         ops = {}
         for line in sass.splitlines():
             for word in line.replace(";", " ").split():
-                if "GMMA" in word or word.startswith("IDP"):
+                if "GMMA" in word or "IMMA" in word or word.startswith("IDP"):
                     ops[word] = ops.get(word, 0) + 1
-        gmma = sum(n for w, n in ops.items() if "GMMA" in w)
+        mma = sum(n for w, n in ops.items() if "GMMA" in w or "IMMA" in w)
         dp4a = sum(n for w, n in ops.items() if w.startswith("IDP"))
-        if gmma == 0 or dp4a:
-            raise AssertionError(f"{name}: {gmma} tensor-core (GMMA) and {dp4a} dp4a (IDP) "
-                                 f"instructions in its SASS; expected GMMA only: {ops}")
+        if mma == 0 or dp4a:
+            raise AssertionError(f"{name}: {mma} tensor-core (IMMA, GMMA) and {dp4a} dp4a (IDP) "
+                                 f"instructions in its SASS; expected tensor-core only: {ops}")
         found[name] = ops
     return found
 
@@ -892,23 +901,27 @@ def serve_gan(pred):
     return counts, err, err_tf32
 
 
-def profile_gan(pred, x):
-    """One profiled forward: device ms and launches of the conv kernel, the
-    matmul kernel and the torch ops (and the torch ops' largest kernels),
-    and the device's idle share."""
+GAN_KERNELS = {"int8_conv": "conv3x3_s1_int8", "int8_matmul_requant": "int8_matmul_requant"}
+FROSTNET_KERNELS = {"frost_block_int8": "frost_block_kernel",
+                    "int8_matmul_requant": "int8_matmul_requant"}
+
+
+def profile_forward(pred, x, kernels):
+    """One profiled forward: device ms and launches of each of ``kernels``
+    (name -> a substring of its CUDA kernel's name) and of the torch ops
+    (and the torch ops' largest kernels), and the device's idle share."""
     pred(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pred(x)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
         raise RuntimeError("torch.profiler recorded no device activity")
-    split = {"int8_conv": [0.0, 0], "int8_matmul_requant": [0.0, 0], "torch ops": [0.0, 0]}
+    split = {k: [0.0, 0] for k in list(kernels) + ["torch ops"]}
     by_name = {}
-    for e in kernels:
-        key = ("int8_conv" if "conv3x3_s1_int8" in e.name else
-               "int8_matmul_requant" if "int8_matmul_requant" in e.name else "torch ops")
+    for e in events:
+        key = next((k for k, sub in kernels.items() if sub in e.name), "torch ops")
         ms = e.time_range.elapsed_us() / 1e3
         split[key][0] += ms
         split[key][1] += 1
@@ -916,8 +929,8 @@ def profile_gan(pred, x):
             top = by_name.setdefault(e.name[:90], [0.0, 0])
             top[0] += ms
             top[1] += 1
-    window = (max(e.time_range.end for e in kernels)
-              - min(e.time_range.start for e in kernels)) / 1e3
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events)) / 1e3
     busy = sum(v[0] for v in split.values())
     return {"device_ms": {k: v[0] for k, v in split.items()},
             "launches": {k: v[1] for k, v in split.items()},
@@ -959,14 +972,18 @@ def time_gan(pred, dev):
         ms = time_ms(lambda: pred(xb), reps=10 if b < 16 else 5, warmup=1)
         throughput[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3}
         log(f"[time] GAN serving batch {b}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
-    prof = profile_gan(pred, torch.as_tensor(gan_images(3, 8), device=dev))
-    log(f"[time] GAN forward at batch 8, device ms: " + ", ".join(
+    prof = profile_forward(pred, torch.as_tensor(gan_images(3, 8), device=dev), GAN_KERNELS)
+    log_profile("GAN forward at batch 8", prof)
+    return rows, mm_rows, throughput, prof
+
+
+def log_profile(what, prof):
+    log(f"[time] {what}, device ms: " + ", ".join(
         f"{k} {v:.3f} ({prof['launches'][k]} launches)" for k, v in prof["device_ms"].items())
         + f"; busy {prof['busy_ms']:.3f} of a {prof['window_ms']:.3f} ms window "
         f"(idle {100 * prof['idle_share']:.1f}%)")
     for name, ms, n in prof["torch_ops_top"]:
         log(f"    torch op {ms:.3f} ms x{n} {name}")
-    return rows, mm_rows, throughput, prof
 
 
 def main(argv=None):
@@ -999,19 +1016,24 @@ def main(argv=None):
     report["sass"] = check_sass()
     log(f"[build] int8 tensor-core instructions, no dp4a: {report['sass']}")
 
-    # 3a. the block kernel at the 18 main-path shapes, qnnpack and fbgemm
+    # 3a. the block kernel at the 18 main-path shapes, batch 1, 8 and 128,
+    # qnnpack and fbgemm
     max_err = {"frost_block_int8": 0, "int8_matmul_requant": 0}
     block_specs = {}
     for backend in ("qnnpack", "fbgemm"):
         net = create_model(MODEL, qconfig=get_qconfig(backend))
         block_specs[backend] = net.block_specs(IMAGE)
-        for i, (name, spec) in enumerate(block_specs[backend]):
-            x, p = random_block_case(spec, BATCH, seed=i, device=dev)
-            err = check_equal(f"{backend} {name}", frost_block_int8(x, p, spec),
-                              frost_block_int8_plain(x, p, spec))
-            max_err["frost_block_int8"] = max(max_err["frost_block_int8"], err)
-        log(f"[check] frost_block_int8 == plain at {len(block_specs[backend])} shapes "
-            f"({backend}, batch {BATCH})")
+        clusters = set()
+        for batch in BLOCK_BATCHES:
+            for i, (name, spec) in enumerate(block_specs[backend]):
+                x, p = random_block_case(spec, batch, seed=i, device=dev)
+                err = check_equal(f"{backend} {name} batch {batch}", frost_block_int8(x, p, spec),
+                                  frost_block_int8_plain(x, p, spec))
+                max_err["frost_block_int8"] = max(max_err["frost_block_int8"], err)
+                clusters.add(plan_launch(spec, batch, sm_count(dev.index or 0)).cluster)
+            torch.cuda.synchronize()
+        log(f"[check] frost_block_int8 == plain at {len(block_specs[backend])} shapes x batch "
+            f"{BLOCK_BATCHES} ({backend}); clusters of {sorted(clusters)} CUDA blocks")
 
     # 3b. fixture models, fused and unfused: every kernel input of one forward
     images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
@@ -1025,8 +1047,7 @@ def main(argv=None):
         for name, mod, inp in calls:
             if isinstance(mod, CascadePreExBottleneck):
                 err = check_equal(f"{name} (fixture)",
-                                  frost_block_int8(inp.q, mod._params, mod._spec,
-                                                   mod._plan, mod._args),
+                                  frost_block_int8(inp.q, mod._params, mod._spec),
                                   frost_block_int8_plain(inp.q, mod._params, mod._spec))
                 max_err["frost_block_int8"] = max(max_err["frost_block_int8"], err)
             elif mod._route in ("matmul", "im2col"):
@@ -1097,14 +1118,22 @@ def main(argv=None):
     timing = {"frost_block_int8": [], "int8_matmul_requant": []}
     for name, spec in block_specs["qnnpack"]:
         x, p = random_block_case(spec, BATCH, seed=0, device=dev)
-        ms = time_ms(lambda: frost_block_int8(x, p, spec), reps=50)
-        plain_ms = time_ms(lambda: frost_block_int8_plain(x, p, spec), reps=3, warmup=1)
-        b_ms, b_by = bound(*block_cost(spec, BATCH))
-        timing["frost_block_int8"].append(dict(shape=name, ms=ms, plain_ms=plain_ms,
-                                               bound_ms=b_ms, bound_by=b_by, library_ms=None))
-        log(f"[time] frost_block_int8 {name} {spec.h}x{spec.w}x{spec.cin}->{spec.cout} "
-            f"E={spec.c_e} k{spec.kernel}s{spec.stride}: {ms:.4f} ms (bound {b_ms:.4f} "
-            f"{b_by}, plain {plain_ms:.3f})")
+        plan = plan_launch(spec, BATCH, sm_count(dev.index or 0))
+        row = kernel_row(f"{name} {spec.h}x{spec.w}x{spec.cin}->{spec.cout} E={spec.c_e} "
+                         f"k{spec.kernel}s{spec.stride}", lambda: frost_block_int8(x, p, spec),
+                         lambda: frost_block_int8_plain(x, p, spec), block_cost(spec, BATCH),
+                         (None, None), reps=50, plain_reps=3)
+        row.update(cluster=plan.cluster, grid=plan.grid, smem=plan.smem)
+        timing["frost_block_int8"].append(row)
+        log(f"[time] frost_block_int8 {row['shape']} (cluster {plan.cluster}, grid {plan.grid}, "
+            f"{plan.smem} B shared): {row_text(row)}")
+    block_sums = {}
+    for b in (1, 128):
+        got = time_blocks(block_specs["qnnpack"], b, time_ms, graph_ms)
+        block_sums[f"bs{b}"] = {"wall_ms": got["wall_ms"], "device_ms": got["device_ms"]}
+        log(f"[time] frost_block_int8, the 18 blocks at batch {b}: {got['wall_ms']:.4f} ms wall, "
+            f"{got['device_ms']:.4f} device")
+    report["block_ms_sums"] = block_sums
     for fuse in (True, False):
         for name, a, op in mm_shapes[fuse]:
             entry = kernel_row(f"{name} {matmul_shape(a, op)}", lambda: int8_matmul_requant(a, op),
@@ -1129,6 +1158,10 @@ def main(argv=None):
             log(f"[time] serving batch {b} {'fused' if fuse else 'unfused'}: "
                 f"{ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
     report["throughput"] = throughput
+    x8 = torch.as_tensor(np.random.RandomState(2).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32),
+                         device=dev)
+    report["fused_profile"] = profile_forward(preds[True], x8, FROSTNET_KERNELS)
+    log_profile(f"fused forward at batch {BATCH}", report["fused_profile"])
 
     # 7. the fake-quant kernel at every per-tensor site of a full-width QAT forward
     checked, max_err["fake_quant_observe"], largest = check_fake_quant(dev)

@@ -15,13 +15,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// unsigned 8-bit x signed 8-bit four-way dot product accumulated into int32
-__device__ __forceinline__ int dp4a_us(uint32_t a, uint32_t b, int c) {
-  int d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 __device__ __forceinline__ uint8_t clamp_code(float q, float qmin, float qmax) {
   return (uint8_t)__float2int_rn(fminf(fmaxf(q, qmin), qmax));
 }

@@ -21,8 +21,7 @@ import torch
 from torch import nn
 
 from ..nn import FP32, QAdd, QCat, QConvBNAct, QuantMode, QuantStub, dequant, global_avg_pool
-from ..ops.frost_block import (FrostBlockSpec, build_params, frost_block_int8,
-                               launch_args, plan_launch)
+from ..ops.frost_block import FrostBlockSpec, build_params, frost_block_int8
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 
@@ -164,14 +163,12 @@ class CascadePreExBottleneck(nn.Module):
         self._spec = spec
         self._params = build_params(spec, x_scale=x.scale, x_zp=x.zero_point, sq=sq,
                                     cat=cat, ex=ex, dw=dw, rd=rd, add=add, device=device)
-        self._plan = plan_launch(spec)
-        self._args = launch_args(spec, self._params, self._plan) if device.type == "cuda" else None
         self._out_t = out.tensors(device)
         return out
 
     def forward(self, x, mode: QuantMode = FP32, train: bool = False):
         if mode.int8 and self.fuse_int8:
-            q = frost_block_int8(x.q, self._params, self._spec, self._plan, self._args)
+            q = frost_block_int8(x.q, self._params, self._spec)
             return QTensor(q, *self._out_t)
         out = x
         if self.has_squeeze:

@@ -48,6 +48,29 @@ BLOCKS = [
     dict(h=7, w=7, cin=192, cout=320, kernel=5, stride=1, has_squeeze=True,
          has_expand=True, c_sq=96, c_e=1728, residual=False),
 ]
+# shapes of frostnet_quant_large_1_0 that reach every cluster size the
+# planner picks on an H100 (132 SMs): 7x7 E1440 (layer4_1) at batch 1, 3, 8
+# (a cluster of 16) and 128 (2), on the fbgemm grid too; E720, which is not a
+# multiple of 16 x 32 (layer4_3, 16); stride 2 k5 into 7x7 (layer4_0, 16); a
+# 14x14 map as one tile (layer3_4 above, 8); 112x112 without expand
+# (layer1_0, 1); 28x28 E168 at batch 1 (layer2_1, 4)
+L4_1 = dict(h=7, w=7, cin=192, cout=192, kernel=5, stride=1, has_squeeze=True,
+            has_expand=True, c_sq=48, c_e=1440, residual=True)
+CLUSTER_BLOCKS = [(L4_1, 1), (L4_1, 3), (L4_1, 8), (L4_1, 128), ({**L4_1, "act_qmax": 127}, 8),
+                  ({**L4_1, "c_e": 720}, 8),
+                  (dict(h=14, w=14, cin=96, cout=192, kernel=5, stride=2, has_squeeze=True,
+                        has_expand=True, c_sq=48, c_e=864, residual=False), 8),
+                  (dict(h=112, w=112, cin=32, cout=16, kernel=3, stride=1, has_squeeze=False,
+                        has_expand=False, c_sq=0, c_e=32, residual=False), 8),
+                  (dict(h=28, w=28, cin=40, cout=40, kernel=3, stride=1, has_squeeze=True,
+                        has_expand=True, c_sq=16, c_e=168, residual=True), 1)]
+BLOCK_CASES = [(c, 8) for c in BLOCKS] + CLUSTER_BLOCKS
+
+
+def _block_id(case):
+    c, batch = case
+    return (f"{c['h']}x{c['cin']}_e{c['c_e']}_k{c['kernel']}s{c['stride']}"
+            + ("" if batch == 8 and c in BLOCKS else f"_q{c.get('act_qmax', 255)}_b{batch}"))
 
 
 def _matmul_case(m, k, n, signed, qmax, device, seed=1):
@@ -89,14 +112,32 @@ def test_int8_matmul_kernel_unaligned_rows(cuda_device, m, k, n):
     assert torch.equal(int8_matmul_requant(xs, op), int8_matmul_requant_plain(x, op))
 
 
-@pytest.mark.parametrize("case", BLOCKS, ids=lambda c: f"{c['h']}x{c['cin']}_e{c['c_e']}_k{c['kernel']}s{c['stride']}")
+@pytest.mark.parametrize("case", BLOCK_CASES, ids=_block_id)
 def test_frost_block_kernel_matches_plain(cuda_device, case):
+    case, batch = case
     spec = tfb.FrostBlockSpec(**case)
-    x, p = tfb.random_block_case(spec, 8, seed=3, device=cuda_device)
+    x, p = tfb.random_block_case(spec, batch, seed=3, device=cuda_device)
     before = tfb.frost_block_int8.launches
     got = tfb.frost_block_int8(x, p, spec)
     assert tfb.frost_block_int8.launches == before + 1
-    assert torch.equal(got, tfb.frost_block_int8_plain(x, p, spec))
+    want = tfb.frost_block_int8_plain(x, p, spec)
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 16
+
+
+def test_frost_block_batches_share_packed_weights(cuda_device):
+    """One block called at several batch sizes: a launch per batch, one
+    packed copy of the weights per distinct ``pack_key``, each bit-exact."""
+    spec = tfb.FrostBlockSpec(**L4_1)
+    x, p = tfb.random_block_case(spec, 16, seed=4, device=cuda_device)
+    for batch in (1, 2, 8, 16):
+        assert torch.equal(tfb.frost_block_int8(x[:batch], p, spec),
+                           tfb.frost_block_int8_plain(x[:batch], p, spec))
+    keys = {launch.plan.pack_key for launch in p.launches.values()}
+    assert sorted(p.launches) == [1, 2, 8, 16] and len(keys) < 4
+    assert set(p.packed) == keys | {"head"}
+    for launch in p.launches.values():
+        assert launch.stages is p.packed[launch.plan.pack_key] and launch.head is p.packed["head"]
 
 
 # (shape, scale of the values, observer state before: None = fresh)
