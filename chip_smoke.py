@@ -7,10 +7,12 @@ Run from the repository root on a machine with one CUDA card:
 Phases (each raises on failure, and any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the serving and training paths from
-     ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together), and
-     read the Frost block's, the dense conv's and the matmul's SASS
-     (``cuobjdump -sass``): each must issue int8 tensor-core instructions
-     (IMMA from mma.sync, or GMMA from wgmma) and no dp4a (IDP);
+     ``frostnet_tpu_torch/csrc`` (one nvcc per source, started together),
+     report what ``-Xptxas -v`` says of each fake-quant kernel (registers,
+     shared memory, spills), and read the Frost block's, the dense conv's and
+     the matmul's SASS (``cuobjdump -sass``): each must issue int8
+     tensor-core instructions (IMMA from mma.sync, or GMMA from wgmma) and no
+     dp4a (IDP);
   3. hold each kernel against its plain torch version on the card, bit-exact:
      the 18 Frost-block shapes of frostnet_quant_large_1_0 at 224x224, at
      batch 1, 8 and 128 (each its own launch plan: cluster size, tile,
@@ -44,21 +46,26 @@ Phases (each raises on failure, and any failure exits non-zero):
      qnnpack; the inputs of a forward with fresh observers and of one with
      calibrated ones), each in float32 and bfloat16: y, the STE mask, the
      new observer state and the qparams; then the QAT_FROZEN pass on the
-     new state, and the STE gradient of the largest site;
+     new state, and the STE gradient of the largest site; then the smallest
+     site (the kernel's cluster shape) and the largest (its grid shape),
+     each captured in a CUDA graph and replayed twice, against the plain
+     version applied twice;
   8. the training main path against the committed JAX reference
      (``testdata/*_train_reference.npz``): from ``numpy_init(seed 0)`` in
      float32 with TF32 off, one FP32 step, ``start_qat``, two QAT steps and a
      QAT_FROZEN eval step (QSGD lr 0.04, ``grouped_weight_decay(4e-5)``, the
      GradBoost noise off); losses, top-1, every observer and every BN's
      running statistics within the bands below; the fake-quant launches
-     per FP32 step (0), per QAT step and per eval forward;
+     per FP32 step (0), per QAT step and per eval forward (one per site);
   9. the trained model frozen and served fused: 18 + 3 launches, finite
      logits equal to the unfused ones;
  10. the training step as ``bench.py`` runs it (bf16, QSGD lr 0.04,
      ``grouped_weight_decay(4e-5)``) at batch 128 and 256 (where it fits):
      ms/step and images/s of the QAT and FP32 steps, peak memory, and the
-     fake-quant kernel at that step's sites beside its bound, its plain
-     version and ``torch.fused_moving_avg_obs_fake_quant``;
+     fake-quant kernel at that step's sites (``time_sites`` of
+     ``scripts/time_fake_quant.py``: device, graph, wall and host time, in
+     all and by bucket of site size) beside its bound, its plain version and
+     ``torch.fused_moving_avg_obs_fake_quant``;
  11. the dense 3x3 INT8 conv kernel against its plain version, bit for bit:
      at the 20 dense 3x3 stride-1 convs of the GAN generator
      (``resnet_9blocks``, ngf 64, 256x256, batch 4) on the inputs the
@@ -89,8 +96,10 @@ kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
 ``library_ms`` are wall times of back-to-back calls, except the fake-quant
 kernel's, which are torch.profiler device time; the block, matmul and conv
-entries add ``device_ms`` and ``library_device_ms``. A matmul's bound counts its
-own K, not the zero columns the im2col route pads rows with.
+entries add ``device_ms`` and ``library_device_ms``, the fake-quant entry
+``device_ms`` (a replayed CUDA graph of the sites) and ``wall_ms``. A
+matmul's bound counts its own K, not the zero columns the im2col route pads
+rows with.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -115,7 +124,7 @@ from frostnet_tpu_torch.models import CascadePreExBottleneck, create_model
 from frostnet_tpu_torch.nn import FP32, INT8, QAT, QAT_FROZEN, Observer, QConvBNAct, quant_ops
 from frostnet_tpu_torch.ops import cuda_build
 from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
-                                               fake_quant_observe_plain)
+                                               fake_quant_observe_plain, plan_fake_quant)
 from frostnet_tpu_torch.ops.frost_block import (frost_block_int8, frost_block_int8_plain,
                                                 plan_launch, random_block_case, sm_count)
 from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
@@ -129,6 +138,7 @@ from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
 from frostnet_tpu_torch import serve
 from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
                                       prep_image)
+from scripts.time_fake_quant import bucket_lines, time_sites
 from scripts.time_frost_block import time_blocks
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -286,6 +296,30 @@ def check_sass():
                                  f"instructions in its SASS; expected tensor-core only: {ops}")
         found[name] = ops
     return found
+
+
+def ptxas_kernels(name):
+    """``-Xptxas -v`` of the fake-quant source ``name``, one entry a kernel
+    (its name, element type and launch shape): registers, static shared
+    memory and spill bytes."""
+    rows, row = [], None
+    for line in cuda_build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            base, _, args = mangled[mangled.find("fq_"):].partition("I")
+            kind = "bfloat16" if "bfloat16" in args else "float32"
+            kind += ", cluster" if "Lb1E" in args else ", grid" if "Lb0E" in args else ""
+            row = {"kernel": f"{base}<{kind}>", "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            rows.append(row)
+        elif row is not None and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            row["spill_stores"], row["spill_loads"] = int(words[4]), int(words[8])
+        elif row is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            row["registers"] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                row["smem"] = int(words[words.index("smem") - 2])
+    return rows
 
 
 def edge_case_matmul(m, k, n, signed, qmax, dev, seed):
@@ -505,8 +539,41 @@ def check_fake_quant(dev):
     _, pmask, _, _, _ = fake_quant_observe_plain(x, ObserverState(mn, mx), spec, True)
     if not torch.equal(xg.grad, torch.where(pmask, g, torch.zeros((), device=dev))):
         raise AssertionError("fake_quant_observe: STE gradient != where(plain mask, g, 0)")
+    # the smallest and the largest site (both launch shapes) in a CUDA graph
+    replayed = {}
+    for x, mn, mx, spec in (min(sites, key=lambda s: s[0].numel()), (x, mn, mx, spec)):
+        replayed[f"{tuple(x.shape)} {x.dtype}"] = check_graph_replay(x, mn, mx, spec)
     torch.cuda.synchronize()
-    return checked, err, tuple(x.shape)
+    return checked, err, tuple(x.shape), replayed
+
+
+def check_graph_replay(x, mn, mx, spec):
+    """One observing site captured in a CUDA graph, replayed twice, against
+    the plain version applied twice (y, mask, state, qparams): the grid
+    shape's slots and generation and the state's in-place step are right on
+    every replay. Returns the site's launch shape."""
+    fake_quant_observe(x, mn.clone(), mx.clone(), spec)  # build, plan, scratch
+    kmin, kmax = mn.clone(), mx.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, mask, qp = fake_quant_observe(x, kmin, kmax, spec)
+    st = ObserverState(mn, mx)
+    for k in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        py, pmask, st, ps, pz = fake_quant_observe_plain(x, st, spec)
+        got = (y, mask, kmin, kmax, qp[0], qp[1])
+        want = (py, pmask, st.min_val, st.max_val, ps, pz.to(torch.float32))
+        names = ("y", "mask", "min_val", "max_val", "scale", "zero_point")
+        for name, g, w in zip(names, got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fake_quant_observe {tuple(x.shape)} {x.dtype}, graph replay "
+                                     f"{k + 1}: {name} != plain version")
+    del graph
+    plan = plan_fake_quant(x.numel(), x.element_size(), x.data_ptr() % 16 == 0,
+                           sm_count(x.device.index or 0))
+    return f"{'cluster' if plan.cluster else 'grid'} of {plan.blocks}"
 
 
 def band_check(what, value, limit):
@@ -539,11 +606,12 @@ def train_against_reference(dev):
     for name, m, want_loss, want_top1 in zip(names, metrics, ref["loss"], ref["top1"]):
         log(f"[train] {name}: loss {m['loss']:.6f} (JAX {want_loss:.6f}), top1 {m['top1']} "
             f"(JAX {want_top1})")
-    expect = [0, 2 * N_SITES, 2 * N_SITES, N_SITES]
+    expect = [0, N_SITES, N_SITES, N_SITES]
     if launches != expect:
         raise AssertionError(f"fake_quant_observe launches per phase {launches} != {expect}")
-    log(f"[train] fake_quant_observe launches: FP32 step {launches[0]}, QAT step {launches[1]} "
-        f"({N_SITES} sites x 2 passes), QAT_FROZEN forward {launches[3]}")
+    log(f"[train] fake_quant_observe launches: FP32 step {launches[0]}, QAT steps {launches[1]} "
+        f"and {launches[2]} ({N_SITES} sites, one launch each), QAT_FROZEN forward "
+        f"{launches[3]}")
     rep = {"metrics": metrics, "launches_per_phase": dict(zip(names, launches))}
     rel = [abs(m["loss"] - float(w)) / float(w) for m, w in zip(metrics, ref["loss"])]
     rep["loss_rel"] = rel
@@ -606,28 +674,21 @@ def serve_trained(state, dev):
 
 
 def time_fake_quant_sites(sites):
-    """The fake-quant kernel over the sites of one QAT forward: device time
-    (profiler) and wall time (CUDA events around the back-to-back calls,
-    the wrappers' host work included), the plain version's time, the bound,
-    and the library yardstick ``torch.fused_moving_avg_obs_fake_quant``
-    (float32 only: it runs on float32 copies) timed the same two ways."""
-    states = [(mn.clone(), mx.clone()) for _, mn, mx, _ in sites]
-
-    def kernel_all():
-        for (x, _, _, spec), (lo, hi) in zip(sites, states):
-            fake_quant_observe(x, lo, hi, spec)
+    """The fake-quant kernel over the sites of one QAT forward
+    (``time_sites`` of ``scripts/time_fake_quant.py``: profiler device time,
+    CUDA-graph time, wall and host time, in all and by bucket, with the
+    bound), the plain version's time, and the library yardstick
+    ``torch.fused_moving_avg_obs_fake_quant`` (float32 only: it runs on
+    float32 copies), profiler device time and wall time."""
+    out = time_sites(sites, time_ms, graph_ms, fq_cost,
+                     lambda b, o: bound(b, o, PEAK_F32_OPS_PER_S))
+    del out["per_site"]
 
     def plain_all():
         for x, mn, mx, spec in sites:
             fake_quant_observe_plain(x, ObserverState(mn, mx), spec)
 
-    out = {"ms": device_ms(kernel_all), "wall_ms": time_ms(kernel_all, reps=5),
-           "plain_ms": time_ms(plain_all, reps=1, warmup=1)}
-    nbytes = nops = 0.0
-    for x, _, _, _ in sites:
-        b, o = fq_cost(x)
-        nbytes, nops = nbytes + b, nops + o
-    out["bound_ms"], out["bound_by"] = bound(nbytes, nops, PEAK_F32_OPS_PER_S)
+    out["plain_ms"] = time_ms(plain_all, reps=1, warmup=1)
     dev = sites[0][0].device
     on = torch.ones(1, dtype=torch.long, device=dev)
     lib_args = [(x.to(torch.float32), mn.reshape(1).clone(), mx.reshape(1).clone(),
@@ -681,13 +742,16 @@ def time_training(dev):
             f"{rec['max_memory_allocated_gib']:.2f} GiB")
         if b == 128:
             sites = capture_sites(state.model, prep_image(batch["image"]), QAT)
-            fq = rec["fake_quant"] = dict(sites=len(sites), **time_fake_quant_sites(sites))
+            fq = rec["fake_quant"] = time_fake_quant_sites(sites)
             lib = "n/a" if fq["library_ms"] is None else (
                 f"{fq['library_ms']:.4f} device, {fq['library_wall_ms']:.4f} wall")
             log(f"[time] fake_quant_observe, the {len(sites)} sites of a QAT forward at batch "
-                f"{b}: {fq['ms']:.4f} ms device, {fq['wall_ms']:.4f} ms wall (bound "
-                f"{fq['bound_ms']:.4f} {fq['bound_by']}, plain {fq['plain_ms']:.3f}, "
-                f"fused_moving_avg_obs_fake_quant {lib})")
+                f"{b}: {fq['ms']:.4f} ms device, {fq['graph_ms']:.4f} graph, {fq['wall_ms']:.4f} "
+                f"wall, {fq['host_ms']:.4f} host ({fq['launches_per_site']} launch a site; bound "
+                f"{fq['bound_ms']:.4f} {fq['bound_by']}, {100 * fq['bound_share']:.1f}%; plain "
+                f"{fq['plain_ms']:.3f}, fused_moving_avg_obs_fake_quant {lib})")
+            for line in bucket_lines(fq):
+                log(f"    {line}")
             del sites
         out[f"bs{b}"] = rec
         del state, model, batch
@@ -1013,6 +1077,10 @@ def main(argv=None):
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    report["ptxas_fake_quant"] = ptxas_kernels("fake_quant")
+    for row in report["ptxas_fake_quant"]:
+        log(f"[ptxas fake_quant] {row['kernel']}: {row['registers']} registers, {row['smem']} "
+            f"bytes static shared memory, spills {row['spill_stores']}/{row['spill_loads']} bytes")
     report["sass"] = check_sass()
     log(f"[build] int8 tensor-core instructions, no dp4a: {report['sass']}")
 
@@ -1164,10 +1232,11 @@ def main(argv=None):
     log_profile(f"fused forward at batch {BATCH}", report["fused_profile"])
 
     # 7. the fake-quant kernel at every per-tensor site of a full-width QAT forward
-    checked, max_err["fake_quant_observe"], largest = check_fake_quant(dev)
+    checked, max_err["fake_quant_observe"], largest, replayed = check_fake_quant(dev)
+    report["fake_quant_graph_replay"] = replayed
     log(f"[check] fake_quant_observe == plain at {checked} site checks (2 QAT forwards x "
         f"{N_SITES} sites x float32/bfloat16; QAT and QAT_FROZEN passes), STE gradient at "
-        f"{largest}")
+        f"{largest}; two CUDA-graph replays == plain applied twice at {replayed}")
 
     # 8. the training main path against the committed JAX reference
     state, train_counts, report["train_check"] = train_against_reference(dev)
@@ -1243,7 +1312,8 @@ def main(argv=None):
          "replaces": FQ_REPLACES, "launches": train_counts["fake_quant_observe"],
          "max_abs_err": max_err["fake_quant_observe"], "ms": fq_time["ms"],
          "plain_ms": fq_time["plain_ms"], "bound_ms": fq_time["bound_ms"],
-         "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"]},
+         "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"],
+         "device_ms": fq_time["graph_ms"], "wall_ms": fq_time["wall_ms"]},
         summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -112,6 +112,7 @@ struct FrostBlockArgs {
 
 namespace {
 
+using frost_mma::bulk_load;
 using frost_mma::cp_async16;
 using frost_mma::cp_async8;
 using frost_mma::cp_async_commit;
@@ -140,16 +141,6 @@ __device__ __forceinline__ void bulk_to_peer(uint32_t dst, uint32_t src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// one bulk copy (the TMA engine) of `bytes` (a multiple of 16, both ends
-// 16-byte aligned) into this CUDA block's shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1,5 +1,6 @@
 // Hopper int8 tensor-core main loop shared by the port's INT8 GEMM kernels
-// (csrc/int8_conv.cu and csrc/int8_matmul.cu).
+// (csrc/int8_conv.cu and csrc/int8_matmul.cu), and the shared-memory, mbarrier
+// and bulk-copy helpers that csrc/frost_block.cu and csrc/fake_quant.cu use too.
 //
 // Both compute an exact int32 u8 x s8 (or s8 x s8) product followed by the
 // requant epilogue of requant.cuh. Each consumer warpgroup (128 threads)
@@ -72,6 +73,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// one bulk copy (the TMA engine) of `bytes` (a multiple of 16, both ends
+// 16-byte aligned) into this CUDA block's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // a TMA tile load into shared memory, completing on mbarrier `bar`

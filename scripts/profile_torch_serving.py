@@ -52,7 +52,7 @@ def _group(name: str) -> str:
         return "frost_block_int8 (CUDA)"
     if "int8_matmul_requant_kernel" in name:
         return "int8_matmul_requant (CUDA)"
-    if "fq_stats_kernel" in name or "fq_quantize_kernel" in name:
+    if "fq_observe_kernel" in name or "fq_quantize_kernel" in name:
         return "fake_quant_observe (CUDA)"
     if any(m in name.lower() for m in _CONV_MARKS):
         return "convolutions (cuDNN)"

@@ -140,10 +140,17 @@ def test_frost_block_batches_share_packed_weights(cuda_device):
         assert launch.stages is p.packed[launch.plan.pack_key] and launch.head is p.packed["head"]
 
 
-# (shape, scale of the values, observer state before: None = fresh)
+# (shape, scale of the values, observer state before: None = fresh). The
+# kernel's two launch shapes (ops/fake_quant.py plan_fake_quant): one cluster
+# for x up to 16 x 16 KiB (the small shapes; (16, 4096) float32 is the
+# largest cluster, (65537,) one element past it), else a grid of one CUDA
+# block an SM, whose shared memory holds all of x up to ~26 MiB
+# ((8, 112, 112, 32), (8, 56, 56, 144)) and part of it above
+# ((128, 56, 56, 144) float32 is 220 MiB)
 FQ_CASES = [((8, 112, 112, 32), 3.0, None), ((8, 56, 56, 144), 1.0, (-0.5, 2.0)),
             ((3, 3, 1, 720), 0.1, (-0.2, 0.3)), ((8, 1, 1, 1000), 20.0, (-30.0, 20.0)),
-            ((7, 13), 1.0, None), ((1,), 1.0, (0.0, 1.0))]
+            ((7, 13), 1.0, None), ((1,), 1.0, (0.0, 1.0)), ((16, 4096), 2.0, (-1.0, 3.0)),
+            ((65537,), 2.0, None), ((128, 56, 56, 144), 1.0, (-0.5, 2.0))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -160,13 +167,13 @@ def test_fake_quant_kernel_matches_plain(cuda_device, case, spec, dtype):
     kmin, kmax = mn.clone(), mx.clone()
     before = fake_quant_observe.launches
     y, mask, qp = fake_quant_observe(x, kmin, kmax, tspec)
-    assert fake_quant_observe.launches == before + 2
+    assert fake_quant_observe.launches == before + 1
     py, pmask, pst, ps, pz = fake_quant_observe_plain(x, tq.ObserverState(mn, mx), tspec)
     assert y.dtype == dtype and torch.equal(y, py) and torch.equal(mask, pmask)
     assert torch.equal(kmin, pst.min_val) and torch.equal(kmax, pst.max_val)
     assert float(qp[0]) == float(ps) and float(qp[1]) == float(pz)
     y2, m2, none = fake_quant_observe(x, kmin, kmax, tspec, observe=False)
-    assert none is None and fake_quant_observe.launches == before + 3
+    assert none is None and fake_quant_observe.launches == before + 2
     py2, pm2, _, _, _ = fake_quant_observe_plain(x, pst, tspec, observe=False)
     assert torch.equal(y2, py2) and torch.equal(m2, pm2)
     if x.numel() > 1:  # a view one element in takes the unaligned path
@@ -174,6 +181,39 @@ def test_fake_quant_kernel_matches_plain(cuda_device, case, spec, dtype):
         ys, ms, _ = fake_quant_observe(xs, kmin.clone(), kmax.clone(), tspec)
         pys, pms, _, _, _ = fake_quant_observe_plain(xs, pst, tspec)
         assert torch.equal(ys, pys) and torch.equal(ms, pms)
+
+
+@pytest.mark.parametrize("shape", [(4, 7, 7, 96), (128, 28, 28, 144)],
+                         ids=["cluster", "grid"])
+def test_fake_quant_graph_replay(cuda_device, shape):
+    """One observing site captured in a CUDA graph and replayed twice
+    equals the plain version applied twice: the grid shape's barrier and
+    partials are left ready for the next launch, the state is stepped in
+    place each replay."""
+    from frostnet_tpu_torch.ops.fake_quant import plan_fake_quant
+
+    spec = tq.QNNPACK_ACT
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5
+    plan = plan_fake_quant(x.numel(), 4, True, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    assert plan.cluster == (shape[0] == 4)
+    st = tq.ObserverState(torch.tensor(-1.0, device=cuda_device),
+                          torch.tensor(1.5, device=cuda_device))
+    fake_quant_observe(x, st.min_val.clone(), st.max_val.clone(), spec)  # build, plan, scratch
+    kmin, kmax = st.min_val.clone(), st.max_val.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, mask, qp = fake_quant_observe(x, kmin, kmax, spec)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        py, pmask, st, ps, pz = fake_quant_observe_plain(x, st, spec)
+        assert torch.equal(y, py) and torch.equal(mask, pmask)
+        assert torch.equal(kmin, st.min_val) and torch.equal(kmax, st.max_val)
+        assert float(qp[0]) == float(ps) and float(qp[1]) == float(pz)
+    assert (~mask).any() and mask.any()
 
 
 def test_fake_quant_ste_gradient(cuda_device):

@@ -19,6 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "frostnet_tpu")
 def _port_sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "profile_torch_serving.py"),
+             os.path.join(ROOT, "scripts", "time_fake_quant.py"),
+             os.path.join(ROOT, "scripts", "time_train_step.py"),
              os.path.join(ROOT, "scripts", "time_frost_block.py")]
     for dirpath, _, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
