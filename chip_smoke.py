@@ -91,6 +91,22 @@ Phases (each raises on failure, and any failure exits non-zero):
      GAN serving ms/batch and images/s at batch 1, 8 and 16; and one
      profiled forward at batch 8 split into the conv kernel, the matmul
      kernel and the torch ops between them.
+ 14. the classification trainer and evaluator, the CLI path users run
+     (``frostnet_tpu_torch.train.classification`` and ``.evaluate``), at
+     full width with TF32 off (float32, as the JAX trainer computes):
+     ``classification.main`` (``frostnet_quant_large_1_0``, 224x224, 1000
+     classes, synthetic data, batch 64, 4 steps an epoch, one FP32 epoch and
+     two QAT epochs, QSGD under ``cos_lr``, EMA 0.9999): every logged loss
+     finite, 0 fake-quant launches per FP32 step and 166 per QAT step, 52
+     matmul launches per INT8 evaluation forward, ``checkpoint/``, ``best/``,
+     ``checkpoint_meta.json`` and ``metrics.jsonl`` written; a resume to a
+     third QAT epoch (it must start at QAT epoch 2 and step 12, apply
+     ``cos_lr`` over 16 steps at count 12, and restore the saved noise
+     generator); ``evaluate.main`` on ``best/`` (2 calibration batches, the
+     EMA swapped in, ``--export_int8``); ``serve.main`` on that artifact,
+     unfused and fused, whose logits must equal bit for bit the in-process
+     ``freeze`` of the evaluator's restored and recalibrated model. It
+     prints images/s of each epoch, each step's wall time and peak memory.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -100,6 +116,7 @@ entries add ``device_ms`` and ``library_device_ms``, the fake-quant entry
 ``device_ms`` (a replayed CUDA graph of the sites) and ``wall_ms``. A
 matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
+Each entry also gives ``trainer_launches``, its launches in phase 14.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -1050,6 +1067,196 @@ def log_profile(what, prof):
         log(f"    torch op {ms:.3f} ms x{n} {name}")
 
 
+TRAINER_DIR = os.path.join(ROOT, "build", "phase14")
+TRAINER_CFG = dict(model=MODEL, image_size=IMAGE, num_classes=CLASSES, dataset="synthetic",
+                   batch_size=64, steps_per_epoch=4, fp_epochs=1, epochs=2, optim="QSGD",
+                   lrsch="cos_lr", ema_decay=0.9999, log_every=1, device="cuda")
+
+
+class StepCounter:
+    """Wraps the trainer's step factories: each step's kernel launches and
+    host wall time, by mode."""
+
+    def __init__(self, classification):
+        self.mod, self.rows = classification, []
+        self.train, self.eval = classification.make_train_step, classification.make_eval_step
+
+    def _wrap(self, make, kind):
+        def factory(mode, *args, **kwargs):
+            step = make(mode, *args, **kwargs)
+
+            def run(state, batch):
+                before = ops.launch_counts()
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                after = ops.launch_counts()
+                self.rows.append({"kind": kind, "mode": mode, "ms": (time.perf_counter() - t0)
+                                  * 1e3, **{k: after[k] - before[k] for k in after}})
+                return out
+            return run
+        return factory
+
+    def __enter__(self):
+        self.mod.make_train_step = self._wrap(self.train, "train")
+        self.mod.make_eval_step = self._wrap(self.eval, "eval")
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step, self.mod.make_eval_step = self.train, self.eval
+
+
+MODE_NAMES = {FP32: "FP32", QAT: "QAT", QAT_FROZEN: "QAT_FROZEN", INT8: "INT8"}
+# each trainer step's launches, by (step kind, mode)
+STEP_LAUNCHES = {("train", FP32): {"fake_quant_observe": 0, "int8_matmul_requant": 0},
+                 ("train", QAT): {"fake_quant_observe": N_SITES, "int8_matmul_requant": 0},
+                 ("eval", QAT_FROZEN): {"fake_quant_observe": N_SITES, "int8_matmul_requant": 0},
+                 ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": 52}}
+
+
+def check_step_launches(rows, what):
+    """Each step's launches against ``STEP_LAUNCHES``; returns the number of
+    steps of each kind and mode."""
+    seen = {}
+    for r in rows:
+        exp = STEP_LAUNCHES[(r["kind"], r["mode"])]
+        got = {k: r[k] for k in exp}
+        if got != exp or r["frost_block_int8"] or r["int8_conv"]:
+            raise AssertionError(f"{what}: {r['kind']} {MODE_NAMES[r['mode']]} launched {got} "
+                                 f"!= {exp}")
+        key = f"{r['kind']} {MODE_NAMES[r['mode']]}"
+        seen[key] = seen.get(key, 0) + 1
+    return seen
+
+
+def check_history(history, what):
+    """Every logged loss finite; a line per epoch with images/s and step walls."""
+    out = []
+    for h in history:
+        losses = [h["loss"]] + ([h["val"]["loss"]] if "val" in h else [])
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{what}: {h['tag']} epoch {h['epoch']} loss {losses}")
+        rec = {"tag": h["tag"], "epoch": h["epoch"], "loss": h["loss"],
+               "images_per_sec": h["images_per_sec"], "step_ms": h["step_ms"]}
+        if "val" in h:
+            rec["val"] = {k: h["val"][k] for k in ("loss", "top1", "images_per_sec")}
+        out.append(rec)
+        val = (f"; val loss {h['val']['loss']:.4f}, {h['val']['images_per_sec']:.1f} images/s"
+               if "val" in h else "")
+        log(f"[trainer] {what} {h['tag']} epoch {h['epoch']}: loss {h['loss']:.4f}, "
+            f"{h['images_per_sec']:.1f} images/s, step wall ms "
+            f"{[round(t, 1) for t in h['step_ms']]}{val}")
+    return out
+
+
+def trainer_phase(dev):
+    """Phase 14: the classification trainer, its resume, the evaluator and
+    the served export, through their entry points. Returns (report, launch
+    counts of the phase)."""
+    from frostnet_tpu_torch.optim import get_lr_scheduler
+    from frostnet_tpu_torch.train import classification, evaluate as evaluator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[trainer] TF32 off (torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False): float32, as the JAX trainer computes")
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    save_dir = os.path.join(TRAINER_DIR, "run")
+    rep = {}
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. train: FP32 epoch, two QAT epochs, validation, checkpoints
+    cfg = classification.ClassificationConfig(save_dir=save_dir, **TRAINER_CFG)
+    with StepCounter(classification) as counter:
+        _, res = classification.main(cfg)
+    rep["train_steps"] = check_step_launches(counter.rows, "train run")
+    rep["train_history"] = check_history(res["history"], "train run")
+    for name in ("checkpoint", "best"):
+        if not os.path.exists(os.path.join(save_dir, name, "state.pt")):
+            raise AssertionError(f"{name}/ was not written")
+    with open(os.path.join(save_dir, "checkpoint_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    logged = [v for r in records for k, v in r.items() if k.endswith("/loss")]
+    if not logged or not all(np.isfinite(logged)) or meta["qat_epoch"] != 2:
+        raise AssertionError(f"metrics.jsonl losses {logged}, meta {meta}")
+    rep["final"] = {"qat": res["qat"], "int8": res["int8"]}
+    log(f"[trainer] wrote checkpoint/, best/, checkpoint_meta.json {meta}, metrics.jsonl "
+        f"({len(records)} records, {len(logged)} losses, all finite); steps per mode "
+        f"{rep['train_steps']}: fake_quant_observe 0 per FP32 step, {N_SITES} per QAT step "
+        f"and per QAT_FROZEN forward, int8_matmul_requant 52 per INT8 forward")
+    log(f"[trainer] final QAT_FROZEN {res['qat']}; INT8 {res['int8']}")
+
+    # 2. resume into a third QAT epoch
+    saved = torch.load(os.path.join(save_dir, "checkpoint", "state.pt"), map_location="cpu",
+                       weights_only=False)["optimizer"]["noise_generator"]
+    cfg = classification.ClassificationConfig(save_dir=save_dir, resume=True,
+                                              **{**TRAINER_CFG, "epochs": 3})
+    with StepCounter(classification) as counter:
+        _, res = classification.main(cfg)
+    got = res["resumed"]
+    want_lr = get_lr_scheduler("cos_lr", base_lr=cfg.learning_rate, total_steps=16,
+                               warmup_steps=0, warmup_lr=cfg.warmup_lr)(12)
+    if (got["qat_epoch"], got["step"], got["count"]) != (2, 12, 12) or got["lr"] != want_lr:
+        raise AssertionError(f"resume: {got} (want QAT epoch 2, step 12, count 12, lr {want_lr})")
+    if saved is None or got["noise_generator"] is None or not torch.equal(
+            got["noise_generator"], saved):
+        raise AssertionError("resume: the noise generator's state != the saved one")
+    rep["resume_steps"] = check_step_launches(counter.rows, "resume")
+    rep["resume_history"] = check_history(res["history"], "resume")
+    rep["resumed"] = {k: v for k, v in got.items() if k != "noise_generator"}
+    log(f"[trainer] resumed at QAT epoch {got['qat_epoch']}, step {got['step']}, count "
+        f"{got['count']}: first update at cos_lr(12 of 16) = {got['lr']!r}; noise generator "
+        f"state == saved ({saved.numel()} bytes)")
+
+    # 3. the evaluator on best/, the EMA swapped in, recalibrated, exported
+    artifact = os.path.join(TRAINER_DIR, "int8.npz")
+    args = evaluator.build_parser([]).parse_args(
+        ["--model", MODEL, "--checkpoint", os.path.join(save_dir, "best"), "--num_classes",
+         str(CLASSES), "--image_size", str(IMAGE), "--batch_size", "64", "--calib_batches", "2",
+         "--use_ema", "--export_int8", artifact, "--device", "cuda"])
+    with StepCounter(classification) as counter:  # evaluate() is the trainer's
+        ev = evaluator.main(args)
+    rep["evaluate_steps"] = check_step_launches(counter.rows, "evaluate")
+    if not all(np.isfinite([ev["qat"]["loss"], ev["int8"]["loss"]])):
+        raise AssertionError(f"evaluate: {ev['qat']} {ev['int8']}")
+    rep["evaluate"] = {"qat": ev["qat"], "int8": ev["int8"], "int8_size_mb": ev["int8_size_mb"],
+                       "export_bytes": ev["export_bytes"]}
+    log(f"[trainer] evaluate.main: QAT_FROZEN {ev['qat']}, INT8 {ev['int8']}, INT8 size "
+        f"{ev['int8_size_mb']:.2f} MB, artifact {ev['export_bytes']} bytes")
+
+    # 4. serve the exported artifact, unfused and fused, against the
+    # in-process freeze of the evaluator's model
+    port = create_model(MODEL, num_classes=CLASSES)
+    port.load_state_dict(ev["state"].model.state_dict())
+    serve_batch = 8
+    images = np.random.RandomState(0).randn(serve_batch, IMAGE, IMAGE, 3).astype(np.float32)
+    want = freeze(port, dev, IMAGE)(images).cpu().numpy()
+    served = {}
+    for fuse in (False, True):
+        out = os.path.join(TRAINER_DIR, f"logits_{'fused' if fuse else 'unfused'}.npy")
+        argv = ["--artifact", artifact, "--iters", "5", "--batch_size", str(serve_batch),
+                "--save_logits", out] + (["--fuse_int8"] if fuse else [])
+        served[fuse] = serve.main(serve.build_parser().parse_args(argv))
+        got = np.load(out)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"served {'fused' if fuse else 'unfused'} logits != in-process "
+                                 f"freeze (max abs diff {np.abs(got - want).max()})")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    rep["serve"] = {("fused" if k else "unfused"): v for k, v in served.items()}
+    rep["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[trainer] serve.main on the exported artifact, unfused and fused: logits == the "
+        f"in-process freeze of the evaluator's model, bit for bit ({len(np.unique(want))} "
+        f"distinct values); peak memory {rep['peak_memory_gib']:.2f} GiB; launches over "
+        f"phase 14 {counts}")
+    for name in ("fake_quant_observe", "int8_matmul_requant", "frost_block_int8"):
+        if counts[name] == 0:
+            raise AssertionError(f"phase 14 launched no {name}")
+    return rep, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1282,6 +1489,11 @@ def main(argv=None):
      report["gan_profile"]) = time_gan(gan, dev)
     timing["int8_matmul_requant"] += gan_mm_rows
 
+    # 14. the classification trainer and evaluator through their entry points
+    del gan
+    torch.cuda.empty_cache()
+    report["trainer"], trainer_counts = trainer_phase(dev)
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -1315,6 +1527,8 @@ def main(argv=None):
          "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"],
          "device_ms": fq_time["graph_ms"], "wall_ms": fq_time["wall_ms"]},
         summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
+    for entry in kernels["kernels"]:
+        entry["trainer_launches"] = trainer_counts[entry["name"]]
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

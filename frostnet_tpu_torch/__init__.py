@@ -2,6 +2,7 @@
 
 The JAX package ``frostnet_tpu`` stays the reference; this package imports
 neither it nor JAX. It serves the FrostNet classifiers and the GAN
-generator (``gan/``) in INT8 (``serve.py``) and trains the classifiers,
-with hand-written CUDA kernels for Hopper (``csrc/``) behind ``ops/``.
+generator (``gan/``) in INT8 (``serve.py``) and trains and evaluates the
+classifiers (``train/classification.py``, ``train/evaluate.py``), with
+hand-written CUDA kernels for Hopper (``csrc/``) behind ``ops/``.
 """

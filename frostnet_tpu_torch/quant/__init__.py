@@ -16,7 +16,7 @@ from .observer import (ObserverState, batch_min_max, calculate_qparams_folded,
 from .fake_quant import dequantize, fake_quantize, quantize
 from .folding import bn_scale_factor, fold_bn
 from .qtensor import QParams, QTensor
-from .export import from_jax_variables, load_int8, model_variables, numpy_init
+from .export import export_int8, from_jax_variables, load_int8, model_variables, numpy_init
 from .freeze import freeze
 
 __all__ = [
@@ -25,6 +25,6 @@ __all__ = [
     "ObserverState", "init_observer", "batch_min_max", "update_observer",
     "calculate_qparams_folded", "calculate_qparams_traced",
     "quantize", "dequantize", "fake_quantize", "fold_bn", "bn_scale_factor",
-    "QTensor", "QParams", "load_int8", "from_jax_variables", "model_variables",
+    "QTensor", "QParams", "export_int8", "load_int8", "from_jax_variables", "model_variables",
     "numpy_init", "freeze",
 ]

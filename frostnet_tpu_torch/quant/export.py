@@ -1,9 +1,11 @@
-"""The INT8 artifact of the JAX package, read into the port.
+"""The INT8 artifact of the JAX package, written and read by the port.
 
 ``frostnet_tpu.quant.export_int8`` writes one flat npz: every observed conv
 kernel as int8 with BN pre-folded (BN neutralized to gamma 1, mean 0,
 var 1-eps), observers as ``quant/<path>/<name>.min_val|max_val``, and a
-``__meta__`` JSON with the qconfig. :func:`load_int8` reads it into the
+``__meta__`` JSON with the qconfig. :func:`export_int8` writes the same
+layout and keys, with the same arrays, from a port model (a trained one:
+the artifact of a port run); :func:`load_int8` reads it into the
 JAX variables tree (numpy leaves, int8 kernels dequantized on their
 observer's grid), and :func:`from_jax_variables` fills a port model from any
 such tree, parameters and buffers alike. ``freeze`` then repeats the JAX
@@ -15,13 +17,15 @@ the same weights.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from .fake_quant import dequantize
+from .fake_quant import dequantize, quantize
+from .folding import fold_bn
 from .observer import ObserverState, calculate_qparams_folded
 from .qtypes import FBGEMM, QNNPACK, QConfig
 
@@ -48,6 +52,86 @@ def artifact_qconfig(path: str) -> QConfig:
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode()) if "__meta__" in data else {}
     return _QCONFIGS.get(meta.get("qconfig", "qnnpack"), QNNPACK)
+
+
+def export_int8(model_or_variables, path: str, qconfig: Optional[QConfig] = None,
+                bn_eps: float = 1e-5) -> int:
+    """Write the INT8 artifact of a port model (or of a ``{params,
+    batch_stats, quant}`` tree) at ``path`` (.npz); returns the bytes written.
+
+    The observers must be populated (QAT or ``train.recalibrate`` first).
+    ``qconfig`` defaults to the model's (QNNPACK for a tree). The arithmetic
+    is the JAX export's, which runs op by op: ``fold_bn`` with separate
+    roundings, the folded qparams with IEEE division, ``quantize`` of the
+    folded kernel on the weight observer's grid. The inverse of
+    :func:`load_int8`.
+    """
+    if isinstance(model_or_variables, nn.Module):
+        if qconfig is None:
+            qconfig = getattr(getattr(model_or_variables, "quant", None), "qconfig", None)
+        flat = {k: v.detach().cpu().numpy() for k, v in model_variables(model_or_variables).items()}
+    else:
+        flat = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in flatten_variables(model_or_variables).items()}
+    qconfig = qconfig or QNNPACK
+    tree = unflatten_variables(flat)
+    wspec = qconfig.weight
+    out: Dict[str, np.ndarray] = {}
+    t = torch.as_tensor
+
+    def put(col: str, prefix: str, name: str, arr):
+        out[f"{col}/{prefix}{name}"] = np.asarray(arr)
+
+    def walk(p: Dict, bs: Dict, q: Dict, prefix: str):
+        handled = set()
+        if "kernel" in p and isinstance(q.get("w_obs"), ObserverState):
+            w, obs = np.asarray(p["kernel"], np.float32), q["w_obs"]
+            has_bn = "scale" in p and "bias_bn" in p and "mean" in bs and "var" in bs
+            if has_bn:
+                wf, bf = fold_bn(t(w), None if p.get("bias") is None else t(p["bias"]),
+                                 t(p["scale"]), t(p["bias_bn"]), t(bs["mean"]), t(bs["var"]),
+                                 bn_eps)
+                wf, bf = wf.numpy(), bf.numpy()
+            else:
+                wf, bf = w, None
+            ch = _channel_axis(wf, obs)
+            scale, zp = calculate_qparams_folded(ObserverState(t(obs.min_val), t(obs.max_val)),
+                                                 wspec)
+            put("params", prefix, "kernel",
+                quantize(t(wf), scale, zp, wspec, ch).numpy().astype(np.int8))
+            handled.add("kernel")
+            if has_bn:
+                f = np.shape(p["bias_bn"])
+                put("params", prefix, "scale", np.ones(f, np.float32))
+                put("params", prefix, "bias_bn", np.asarray(bf, np.float32))
+                put("batch_stats", prefix, "mean", np.zeros(f, np.float32))
+                put("batch_stats", prefix, "var", np.full(f, 1.0 - bn_eps, np.float32))
+                handled.update(("scale", "bias_bn"))
+                if "bias" in p:  # folded into bias_bn
+                    put("params", prefix, "bias", np.zeros_like(np.asarray(p["bias"])))
+                    handled.add("bias")
+        for k, v in p.items():
+            if k in handled:
+                continue
+            if isinstance(v, dict):
+                walk(v, bs.get(k, {}), q.get(k, {}), f"{prefix}{k}/")
+            else:
+                put("params", prefix, k, v)
+        for k, v in bs.items():
+            if not isinstance(v, dict) and f"batch_stats/{prefix}{k}" not in out:
+                put("batch_stats", prefix, k, v)
+
+    quant = tree.get("quant", {})
+    walk(tree.get("params", {}), tree.get("batch_stats", {}), quant, "")
+    out.update({k: v for k, v in flatten_variables({"quant": quant}).items()})
+    out["__meta__"] = np.frombuffer(
+        json.dumps({"qconfig": "fbgemm" if qconfig is FBGEMM else "qnnpack",
+                    "bn_eps": bn_eps}).encode(), dtype=np.uint8)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    with open(path, "wb") as f:
+        np.savez(f, **out)
+    return os.path.getsize(path)
 
 
 def load_int8(path: str, qconfig: Optional[QConfig] = None) -> Dict[str, Any]:

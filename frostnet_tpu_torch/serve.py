@@ -1,9 +1,10 @@
 """Batched INT8 serving on the GPU: FrostNet classifiers and the GAN generator.
 
-Loads an INT8 artifact written by the JAX package's ``export_int8``,
-freezes the model once on the device, and serves batched predictions with
-latency reporting. ``--workload cls`` (the default) serves a FrostNet
-classifier, ``--workload gan`` the pix2pix/CycleGAN ResnetGenerator
+Loads an INT8 artifact written by ``export_int8`` (the JAX package's or the
+port's: one layout), freezes the model once on the device, and serves
+batched predictions with latency reporting. ``--workload cls`` (the
+default) serves a FrostNet classifier, ``--workload gan`` the
+pix2pix/CycleGAN ResnetGenerator
 (``--model resnet_9blocks`` by default, 256x256 images). The report has the
 keys of ``frostnet_tpu.serve``:
 
@@ -139,6 +140,10 @@ def main(args):
     }
     print(json.dumps(report, indent=2))
 
+    if args.save_logits:
+        # the first request batch of the synthetic source, served once more
+        np.save(args.save_logits, pred(next(_batches(args))).cpu().numpy())
+        print(f"[serve] logits of the first request batch -> {args.save_logits}")
     if args.output:
         with open(args.output, "w") as f:
             for _ in range(args.predict_batches):
@@ -170,6 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run each Frost block as one fused CUDA kernel")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output", default=None, help="write top-k jsonl here")
+    p.add_argument("--save_logits", default=None, metavar="PATH",
+                   help="save the first request batch's output (.npy)")
     p.add_argument("--predict_batches", type=int, default=4)
     p.add_argument("--topk", type=int, default=5)
     return p

@@ -11,8 +11,10 @@ one model run in another ``mode``:
 * :func:`make_train_step` returns ``step(state, batch) -> metrics`` for one
   phase: on-device uint8 normalization, forward in ``mode`` with
   ``train=True`` (BN statistics and, in QAT, the observers step exactly
-  once), cross-entropy, backward, the optimizer step, the EMA. Metrics stay
-  on the device: nothing waits for the host.
+  once), cross-entropy, backward, the optimizer step (its lr read on the
+  host from the float or the schedule at the optimizer's own count), the
+  EMA, rounded as the jitted JAX step rounds it (``optim.ema_update``).
+  Metrics stay on the device: nothing waits for the host.
 * ``state.start_qat()`` is the StatAssist hand-off (``set_warmup``).
 
 The JAX step's ``remat`` option is not ported: the JAX package measured it
@@ -28,7 +30,7 @@ import torch
 
 from ..nn.mode import QAT, QuantMode
 from ..ops.requant import fma_f32
-from ..optim import set_warmup
+from ..optim import ema_update, set_warmup
 from ..quant.export import from_jax_variables, numpy_init
 from ..quant.freeze import resolve_device
 from ..utils.losses import cross_entropy
@@ -130,10 +132,8 @@ def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
         loss.backward()
         state.optimizer.step()
         if state.ema is not None and ema_decay > 0:
-            with torch.no_grad():
-                for name, p in state.model.named_parameters():
-                    e = state.ema[name]
-                    e.copy_(e * ema_decay + p * (1 - ema_decay))
+            for name, p in state.model.named_parameters():
+                ema_update(state.ema[name], p, ema_decay)
         state.step += 1
         return _metrics(logits, batch["label"], loss, num_classes)
 

@@ -1,5 +1,5 @@
-"""Losses and metrics of the classification train step."""
+"""Losses, metrics, logging and checkpoints of the classification trainer."""
 from .losses import cross_entropy
-from .metrics import topk_accuracy
+from .metrics import AverageMeter, topk_accuracy
 
-__all__ = ["cross_entropy", "topk_accuracy"]
+__all__ = ["cross_entropy", "topk_accuracy", "AverageMeter"]

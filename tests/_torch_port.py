@@ -162,3 +162,13 @@ def jax_layer_codes(model, variables, images):
 
     out, codes = jax.jit(fn)(images)
     return np.asarray(out), {k: np.asarray(v) for k, v in codes.items()}
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two torch threads for the module: the tier-1 run puts several test
+    processes on one host, and torch's thread pools oversubscribe it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)

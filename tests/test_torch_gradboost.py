@@ -211,5 +211,6 @@ def test_get_optimizer_and_set_warmup():
     topt.set_warmup(opt, False)
     assert not opt.param_groups[0]["is_warmup"]
     assert isinstance(topt.get_optimizer("SGD", 0.1)(ps), topt.SGD)
-    with pytest.raises(ValueError, match="QRMS"):
-        topt.get_optimizer("QRMS", 0.1)
+    assert isinstance(topt.get_optimizer("QRMS", 0.1)(ps), topt.QRMS)
+    with pytest.raises(ValueError, match="QRMS"):  # the message lists the names
+        topt.get_optimizer("QRMSprop", 0.1)

@@ -31,6 +31,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import frostnet_tpu_torch, frostnet_tpu_torch.serve, "
             "frostnet_tpu_torch.gan, frostnet_tpu_torch.models, frostnet_tpu_torch.ops, "
             "frostnet_tpu_torch.train, frostnet_tpu_torch.optim, frostnet_tpu_torch.utils, "
+            "frostnet_tpu_torch.data, frostnet_tpu_torch.optim.schedules, "
+            "frostnet_tpu_torch.train.classification, frostnet_tpu_torch.train.evaluate, "
+            "frostnet_tpu_torch.utils.checkpoint, frostnet_tpu_torch.utils.logging, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
@@ -73,6 +76,14 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         create_train_state(create_model("frostnet_quant_small_0_35", num_classes=10),
                            get_optimizer("QSGD", 0.04))
+    # the trainer's and the evaluator's main, with their defaults
+    from frostnet_tpu_torch.train import classification, evaluate
+    with pytest.raises(RuntimeError, match="CUDA"):
+        classification.main(classification.ClassificationConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(evaluate.build_parser([]).parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        classification.cli([])
 
 
 def test_chip_smoke_refuses_without_a_gpu():
