@@ -107,6 +107,30 @@ Phases (each raises on failure, and any failure exits non-zero):
      unfused and fused, whose logits must equal bit for bit the in-process
      ``freeze`` of the evaluator's restored and recalibrated model. It
      prints images/s of each epoch, each step's wall time and peak memory.
+ 15. the MobileNets at full width (224x224, 1000 classes, qnnpack), with
+     TF32 off: (1) ``qmobilenet_v2_ReLU`` and ``qmobilenet_v3_large_HS``
+     built from ``numpy_init(seed 0)`` and the committed calibration
+     (``testdata/<model>_calibration.npz``), written by the port's
+     ``export_int8`` and served by ``Int8Predictor`` at batch 8: every
+     layer's codes against the committed JAX digests (MobileNetV3 within
+     ``MB_FLIP_SHARE``), the logits against JAX's (MobileNetV2 within one
+     step of the classifier's grid), one matmul launch per 1x1 or im2col
+     conv and nothing else, the matmul kernel against its plain version at
+     every INT8 matmul of both forwards (aligned and unaligned rows); (2)
+     the fake-quant kernel against its plain version at every per-tensor
+     site of two ``qmobilenet_v3_large_HS`` QAT forwards at batch 8, float32
+     and bfloat16, with the QAT_FROZEN pass; (3) both models' bf16 QAT and
+     FP32 steps at batch 128 and 256: ms/step, images/s, peak memory, and
+     fake-quant launches per QAT step (one per site) and per FP32 step (0);
+     (4) ``classification.main`` on ``qmobilenet_v3_large_HS`` (batch 64, 2
+     steps an epoch, one FP32 and one QAT epoch), ``evaluate.main
+     --export_int8`` on ``best/`` and ``serve.main`` on that artifact,
+     whose logits must equal the in-process ``freeze`` bit for bit; (5)
+     serving images/s at batch 8 and 128, one profiled forward at batch 8
+     (the matmul kernel, the torch ops, the idle share) and the device time
+     of the torch-op groups (depthwise convs, hard-swishes,
+     squeeze-excites: a CUDA graph of each group's calls on that forward's
+     inputs, replayed).
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -116,7 +140,9 @@ entries add ``device_ms`` and ``library_device_ms``, the fake-quant entry
 ``device_ms`` (a replayed CUDA graph of the sites) and ``wall_ms``. A
 matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
-Each entry also gives ``trainer_launches``, its launches in phase 14.
+Each entry also gives ``trainer_launches``, its launches in phase 14, and
+``mobilenet_launches``, its launches on each path of phase 15 (the two
+served forwards, each model's training, the trainer path).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -129,6 +155,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -138,7 +165,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from frostnet_tpu_torch import ops
 from frostnet_tpu_torch.models import CascadePreExBottleneck, create_model
-from frostnet_tpu_torch.nn import FP32, INT8, QAT, QAT_FROZEN, Observer, QConvBNAct, quant_ops
+from frostnet_tpu_torch.nn import (FP32, INT8, QAT, QAT_FROZEN, Observer, QConvBNAct, QHswish,
+                                   QSEModule, quant_ops)
 from frostnet_tpu_torch.ops import cuda_build
 from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
                                                fake_quant_observe_plain, plan_fake_quant)
@@ -149,8 +177,9 @@ from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
 from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
-from frostnet_tpu_torch.quant import (ObserverState, QTensor, freeze, from_jax_variables,
-                                      get_qconfig, model_variables, numpy_init)
+from frostnet_tpu_torch.quant import (ObserverState, QTensor, export_int8, freeze,
+                                      from_jax_variables, get_qconfig, model_variables, numpy_init)
+from frostnet_tpu_torch.quant.export import flatten_variables, unflatten_variables
 from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
 from frostnet_tpu_torch import serve
 from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
@@ -472,6 +501,32 @@ def check_layers(what, codes, ref):
     return layers
 
 
+def mobilenet_variables(name: str) -> dict:
+    """The flat variables of a MobileNet fixture: ``numpy_init(model, 0)``
+    with the committed calibration (BN shifts and statistics, observers)
+    on top (``tests/test_torch_mobilenet_fixture.py`` makes it)."""
+    flat = flatten_variables(numpy_init(create_model(name), 0))
+    with np.load(os.path.join(TESTDATA, f"{name}_calibration.npz")) as cal:
+        for k in cal.files:
+            if k not in flat or flat[k].shape != cal[k].shape:
+                raise AssertionError(f"{name} calibration: {k} does not fit the model")
+            flat[k] = cal[k]
+    return flat
+
+
+def mobilenet_predictor(name: str, device, artifact_dir=None) -> Int8Predictor:
+    """``Int8Predictor`` over the MobileNet fixture: the port's model filled
+    with :func:`mobilenet_variables`, written by the port's ``export_int8``
+    (into ``artifact_dir``, or a temporary directory) and served from it."""
+    model = from_jax_variables(create_model(name), unflatten_variables(mobilenet_variables(name)))
+    if artifact_dir:
+        os.makedirs(artifact_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = os.path.join(artifact_dir or tmp, f"{name}_int8.npz")
+        export_int8(model, artifact)
+        return Int8Predictor(name, artifact=artifact, image_size=IMAGE, device=device)
+
+
 def check_equal(what, got, want):
     err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max().item())
     if not torch.equal(got, want):
@@ -727,23 +782,33 @@ def time_fake_quant_sites(sites):
     return out
 
 
-def time_training(dev):
-    """Phase 10: the benchmarked training step (bf16, bench.py's optimizer)."""
+def time_training(dev, name=MODEL, time_sites=True, reps=(5, 10)):
+    """Phase 10 (and 15): the benchmarked training step of ``name`` (bf16,
+    bench.py's optimizer); with ``time_sites`` also the fake-quant kernel
+    at the QAT forward's sites at batch 128. Each record has the
+    fake-quant launches of one FP32 and one QAT step."""
     out = {}
+    kernel = ops.fake_quant_observe
     for b in (128, 256):
         rec = {}
         try:
-            model = create_model(MODEL, num_classes=CLASSES, dtype=torch.bfloat16)
+            model = create_model(name, num_classes=CLASSES, dtype=torch.bfloat16)
             tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5))
             state = create_train_state(model, tx, seed=0, device=dev)
             batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(0, b).items()}
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fp32_step = make_train_step(FP32, num_classes=CLASSES)
-            rec["fp32_ms_per_step"] = time_ms(lambda: fp32_step(state, batch), reps=5)
+            before = kernel.launches
+            fp32_step(state, batch)
+            rec["fp32_fake_quant_launches"] = kernel.launches - before
+            rec["fp32_ms_per_step"] = time_ms(lambda: fp32_step(state, batch), reps=reps[0])
             state.start_qat()
             qat_step = make_train_step(QAT, num_classes=CLASSES)
-            rec["qat_ms_per_step"] = time_ms(lambda: qat_step(state, batch), reps=10)
+            before = kernel.launches
+            qat_step(state, batch)
+            rec["qat_fake_quant_launches"] = kernel.launches - before
+            rec["qat_ms_per_step"] = time_ms(lambda: qat_step(state, batch), reps=reps[1])
             rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         except torch.cuda.OutOfMemoryError as e:
             if b == 128:
@@ -753,11 +818,13 @@ def time_training(dev):
             break
         rec["fp32_images_per_sec"] = b / rec["fp32_ms_per_step"] * 1e3
         rec["qat_images_per_sec"] = b / rec["qat_ms_per_step"] * 1e3
-        log(f"[time] training batch {b} (bf16): QAT {rec['qat_ms_per_step']:.3f} ms/step "
+        log(f"[time] {name} training batch {b} (bf16): QAT {rec['qat_ms_per_step']:.3f} ms/step "
             f"{rec['qat_images_per_sec']:.1f} images/s; FP32 {rec['fp32_ms_per_step']:.3f} "
             f"ms/step {rec['fp32_images_per_sec']:.1f} images/s; peak memory "
-            f"{rec['max_memory_allocated_gib']:.2f} GiB")
-        if b == 128:
+            f"{rec['max_memory_allocated_gib']:.2f} GiB; fake_quant_observe launches per QAT "
+            f"step {rec['qat_fake_quant_launches']}, per FP32 step "
+            f"{rec['fp32_fake_quant_launches']}")
+        if b == 128 and time_sites:
             sites = capture_sites(state.model, prep_image(batch["image"]), QAT)
             fq = rec["fake_quant"] = time_fake_quant_sites(sites)
             lib = "n/a" if fq["library_ms"] is None else (
@@ -1113,12 +1180,13 @@ STEP_LAUNCHES = {("train", FP32): {"fake_quant_observe": 0, "int8_matmul_requant
                  ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": 52}}
 
 
-def check_step_launches(rows, what):
-    """Each step's launches against ``STEP_LAUNCHES``; returns the number of
-    steps of each kind and mode."""
+def check_step_launches(rows, what, expect=None):
+    """Each step's launches against ``expect`` (``STEP_LAUNCHES`` by
+    default); returns the number of steps of each kind and mode."""
+    expect = expect or STEP_LAUNCHES
     seen = {}
     for r in rows:
-        exp = STEP_LAUNCHES[(r["kind"], r["mode"])]
+        exp = expect[(r["kind"], r["mode"])]
         got = {k: r[k] for k in exp}
         if got != exp or r["frost_block_int8"] or r["int8_conv"]:
             raise AssertionError(f"{what}: {r['kind']} {MODE_NAMES[r['mode']]} launched {got} "
@@ -1255,6 +1323,321 @@ def trainer_phase(dev):
         if counts[name] == 0:
             raise AssertionError(f"phase 14 launched no {name}")
     return rep, counts
+
+
+MOBILENETS = ("qmobilenet_v2_ReLU", "qmobilenet_v3_large_HS")
+PHASE15_DIR = os.path.join(ROOT, "build", "phase15")
+# MobileNetV3's INT8 codes against the JAX digests: the squeeze-excite's
+# spatial mean (XLA: a sequential float32 sum; the port: exact, rounded
+# once) and its dense products decide rare codes after the gating mul's
+# requant. Every code matched on the CPU (tests/test_torch_mobilenet_fixture.py,
+# 8 images); a layer whose digest differs passes only if its 256-code
+# histogram moves by at most this share of its codes, and the logits
+# (cls_conv2's grid) by at most one step.
+MB_FLIP_SHARE = 1e-3
+MB_KERNELS = {"int8_matmul_requant": "int8_matmul_requant"}
+
+
+def matmul_convs(model):
+    """The convs of a frozen model that run the matmul kernel (1x1 and im2col)."""
+    return [m for m in model.modules()
+            if isinstance(m, QConvBNAct) and getattr(m, "_route", None) in ("matmul", "im2col")]
+
+
+def observers(model) -> int:
+    """Per-tensor sites of a qnnpack model: one fake-quant launch each a QAT forward."""
+    return sum(isinstance(m, Observer) for m in model.modules())
+
+
+def check_mobilenet_layers(name, codes, ref, banded):
+    """Every layer's digests against the JAX reference; where ``banded``, a
+    differing layer within ``MB_FLIP_SHARE`` of its codes (histogram)."""
+    layers = [k[len("sha256/"):] for k in ref.files if k.startswith("sha256/")]
+    moved = {}
+    for layer in layers:
+        got = codes.get(layer)
+        if got is None or tuple(got.shape) != tuple(ref[f"shape/{layer}"]):
+            raise AssertionError(f"{name} {layer}: shape {None if got is None else tuple(got.shape)}")
+        images = [i for i, (g, w) in enumerate(zip(code_digests(got), ref[f"sha256/{layer}"]))
+                  if g != w]
+        if not images:
+            continue
+        hist = torch.bincount(got.reshape(-1).to(torch.int64).cpu(), minlength=256).numpy()
+        share = float(np.abs(hist - ref[f"hist/{layer}"]).sum() / 2 / got.numel())
+        moved[layer] = {"images": images, "hist_share": share}
+        if not banded or share > MB_FLIP_SHARE:
+            raise AssertionError(f"{name}: codes differ from the JAX reference at {layer} "
+                                 f"(images {images}, histogram share {share:.3g})")
+    return layers, moved
+
+
+def check_mobilenet_matmuls(name, pred, x, dev):
+    """The matmul kernel against its plain version at every INT8 matmul of
+    one forward, on the inputs that forward gives it, and on the same input
+    one byte into its storage (no row 16-byte aligned)."""
+    err, shapes = 0, []
+    for cname, mod, inp in capture(pred.model, x):
+        if mod._route not in ("matmul", "im2col"):
+            continue
+        a, op = matmul_operand(mod, inp.q), mod._op
+        want = int8_matmul_requant_plain(a, op)
+        err = max(err, check_equal(f"int8_matmul_requant {name} {cname}", int8_matmul_requant(a, op),
+                                   want))
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+        shifted = buf[1:].view(a.shape)
+        shifted.copy_(a)
+        err = max(err, check_equal(f"int8_matmul_requant {name} {cname} (unaligned rows)",
+                                   int8_matmul_requant(shifted, op), want))
+        shapes.append(matmul_shape(a, op))
+    torch.cuda.synchronize()
+    return err, shapes
+
+
+def serve_mobilenets(dev):
+    """Phase 15, part 1: serve each fixture at batch 8 through
+    ``Int8Predictor``: every layer's codes and the logits against the JAX
+    reference, the matmul launches per forward against the model's count,
+    the matmul kernel against its plain version at every INT8 matmul."""
+    images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    x = torch.as_tensor(images, device=dev)
+    out, preds, err = {}, {}, 0
+    for name in MOBILENETS:
+        ref = np.load(os.path.join(TESTDATA, f"{name}_reference.npz"))
+        pred = preds[name] = mobilenet_predictor(name, dev, PHASE15_DIR)
+        n_mm = len(matmul_convs(pred.model))
+        ops.reset_launch_counts()
+        logits, codes = layer_codes(pred, images)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+                  "int8_conv": 0}
+        if counts != expect:
+            raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
+        v3 = "v3" in name
+        layers, moved = check_mobilenet_layers(name, codes, ref, banded=v3)
+        got, want = logits.cpu().numpy(), ref["logits"]
+        if got.shape != (BATCH, CLASSES) or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: bad logits {got.shape}")
+        head = pred.model.classifier if not v3 else pred.model.cls_conv2
+        step = float(head._out_t[0])
+        diff = float(np.abs(got - want).max())
+        if diff > (step * 1.0001 if (not v3 or moved) else 0.0):
+            raise AssertionError(f"{name}: logits {diff} from JAX's (grid step {step})")
+        e, shapes = check_mobilenet_matmuls(name, pred, x, dev)
+        err = max(err, e)
+        out[name] = {"launches": counts, "layers": len(layers), "moved": moved,
+                     "logits_max_diff": diff, "logits_step": step,
+                     "logits_equal": bool(np.array_equal(got, want)),
+                     "matmul_shapes": shapes}
+        log(f"[mobilenet] {name} served at batch {BATCH}: launches per forward {counts}; codes "
+            f"== JAX reference at {len(layers) - len(moved)} of {len(layers)} layers x {BATCH} "
+            f"images{f' (band: {moved})' if moved else ''}; logits {diff:.3g} from JAX's "
+            f"(grid step {step:.4g}, equal: {out[name]['logits_equal']}); matmul == plain at "
+            f"{len(shapes)} shapes, aligned and unaligned rows: {sorted(set(shapes))}")
+    return out, preds, err
+
+
+def check_mobilenet_fake_quant(dev):
+    """Phase 15, part 2: the fake-quant kernel against its plain version at
+    every per-tensor site of two full-width qmobilenet_v3_large_HS QAT
+    forwards (fresh observers, then calibrated), float32 and bfloat16,
+    with the QAT_FROZEN pass."""
+    name = MOBILENETS[1]
+    model = create_model(name, num_classes=CLASSES, drop_rate=0.0)
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    n_sites = observers(model)
+    checked, err, shapes = 0, 0.0, set()
+    for k in range(2):
+        sites = capture_sites(model, prep_image(torch.as_tensor(train_batch(k)["image"],
+                                                                device=dev)), QAT)
+        if len(sites) != n_sites:
+            raise AssertionError(f"{name}: {len(sites)} per-tensor sites in a QAT forward, "
+                                 f"expected {n_sites}")
+        for i, (x, mn, mx, spec) in enumerate(sites):
+            shapes.add(tuple(x.shape))
+            for dt in (torch.float32, torch.bfloat16):
+                err = max(err, check_site(f"{name} forward {k} site {i} {tuple(x.shape)} {dt}",
+                                          x.to(dt), mn, mx, spec))
+                checked += 1
+    torch.cuda.synchronize()
+    return checked, err, n_sites, len(shapes)
+
+
+MB_TRAINER_CFG = dict(model=MOBILENETS[1], image_size=IMAGE, num_classes=CLASSES,
+                      dataset="synthetic", batch_size=64, steps_per_epoch=2, fp_epochs=1,
+                      epochs=1, optim="QSGD", lrsch="cos_lr", log_every=1, device="cuda")
+
+
+def mobilenet_trainer(dev):
+    """Phase 15, part 4: ``classification.main`` on qmobilenet_v3_large_HS
+    (one FP32 and one QAT epoch), ``evaluate.main --export_int8`` on
+    ``best/``, ``serve.main`` on the artifact: its logits equal the
+    in-process freeze of the evaluator's model bit for bit."""
+    from frostnet_tpu_torch.train import classification, evaluate as evaluator
+
+    name = MB_TRAINER_CFG["model"]
+    root = os.path.join(PHASE15_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(root, "run")
+    probe = create_model(name, num_classes=CLASSES)
+    n_sites = observers(probe)
+    probe.prepare_int8("cpu", IMAGE)
+    n_mm = len(matmul_convs(probe))
+    expect = {("train", FP32): {"fake_quant_observe": 0, "int8_matmul_requant": 0},
+              ("train", QAT): {"fake_quant_observe": n_sites, "int8_matmul_requant": 0},
+              ("eval", QAT_FROZEN): {"fake_quant_observe": n_sites, "int8_matmul_requant": 0},
+              ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": n_mm}}
+    rep = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = classification.ClassificationConfig(save_dir=save_dir, **MB_TRAINER_CFG)
+    with StepCounter(classification) as counter:
+        _, res = classification.main(cfg)
+    rep["train_steps"] = check_step_launches(counter.rows, f"{name} train run", expect)
+    rep["train_history"] = check_history(res["history"], f"{name} train run")
+    rep["final"] = {"qat": res["qat"], "int8": res["int8"]}
+    for f in ("checkpoint", "best", "checkpoint_meta.json", "metrics.jsonl"):
+        if not os.path.exists(os.path.join(save_dir, f)):
+            raise AssertionError(f"{name} trainer: {f} was not written")
+    artifact = os.path.join(root, "int8.npz")
+    args = evaluator.build_parser([]).parse_args(
+        ["--model", name, "--checkpoint", os.path.join(save_dir, "best"), "--num_classes",
+         str(CLASSES), "--image_size", str(IMAGE), "--batch_size", "64", "--calib_batches", "2",
+         "--export_int8", artifact, "--device", "cuda"])
+    with StepCounter(classification) as counter:
+        ev = evaluator.main(args)
+    rep["evaluate_steps"] = check_step_launches(counter.rows, f"{name} evaluate", expect)
+    if not all(np.isfinite([ev["qat"]["loss"], ev["int8"]["loss"]])):
+        raise AssertionError(f"{name} evaluate: {ev['qat']} {ev['int8']}")
+    rep["evaluate"] = {"qat": ev["qat"], "int8": ev["int8"], "export_bytes": ev["export_bytes"]}
+    port = create_model(name, num_classes=CLASSES)
+    port.load_state_dict(ev["state"].model.state_dict())
+    images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    want = freeze(port, dev, IMAGE)(images).cpu().numpy()
+    out = os.path.join(root, "logits.npy")
+    rep["serve"] = serve.main(serve.build_parser().parse_args(
+        ["--model", name, "--artifact", artifact, "--iters", "5", "--batch_size", str(BATCH),
+         "--save_logits", out]))
+    got = np.load(out)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{name}: served logits != in-process freeze (max abs diff "
+                             f"{np.abs(got - want).max()})")
+    rep["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[mobilenet] trainer {name}: steps per mode {rep['train_steps']} (fake_quant_observe "
+        f"0 per FP32 step, {n_sites} per QAT step and QAT_FROZEN forward; int8_matmul_requant "
+        f"{n_mm} per INT8 forward); evaluate.main QAT_FROZEN {ev['qat']}, INT8 {ev['int8']}; "
+        f"serve.main on its artifact == in-process freeze bit for bit "
+        f"({len(np.unique(want))} distinct values); peak memory {rep['peak_memory_gib']:.2f} GiB")
+    return rep
+
+
+def group_inputs(model, x):
+    """``{group: [(module, input)]}`` of one INT8 forward: the depthwise
+    convs (torch ops), the hard-swishes and the squeeze-excites."""
+    groups, hooks = {"depthwise": [], "hswish": [], "se": []}, []
+
+    def keep(group):
+        return lambda m, args, out: groups[group].append((m, args[0]))
+
+    for mod in model.modules():
+        if isinstance(mod, QConvBNAct) and getattr(mod, "_route", None) == "depthwise":
+            hooks.append(mod.register_forward_hook(keep("depthwise")))
+        elif isinstance(mod, QHswish):
+            hooks.append(mod.register_forward_hook(keep("hswish")))
+        elif isinstance(mod, QSEModule):
+            hooks.append(mod.register_forward_hook(keep("se")))
+    try:
+        with torch.inference_mode():
+            model(x, mode=INT8)
+    finally:
+        for h in hooks:
+            h.remove()
+    return groups
+
+
+def time_mobilenets(preds, dev):
+    """Phase 15, part 5: serving images/s at batch 8 and 128, one profiled
+    forward at batch 8 (the matmul kernel, the torch ops, the device's idle
+    share), and the device time of each torch-op group (a CUDA graph of the
+    group's calls on that forward's inputs, replayed)."""
+    out = {}
+    for name, pred in preds.items():
+        rec = {}
+        for b in (8, 128):
+            xb = torch.as_tensor(np.random.RandomState(1).randn(b, IMAGE, IMAGE, 3)
+                                 .astype(np.float32), device=dev)
+            ms = time_ms(lambda: pred(xb), reps=10 if b == 8 else 5, warmup=1)
+            rec[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3}
+            log(f"[time] {name} serving batch {b}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
+        x8 = torch.as_tensor(np.random.RandomState(2).randn(BATCH, IMAGE, IMAGE, 3)
+                             .astype(np.float32), device=dev)
+        try:
+            rec["profile"] = profile_forward(pred, x8, MB_KERNELS)
+            log_profile(f"{name} forward at batch {BATCH}", rec["profile"])
+        except RuntimeError as e:  # torch.profiler stops recording after many sessions
+            log(f"[time] {name}: no profile ({e})")
+            rec["profile"] = None
+        groups = {}
+        with torch.inference_mode():
+            for group, calls in group_inputs(pred.model, x8).items():
+                if not calls:
+                    continue
+
+                def run(calls=calls):
+                    return [m(x, INT8) for m, x in calls]
+
+                groups[group] = {"modules": len(calls), "device_ms": graph_ms(run, 5),
+                                 "wall_ms": time_ms(run, reps=5)}
+        rec["groups"] = groups
+        log(f"[time] {name} torch-op groups at batch {BATCH}, ms device (CUDA graph) / wall: "
+            + ", ".join(f"{g} {v['device_ms']:.4f} / {v['wall_ms']:.4f} ({v['modules']} modules)"
+                        for g, v in groups.items()))
+        out[name] = rec
+    return out
+
+
+def mobilenet_phase(dev):
+    """Phase 15: the MobileNets on the card (serving, the fake-quant sites,
+    training, the user's path, serving speed). Returns (report, launches of
+    each path)."""
+    rep, launches = {}, {}
+    os.makedirs(PHASE15_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ops.reset_launch_counts()
+    rep["serving"], preds, rep["matmul_max_abs_err"] = serve_mobilenets(dev)
+    launches["serving"] = {n: r["launches"] for n, r in rep["serving"].items()}
+    checked, rep["fake_quant_max_abs_err"], n_sites, n_shapes = check_mobilenet_fake_quant(dev)
+    log(f"[mobilenet] fake_quant_observe == plain at {checked} site checks (2 QAT forwards of "
+        f"{MOBILENETS[1]} x {n_sites} sites x float32/bfloat16, {n_shapes} shapes; QAT and "
+        f"QAT_FROZEN passes)")
+    rep["fake_quant_site_checks"] = checked
+    training = {}
+    for name in MOBILENETS:
+        sites = observers(create_model(name))
+        ops.reset_launch_counts()
+        training[name] = time_training(dev, name, time_sites=False, reps=(3, 5))
+        counts = ops.launch_counts()
+        for b, r in training[name].items():
+            if r.get("fits", True) and (r["qat_fake_quant_launches"], r["fp32_fake_quant_launches"]) \
+                    != (sites, 0):
+                raise AssertionError(f"{name} {b}: fake-quant launches per QAT / FP32 step "
+                                     f"{r['qat_fake_quant_launches']} / "
+                                     f"{r['fp32_fake_quant_launches']} != {sites} / 0")
+        if counts["fake_quant_observe"] == 0:
+            raise AssertionError(f"{name} training launched no fake-quant kernel")
+        launches[f"training {name}"] = counts
+        torch.cuda.empty_cache()
+    rep["training"] = training
+    ops.reset_launch_counts()
+    rep["trainer"] = mobilenet_trainer(dev)
+    launches["trainer"] = ops.launch_counts()
+    for k in ("fake_quant_observe", "int8_matmul_requant"):
+        if launches["trainer"][k] == 0:
+            raise AssertionError(f"phase 15's trainer path launched no {k}")
+    rep["timing"] = time_mobilenets(preds, dev)
+    del preds
+    torch.cuda.empty_cache()
+    return rep, launches
 
 
 def main(argv=None):
@@ -1494,6 +1877,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     report["trainer"], trainer_counts = trainer_phase(dev)
 
+    # 15. the MobileNets: serving, the fake-quant sites, training, the user's path
+    torch.cuda.empty_cache()
+    report["mobilenet"], mb_counts = mobilenet_phase(dev)
+    max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"],
+                                         report["mobilenet"]["matmul_max_abs_err"])
+    max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
+                                        report["mobilenet"]["fake_quant_max_abs_err"])
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -1529,6 +1920,9 @@ def main(argv=None):
         summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
+        entry["mobilenet_launches"] = {path: (sum(c[entry["name"]] for c in counts.values())
+                                              if path == "serving" else counts[entry["name"]])
+                                       for path, counts in mb_counts.items()}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -11,7 +11,9 @@ observers stepping or frozen), or INT8, the frozen integer graph that
 float32).
 
 ``fuse_int8=True`` runs each Frost block of the INT8 graph as one CUDA
-kernel (``ops/frost_block``), bit-identical to the unfused path.
+kernel (``ops/frost_block``), bit-identical to the unfused path. The float
+FrostNets (``quantized=False``: no QuantStub, observers, QCat or QAdd; a
+concatenate and a plain residual add) run in float in every phase.
 """
 from __future__ import annotations
 
@@ -85,31 +87,33 @@ class CascadePreExBottleneck(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  strides: int = 1, expand_ratio: int = 6, reduce_factor: int = 4,
-                 block_type: str = "CAS", qconfig: QConfig = QNNPACK,
+                 block_type: str = "CAS", quantized: bool = True, qconfig: QConfig = QNNPACK,
                  fuse_int8: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if in_channels // reduce_factor < 8:
             block_type = "MB"
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.strides, self.expand_ratio = kernel_size, strides, expand_ratio
-        self.qconfig, self.fuse_int8 = qconfig, fuse_int8
+        self.qconfig, self.quantized = qconfig, quantized
+        self.fuse_int8 = fuse_int8 and quantized
         self.r_channels = make_divisible(in_channels // reduce_factor)
         self.has_expand = expand_ratio != 1
         self.has_squeeze = self.has_expand and block_type == "CAS"
         self.residual = strides == 1 and in_channels == out_channels
         n_channels = in_channels + (self.r_channels if self.has_squeeze else 0)
         self.e = n_channels * expand_ratio if self.has_expand else in_channels
-        kw = dict(qconfig=qconfig, dtype=dtype)
+        kw = dict(quantized=quantized, qconfig=qconfig, dtype=dtype)
         if self.has_squeeze:
             self.squeeze_conv = QConvBNAct(in_channels, self.r_channels, 1, act="relu", **kw)
-            self.quant_cat = QCat(qconfig)
+            if quantized:
+                self.quant_cat = QCat(qconfig)
         if self.has_expand:
             self.conv1 = QConvBNAct(n_channels, self.e, 1, act="relu", **kw)
         self.conv2 = QConvBNAct(self.e, self.e, kernel_size, strides=strides,
                                 padding=(kernel_size - 1) // 2, groups=self.e,
                                 act="relu", **kw)
         self.reduce_conv = QConvBNAct(self.e, out_channels, 1, act=None, **kw)
-        if self.residual:
+        if self.residual and quantized:
             self.skip_add = QAdd(qconfig)
 
     def spec(self, h: int, w: int) -> FrostBlockSpec:
@@ -172,12 +176,14 @@ class CascadePreExBottleneck(nn.Module):
             return QTensor(q, *self._out_t)
         out = x
         if self.has_squeeze:
-            out = self.quant_cat([self.squeeze_conv(x, mode, train), x], mode)
+            sq = self.squeeze_conv(x, mode, train)
+            out = (self.quant_cat([sq, x], mode) if self.quantized
+                   else torch.cat([sq, x], dim=-1))
         if self.has_expand:
             out = self.conv1(out, mode, train)
         out = self.reduce_conv(self.conv2(out, mode, train), mode, train)
         if self.residual:
-            out = self.skip_add(x, out, mode)
+            out = self.skip_add(x, out, mode) if self.quantized else x + out
         return out
 
 
@@ -195,14 +201,12 @@ class FrostNet(nn.Module):
                  qconfig: QConfig = QNNPACK, fuse_int8: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if not quantized:
-            raise ValueError("the port has the quantized FrostNets only; "
-                             "the float ones are not ported yet")
-        self.num_classes, self.fuse_int8 = num_classes, fuse_int8
-        self.drop_rate, self.dtype = drop_rate, dtype
-        kw = dict(qconfig=qconfig, dtype=dtype)
+        self.num_classes, self.fuse_int8 = num_classes, fuse_int8 and quantized
+        self.drop_rate, self.dtype, self.quantized = drop_rate, dtype, quantized
+        kw = dict(quantized=quantized, qconfig=qconfig, dtype=dtype)
         stem_c = make_divisible(int(32 * min(1.0, width_mult)))
-        self.quant = QuantStub(qconfig)
+        if quantized:
+            self.quant = QuantStub(qconfig)
         self.conv1 = QConvBNAct(3, stem_c, 3, strides=2, padding=1, act="relu", **kw)
         self.blocks = []
         c = stem_c
@@ -211,7 +215,7 @@ class FrostNet(nn.Module):
                 out_c = make_divisible(int(ch * width_mult))
                 blk = CascadePreExBottleneck(c, out_c, kernel_size=k, strides=s,
                                              expand_ratio=e, reduce_factor=r,
-                                             fuse_int8=fuse_int8, **kw)
+                                             fuse_int8=self.fuse_int8, **kw)
                 self.add_module(f"layer{si + 1}_{i}", blk)
                 self.blocks.append(blk)
                 c = out_c
@@ -230,7 +234,10 @@ class FrostNet(nn.Module):
         return specs
 
     def prepare_int8(self, device, image_size: int) -> None:
-        """Freeze every module for ``image_size`` inputs on ``device``."""
+        """Freeze every module for ``image_size`` inputs on ``device`` (a
+        float model needs nothing)."""
+        if not self.quantized:
+            return
         g = self.quant.prepare_int8(device)
         g = self.conv1.prepare_int8(g, device)
         for blk, (_, spec) in zip(self.blocks, self.block_specs(image_size)):
@@ -242,12 +249,14 @@ class FrostNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, S, S, 3) float images -> (B, num_classes) logits.
 
-        In INT8 the model runs frozen (``quant.freeze``) and returns float32
-        logits; the float phases return them in the compute dtype.
+        In INT8 a quantized model runs frozen (``quant.freeze``) and returns
+        float32 logits; the float phases return them in the compute dtype.
         """
-        if mode.int8 and not hasattr(self.quant, "_out"):
+        if mode.int8 and self.quantized and not hasattr(self.quant, "_out"):
             raise RuntimeError("INT8 runs frozen only: call quant.freeze(model) first")
-        x = self.conv1(self.quant(x, mode), mode, train)
+        if self.quantized:
+            x = self.quant(x, mode)
+        x = self.conv1(x, mode, train)
         for blk in self.blocks:
             x = blk(x, mode, train)
         x = self.last_layer(x, mode, train)

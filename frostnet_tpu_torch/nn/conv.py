@@ -11,7 +11,7 @@ and runs in float in every phase, INT8 included.
 module does (activations NHWC at the boundary):
 
 * FP32: conv -> BN (batch statistics in train mode, running ones in eval)
-  -> act (the StatAssist warm-up);
+  -> act (the StatAssist warm-up; ``relu6`` is ``clamp(y, 0, 6)``);
 * QAT train: the ``torch.nn.intrinsic.qat.ConvBn2d`` recipe:
   ``sf = gamma / sqrt(var + eps)``, the weight ``w * sf`` observed and
   fake-quantized, conv, ``/ sf``, BN on batch statistics (biased variance
@@ -43,6 +43,12 @@ takes one of four routes:
   convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
 * any other dense kxk (the stems, strided convs): zero-point-padded im2col
   patches and one INT8 matmul, whatever K the patches have.
+
+Every route takes ``relu6`` as a narrower clamp of the codes. The frozen
+epilogue computes ``quantize(clip(y, 0, 6))``; quantize is monotone, so that
+equals ``clamp(rint(y * f32(1/s)) + zp, max(qmin, zp), min(qmax, q6))`` with
+``q6 = rint(f32(6) * f32(1/s)) + zp``, the epilogue's own arithmetic
+(:meth:`QConvBNAct.code_range`).
 """
 from __future__ import annotations
 
@@ -55,7 +61,7 @@ from torch import nn
 
 from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
-from ..ops.requant import depthwise_acc, epilogue_constants, requant_epilogue
+from ..ops.requant import depthwise_acc, epilogue_constants, reciprocal, requant_epilogue
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
 from .mode import FP32, QuantMode
@@ -91,7 +97,7 @@ class QConvBNAct(nn.Module):
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        acts = (None, "relu") if quantized else (None, "relu", "tanh")
+        acts = (None, "relu", "relu6") if quantized else (None, "relu", "relu6", "tanh")
         if act not in acts:
             raise ValueError(f"the port supports act {acts} on a "
                              f"{'quantized' if quantized else 'float'} block, got {act!r}")
@@ -134,12 +140,23 @@ class QConvBNAct(nn.Module):
         out = observed_qparams(self.act_obs, self.qconfig.activation)
         return qw, w_scale, bf, out.scale, out.zero_point
 
+    def code_range(self, out_mult: float, out_zp: int) -> Tuple[int, int]:
+        """(qmin, qmax) of the frozen epilogue's output codes: the grid's, or
+        for ``relu6`` the codes of [0, 6] (``out_mult`` is the epilogue's
+        ``f32(1/s)``)."""
+        aspec = self.qconfig.activation
+        if self.act != "relu6":
+            return aspec.qmin, aspec.qmax
+        q6 = torch.round(torch.tensor(6.0, dtype=torch.float32)
+                         * torch.tensor(out_mult, dtype=torch.float32))
+        return max(aspec.qmin, out_zp), min(aspec.qmax, int(q6) + out_zp)
+
     def prepare_int8(self, x: QParams, device) -> QParams:
         """Freeze the conv for inputs on grid ``x``; returns the output grid."""
-        aspec = self.qconfig.activation
         qw, w_scale, bf, out_s, out_zp = self.int8_params()
         comb = torch.tensor(x.scale, dtype=torch.float32) * w_scale
-        relu = self.act == "relu"
+        relu = self.act in ("relu", "relu6")
+        qmin, qmax = self.code_range(reciprocal(out_s), int(out_zp))
         kh, kw = self.kernel_size
         self._in, self._out = x, QParams(out_s, out_zp)
         self._out_t = self._out.tensors(device)
@@ -148,7 +165,7 @@ class QConvBNAct(nn.Module):
                 raise ValueError("padded 1x1 convs are not part of the INT8 port")
             self._route = "matmul"
             self._op = conv1x1_operands(qw[0, 0], comb, bf, x.zero_point, out_s, out_zp,
-                                        relu, aspec.qmin, aspec.qmax, device)
+                                        relu, qmin, qmax, device)
         elif self.depthwise and self.features == self.groups:
             if kh != kw or self.padding != (kh - 1) // 2:
                 raise ValueError("the INT8 depthwise route takes square kernels with "
@@ -156,16 +173,16 @@ class QConvBNAct(nn.Module):
             self._route = "depthwise"
             self._taps = qw.reshape(kh * kw, self.features).to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
-            self._dw = (scale.to(device), bias.to(device), mult)
+            self._dw = (scale.to(device), bias.to(device), mult, qmin, qmax)
         elif (kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1 and self.groups == 1:
             self._route = "dense3x3"
             self._op = conv3x3_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
-                                        aspec.qmin, aspec.qmax, device)
+                                        qmin, qmax, device)
         elif self.groups == 1:
             self._route = "im2col"
             self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
                                         comb, bf, x.zero_point, out_s, out_zp, relu,
-                                        aspec.qmin, aspec.qmax, device)
+                                        qmin, qmax, device)
         else:
             raise ValueError(f"grouped conv (groups={self.groups}) is not part of the INT8 port")
         return self._out
@@ -233,6 +250,8 @@ class QConvBNAct(nn.Module):
                 y = self._batch_norm(y, train)
         if self.act == "relu":
             y = F.relu(y)
+        elif self.act == "relu6":
+            y = torch.clamp(y, 0.0, 6.0)
         elif self.act == "tanh":
             y = torch.tanh(y)
         if q_on:
@@ -244,13 +263,12 @@ class QConvBNAct(nn.Module):
         QTensor into a quantized block in INT8 (frozen)."""
         if not mode.int8 or not self.quantized:
             return self._float_forward(x, mode, train)
-        aspec = self.qconfig.activation
         if self._route == "depthwise":
             acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
                                 self._in.zero_point)
-            scale, bias, mult = self._dw
+            scale, bias, mult, qmin, qmax = self._dw
             q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
-                                 self.act == "relu", aspec.qmin, aspec.qmax)
+                                 self.act in ("relu", "relu6"), qmin, qmax)
             return QTensor(q, *self._out_t)
         if self._route == "dense3x3":
             return QTensor(conv3x3_s1_int8(x.q, self._op), *self._out_t)

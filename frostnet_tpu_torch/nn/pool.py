@@ -18,7 +18,7 @@ def global_avg_pool(x, keepdims: bool = True):
     if isinstance(x, QTensor):
         n = x.q.shape[1] * x.q.shape[2]
         s = x.q.to(torch.float32).sum(dim=(1, 2), keepdim=keepdims)
-        m = s * torch.tensor(reciprocal(float(n)), device=s.device)
+        m = s * torch.full((), reciprocal(float(n)), device=s.device)
         q = torch.clamp(torch.round(m), 0, 255).to(x.q.dtype)
         return QTensor(q, x.scale, x.zero_point)
     return x.mean(dim=(1, 2), keepdim=keepdims)

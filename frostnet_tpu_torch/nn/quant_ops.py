@@ -4,8 +4,12 @@
 * :func:`observed_fake_quant`: ``apply_observer`` of the JAX package, the
   observer step and fake-quant of one site.
 * :class:`QuantStub` / :func:`dequant`: the QuantStub/DeQuantStub pair.
-* :class:`QAdd` / :class:`QCat`: the ``FloatFunctional`` requant points of
-  skips and concats, each with its own activation observer.
+* :func:`observed_standalone_act`: a bare ReLU6 module's FakeQuantize
+  (observed in QAT, a pass-through for QTensors in INT8).
+* :class:`QAdd` / :class:`QCat` / :class:`QMul`: the ``FloatFunctional``
+  requant points of skips, concats and gates, each with its own activation
+  observer; :func:`add_scalar` / :func:`mul_scalar` have none (they move the
+  zero point or the scale of a QTensor).
 
 ``forward(..., mode)`` runs the phase ``mode`` names. In FP32 the modules
 pass values through; in QAT and QAT_FROZEN each output goes through
@@ -77,6 +81,55 @@ def observed_fake_quant(x: torch.Tensor, obs: Observer, spec: QSpec, mode: Quant
     return x
 
 
+def observed_standalone_act(x, obs: Observer, spec: QSpec, mode: QuantMode):
+    """A standalone ``nn.ReLU6``'s FakeQuantize (``frostnet_tpu/nn/quant_ops.py``
+    ``observed_standalone_act``): a float ``x`` is observed and fake-quantized
+    as ``mode`` says (in INT8 neither: it passes), a QTensor passes untouched
+    (the caller already clamped it on the integer grid)."""
+    if isinstance(x, QTensor):
+        return x
+    return observed_fake_quant(x, obs, spec, mode)
+
+
+def _div_round(s: float, scale) -> int:
+    """``round(f32(s) / f32(scale))`` as an int (IEEE division, half to even)."""
+    q = torch.tensor(s, dtype=torch.float32) / torch.as_tensor(scale, dtype=torch.float32)
+    return int(torch.round(q))
+
+
+def add_scalar(x, s: float):
+    """FloatFunctional.add_scalar: a QTensor (or its frozen grid, QParams)
+    keeps its codes and scale and its zero point moves down by
+    ``round(s / scale)`` (int32; it may go below 0); a float tensor adds ``s``
+    in its own dtype."""
+    if isinstance(x, QParams):
+        return QParams(x.scale, x.zero_point - _div_round(s, x.scale))
+    if isinstance(x, QTensor):
+        shift = torch.round(torch.full((), s, dtype=torch.float32, device=x.q.device) / x.scale)
+        return QTensor(x.q, x.scale, x.zero_point - shift.to(torch.int32))
+    return x + s
+
+
+def mul_scalar(x, s: float):
+    """FloatFunctional.mul_scalar: a QTensor (or QParams) keeps its codes and
+    its scale takes the factor (float32 product); a float tensor multiplies
+    by ``s`` rounded to its dtype, as JAX's weakly typed constant is."""
+    if isinstance(x, QParams):
+        return QParams(float(torch.tensor(x.scale, dtype=torch.float32)
+                             * torch.tensor(s, dtype=torch.float32)), x.zero_point)
+    if isinstance(x, QTensor):
+        return QTensor(x.q, x.scale * torch.full((), s, dtype=torch.float32,
+                                                 device=x.q.device), x.zero_point)
+    return x * torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def requantize(y: torch.Tensor, mult: torch.Tensor, zp: int, spec: QSpec) -> torch.Tensor:
+    """float ``y`` -> codes on a frozen grid: ``clamp(rint(y * f32(1/s)) + zp)``
+    (``quantize`` with XLA's reciprocal; ``mult`` a 0-dim device tensor)."""
+    q = torch.round(y.to(torch.float32) * mult) + float(zp)
+    return torch.clamp(q, spec.qmin, spec.qmax).to(spec.storage_dtype)
+
+
 class QuantStub(nn.Module):
     """Entry of the quant region: float NHWC -> QTensor on the observed grid."""
 
@@ -119,6 +172,7 @@ class _QBinary(nn.Module):
         self._in: List[QParams] = list(inputs)
         self._out = self.qparams()
         self._mult = reciprocal(self._out.scale)
+        self._mult_t = torch.tensor(self._mult, dtype=torch.float32, device=device)
         self._out_t = self._out.tensors(device)
         return self._out
 
@@ -133,6 +187,19 @@ class QAdd(_QBinary):
         q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
                        self.qconfig.activation.qmin, self.qconfig.activation.qmax)
         return QTensor(q, *self._out_t)
+
+
+class QMul(_QBinary):
+    """FloatFunctional.mul (the hard-swish and squeeze-excite gates): in INT8
+    each operand, a QTensor or a float, is dequantized, the float32 product
+    requantized on the stored grid."""
+
+    def forward(self, a, b, mode: QuantMode = FP32):
+        if not mode.int8:
+            return observed_fake_quant(a * b, self.act, self.qconfig.activation, mode)
+        y = dequant(a) * dequant(b)
+        return QTensor(requantize(y, self._mult_t, self._out.zero_point,
+                                  self.qconfig.activation), *self._out_t)
 
 
 class QCat(_QBinary):

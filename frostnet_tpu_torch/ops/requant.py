@@ -44,6 +44,13 @@ def reciprocal(s) -> float:
     return float(torch.tensor(1.0, dtype=torch.float32) / s)
 
 
+def _const(v: float, device) -> torch.Tensor:
+    """float32 ``v`` as a 0-dim tensor filled on ``device``: no copy from
+    the host (which would wait for the device and cannot be captured in a
+    CUDA graph)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once (a fused multiply-add).
 
@@ -89,7 +96,7 @@ def requant_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = fma_f32(acc.to(torch.float32), scale, bias)
     if relu:
         y = torch.clamp(y, min=0.0)
-    y = y * torch.tensor(out_mult, dtype=torch.float32, device=y.device)
+    y = y * _const(out_mult, y.device)
     q = torch.round(y) + float(out_zp)
     return torch.clamp(q, qmin, qmax).to(torch.uint8)
 
@@ -102,8 +109,8 @@ def requant_codes(q: torch.Tensor, z_in: int, s_in: float, mult: float,
     sits between them); ``mult = 1.0`` gives the single-multiply form.
     """
     dev = q.device
-    y = (q.to(torch.float32) - float(z_in)) * torch.tensor(s_in, dtype=torch.float32, device=dev)
-    y = y * torch.tensor(mult, dtype=torch.float32, device=dev)
+    y = (q.to(torch.float32) - float(z_in)) * _const(s_in, dev)
+    y = y * _const(mult, dev)
     return torch.clamp(torch.round(y) + float(z_out), qmin, qmax).to(torch.uint8)
 
 
@@ -113,9 +120,9 @@ def qadd_codes(qa: torch.Tensor, za: int, sa: float, qb: torch.Tensor, zb: int,
     product and the sum rounded on its own."""
     dev = qa.device
     f32 = torch.float32
-    ya = (qa.to(f32) - float(za)) * torch.tensor(sa, dtype=f32, device=dev)
-    yb = (qb.to(f32) - float(zb)) * torch.tensor(sb, dtype=f32, device=dev)
-    y = (ya + yb) * torch.tensor(mult, dtype=f32, device=dev)
+    ya = (qa.to(f32) - float(za)) * _const(sa, dev)
+    yb = (qb.to(f32) - float(zb)) * _const(sb, dev)
+    y = (ya + yb) * _const(mult, dev)
     return torch.clamp(torch.round(y) + float(z_out), qmin, qmax).to(torch.uint8)
 
 

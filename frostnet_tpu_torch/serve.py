@@ -1,9 +1,10 @@
-"""Batched INT8 serving on the GPU: FrostNet classifiers and the GAN generator.
+"""Batched INT8 serving on the GPU: the registry's classifiers and the GAN generator.
 
 Loads an INT8 artifact written by ``export_int8`` (the JAX package's or the
 port's: one layout), freezes the model once on the device, and serves
 batched predictions with latency reporting. ``--workload cls`` (the
-default) serves a FrostNet classifier, ``--workload gan`` the
+default) serves a classifier (a quantized FrostNet or MobileNet),
+``--workload gan`` the
 pix2pix/CycleGAN ResnetGenerator
 (``--model resnet_9blocks`` by default, 256x256 images). The report has the
 keys of ``frostnet_tpu.serve``:
@@ -159,9 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--workload", choices=tuple(_DEFAULTS), default="cls",
-                   help="cls: a FrostNet classifier; gan: the ResnetGenerator")
+                   help="cls: a quantized classifier; gan: the ResnetGenerator")
     p.add_argument("--model", default=None,
-                   help=f"FrostNet registry name, or the generator (resnet_6blocks, "
+                   help=f"registry name (a quantized FrostNet or MobileNet), or the "
+                        f"generator (resnet_6blocks, "
                         f"resnet_9blocks); default {_CLS_DEFAULT} / resnet_9blocks")
     p.add_argument("--artifact", required=True, help="export_int8 .npz")
     p.add_argument("--num_classes", type=int, default=1000)
@@ -172,7 +174,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", choices=("synthetic",), default="synthetic",
                    help="request images; only synthetic is ported so far")
     p.add_argument("--fuse_int8", action="store_true",
-                   help="run each Frost block as one fused CUDA kernel")
+                   help="run each Frost block as one fused CUDA kernel (FrostNet only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output", default=None, help="write top-k jsonl here")
     p.add_argument("--save_logits", default=None, metavar="PATH",

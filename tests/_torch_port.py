@@ -70,7 +70,7 @@ def jax_train_state(model, tree, tx):
 
     v = jax_variables(tree)
     return QATTrainState(step=jnp.zeros([], jnp.int32), params=v["params"],
-                         batch_stats=v["batch_stats"], quant=v["quant"],
+                         batch_stats=v["batch_stats"], quant=v.get("quant", {}),
                          opt_state=tx.init(v["params"]), rng=jax.random.PRNGKey(0), tx=tx)
 
 

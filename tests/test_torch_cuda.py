@@ -32,7 +32,12 @@ pytestmark = pytest.mark.cuda
 MATMUL_SHAPES = [(256, 136, 816), (100, 24, 144), (17, 8, 40),
                  (100352, 27, 32), (392, 320, 1280), (8, 1280, 1000),
                  (8, 27, 1000), (392, 576, 128), (5000, 147, 64), (4096, 1152, 256),
-                 (1000, 40, 72), (17000, 576, 300)]
+                 (1000, 40, 72), (17000, 576, 300),
+                 # MobileNetV3's 1x1 convs at batch 8 whose K is not a multiple
+                 # of 16 (rows not 16-byte aligned): K = 24, 40, 72, 88, 120,
+                 # 184, 200; its head at M = 8
+                 (25088, 24, 72), (6272, 72, 40), (6272, 40, 120), (6272, 120, 40),
+                 (6272, 88, 24), (1568, 184, 80), (1568, 200, 80), (8, 960, 1280)]
 
 BLOCKS = [
     dict(h=14, w=14, cin=96, cout=96, kernel=5, stride=1, has_squeeze=True,
@@ -100,6 +105,40 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, m, k, n, signed, qmax):
     assert len(torch.unique(want)) > 16
 
 
+def test_int8_matmul_kernel_relu6_clamp(cuda_device):
+    """ReLU6 reaches the kernel as a narrower clamp [zp, q6] of the codes
+    (``QConvBNAct.code_range``): MobileNetV2's head at batch 8."""
+    x, op = _matmul_case(392, 320, 1280, False, 255, cuda_device, seed=3)
+    op.qmin, op.qmax = 7, 181
+    got, want = int8_matmul_requant(x, op), int8_matmul_requant_plain(x, op)
+    assert torch.equal(got, want)
+    assert int(want.min()) == 7 and int(want.max()) == 181 and len(torch.unique(want)) > 16
+
+
+@pytest.mark.parametrize("name", ["qmobilenet_v2_ReLU", "qmobilenet_v3_large_HS"])
+def test_mobilenet_predictor_launches(cuda_device, name, tmp_path):
+    """The full-width MobileNet fixture served on the card: one matmul launch
+    per 1x1 or im2col conv and nothing else, every layer's codes and the
+    logits equal to the committed JAX reference (first two images)."""
+    from chip_smoke import TESTDATA, code_digests, layer_codes, mobilenet_predictor
+    from frostnet_tpu_torch.nn import QConvBNAct
+
+    ref = np.load(f"{TESTDATA}/{name}_reference.npz")
+    pred = mobilenet_predictor(name, cuda_device, str(tmp_path))
+    n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in pred.model.modules()
+               if isinstance(m, QConvBNAct))
+    images = np.random.RandomState(0).randn(2, 224, 224, 3).astype(np.float32)
+    ops.reset_launch_counts()
+    logits, codes = layer_codes(pred, images)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
+                                   "fake_quant_observe": 0, "int8_conv": 0}
+    for k in ref.files:
+        if k.startswith("sha256/"):
+            assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
+    assert np.array_equal(logits.cpu().numpy(), ref["logits"][:2])
+
+
 @pytest.mark.parametrize("m,k,n", [(300, 64, 72), (130, 1152, 256), (77, 147, 64)])
 def test_int8_matmul_kernel_unaligned_rows(cuda_device, m, k, n):
     """x one byte into its storage: no row is 16-byte aligned, so every K
@@ -150,7 +189,12 @@ def test_frost_block_batches_share_packed_weights(cuda_device):
 FQ_CASES = [((8, 112, 112, 32), 3.0, None), ((8, 56, 56, 144), 1.0, (-0.5, 2.0)),
             ((3, 3, 1, 720), 0.1, (-0.2, 0.3)), ((8, 1, 1, 1000), 20.0, (-30.0, 20.0)),
             ((7, 13), 1.0, None), ((1,), 1.0, (0.0, 1.0)), ((16, 4096), 2.0, (-1.0, 3.0)),
-            ((65537,), 2.0, None), ((128, 56, 56, 144), 1.0, (-0.5, 2.0))]
+            ((65537,), 2.0, None), ((128, 56, 56, 144), 1.0, (-0.5, 2.0)),
+            # MobileNetV3 sites: QDense weights (C, F) and outputs (N, F), the
+            # squeeze-excite gate (N, 1, 1, C), 5x5 depthwise weights, a
+            # hard-swish's ReLU6 over the stem's map
+            ((960, 240), 0.05, (-0.1, 0.1)), ((8, 240), 3.0, None), ((8, 1, 1, 960), 0.5, None),
+            ((5, 5, 1, 672), 0.2, (-0.3, 0.3)), ((8, 112, 112, 16), 2.0, (0.0, 6.0))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -74,10 +74,14 @@ def test_variable_names_and_shapes_match_jax(name, backend):
 def test_registry_and_float_names():
     names = list_models("frostnet")
     assert len(names) == 30
+    # the float FrostNets build (no QuantStub, no observers) and are not frozen
+    float_model = create_model("frostnet_large_1_0")
+    assert not float_model.quantized and not hasattr(float_model, "quant")
+    assert not any(k.startswith("quant/") for k in model_variables(float_model))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_model("resnet18")  # a JAX name not ported yet
     with pytest.raises(ValueError):
-        create_model("frostnet_large_1_0")  # float models are not served
-    with pytest.raises(ValueError):
-        create_model("resnet18")
+        create_model("frostnet_huge_1_0")
 
 
 def test_forward_needs_freeze():
