@@ -131,6 +131,30 @@ Phases (each raises on failure, and any failure exits non-zero):
      of the torch-op groups (depthwise convs, hard-swishes,
      squeeze-excites: a CUDA graph of each group's calls on that forward's
      inputs, replayed).
+ 16. the ResNets at full width (224x224, 1000 classes, qnnpack), with TF32
+     off: (1) ``qresnet18`` and ``qresnet50`` built from ``numpy_init(seed
+     0)`` and the committed calibration (``testdata/<model>_calibration.npz``),
+     written by the port's ``export_int8`` and served by ``Int8Predictor`` at
+     batch 8: every layer's codes against the committed JAX digests, the
+     logits within one step of the ``fc`` output grid (equal on the CPU),
+     launches 13 dense convs + 7 / 40 matmuls a forward and nothing else;
+     the dense conv kernel against its plain version at every dense conv of
+     both forwards (the forward's inputs, and an fbgemm grid with and
+     without ReLU) and the matmul kernel at every matmul (aligned and
+     unaligned rows); (2) the grouped INT8 route (torch ops) at ResNeXt-101
+     32x8d's four stage shapes at batch 2, card against CPU; (3) the
+     fake-quant kernel at every per-tensor site of a qresnet50 QAT forward at
+     batch 8 (125), float32 and bfloat16, with the QAT_FROZEN pass, and its
+     largest site at batch 256 in bfloat16 (205.5 M elements); (4) both
+     models' bf16 QAT and FP32 steps at batch 128 and 256 (51 / 125
+     fake-quant launches a QAT step, 0 an FP32 step); (5)
+     ``classification.main`` on ``qresnet18`` (batch 64, 2 steps an epoch,
+     one FP32 and one QAT epoch), ``evaluate.main --export_int8`` and
+     ``serve.main`` on its artifact, whose logits must equal the in-process
+     ``freeze``; (6) the dense conv at its four ResNet shapes with ReLU at
+     batch 8 and 128, and qresnet50's distinct matmul shapes at batch 8, each
+     with wall and device time, bound, plain version and ``torch._int_mm``;
+     serving images/s at batch 8 and 128; one profiled forward at batch 8.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -140,9 +164,10 @@ entries add ``device_ms`` and ``library_device_ms``, the fake-quant entry
 ``device_ms`` (a replayed CUDA graph of the sites) and ``wall_ms``. A
 matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
-Each entry also gives ``trainer_launches``, its launches in phase 14, and
+Each entry also gives ``trainer_launches``, its launches in phase 14,
 ``mobilenet_launches``, its launches on each path of phase 15 (the two
-served forwards, each model's training, the trainer path).
+served forwards, each model's training, the trainer path), and
+``resnet_launches``, the same for phase 16.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -177,7 +202,7 @@ from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
 from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
-from frostnet_tpu_torch.quant import (ObserverState, QTensor, export_int8, freeze,
+from frostnet_tpu_torch.quant import (ObserverState, QParams, QTensor, export_int8, freeze,
                                       from_jax_variables, get_qconfig, model_variables, numpy_init)
 from frostnet_tpu_torch.quant.export import flatten_variables, unflatten_variables
 from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
@@ -455,14 +480,14 @@ def capture(model, images):
 
 def layer_codes(pred, images):
     """(output, {layer: codes}) of one ``pred(images)`` call: the codes each
-    top-level module of the model outputs and, as ``pool``, the classifier's
-    input. The hooks only keep references, so the call's launches are
-    unchanged."""
+    top-level module of the model outputs and, as ``pool``, the input of the
+    classifier (``classifier``, or a ResNet's ``fc``). The hooks only keep
+    references, so the call's launches are unchanged."""
     codes, hooks = {}, []
 
     def keep(name):
         def hook(mod, args, out):
-            if name == "classifier":
+            if name in ("classifier", "fc"):
                 codes["pool"] = args[0].q
             elif isinstance(out, QTensor):
                 codes[name] = out.q
@@ -953,16 +978,14 @@ def check_gan_matmuls(pred, images, dev):
     return err, shapes
 
 
-def check_int8_conv(pred, dev):
-    """Phase 11: the conv kernel against its plain version."""
-    calls = capture_convs(pred, gan_images(0, GAN_BATCH), "dense3x3")
-    if len(calls) != GAN_LAUNCHES["int8_conv"]:
-        raise AssertionError(f"{len(calls)} dense 3x3 convs in a forward, expected "
-                             f"{GAN_LAUNCHES['int8_conv']}")
+def check_conv_calls(what, calls, dev):
+    """The conv kernel against its plain version at each captured call: on
+    the forward's input, and at its shape on an fbgemm grid (per-channel
+    scales, qmax 127) with and without ReLU. Returns (max error, checks)."""
     err, checked = 0, 0
     for i, (name, mod, x) in enumerate(calls):
         op = mod._op
-        err = max(err, check_equal(f"int8_conv {name} (fixture)", conv3x3_s1_int8(x, op),
+        err = max(err, check_equal(f"int8_conv {what} {name} (fixture)", conv3x3_s1_int8(x, op),
                                    conv3x3_s1_int8_plain(x, op)))
         g = torch.Generator().manual_seed(i)
         x127 = torch.randint(0, 128, tuple(x.shape), generator=g, dtype=torch.uint8).to(dev)
@@ -971,9 +994,19 @@ def check_int8_conv(pred, dev):
             fb = conv3x3_operands(qw, torch.rand(op.cout, generator=g) * 2e-5 + 1e-5,
                                   torch.randn(op.cout, generator=g) * 0.05, 60, 0.05, 17,
                                   relu, 0, 127, dev)
-            err = max(err, check_equal(f"int8_conv {name} (fbgemm grid, relu={relu})",
+            err = max(err, check_equal(f"int8_conv {what} {name} (fbgemm grid, relu={relu})",
                                        conv3x3_s1_int8(x127, fb), conv3x3_s1_int8_plain(x127, fb)))
         checked += 3
+    return err, checked
+
+
+def check_int8_conv(pred, dev):
+    """Phase 11: the conv kernel against its plain version."""
+    calls = capture_convs(pred, gan_images(0, GAN_BATCH), "dense3x3")
+    if len(calls) != GAN_LAUNCHES["int8_conv"]:
+        raise AssertionError(f"{len(calls)} dense 3x3 convs in a forward, expected "
+                             f"{GAN_LAUNCHES['int8_conv']}")
+    err, checked = check_conv_calls("gan", calls, dev)
     g = torch.Generator().manual_seed(99)
     for h, w, cin, cout in ((13, 21, 68, 36), (37, 75, 68, 132)):
         for qmax in (255, 127):
@@ -1188,7 +1221,7 @@ def check_step_launches(rows, what, expect=None):
     for r in rows:
         exp = expect[(r["kind"], r["mode"])]
         got = {k: r[k] for k in exp}
-        if got != exp or r["frost_block_int8"] or r["int8_conv"]:
+        if got != exp or any(r[k] for k in ops.KERNELS if k not in exp):
             raise AssertionError(f"{what}: {r['kind']} {MODE_NAMES[r['mode']]} launched {got} "
                                  f"!= {exp}")
         key = f"{r['kind']} {MODE_NAMES[r['mode']]}"
@@ -1468,28 +1501,35 @@ MB_TRAINER_CFG = dict(model=MOBILENETS[1], image_size=IMAGE, num_classes=CLASSES
                       epochs=1, optim="QSGD", lrsch="cos_lr", log_every=1, device="cuda")
 
 
-def mobilenet_trainer(dev):
-    """Phase 15, part 4: ``classification.main`` on qmobilenet_v3_large_HS
-    (one FP32 and one QAT epoch), ``evaluate.main --export_int8`` on
-    ``best/``, ``serve.main`` on the artifact: its logits equal the
-    in-process freeze of the evaluator's model bit for bit."""
+def dense_convs(model):
+    """The convs of a frozen model that run the dense 3x3 conv kernel."""
+    return [m for m in model.modules()
+            if isinstance(m, QConvBNAct) and getattr(m, "_route", None) == "dense3x3"]
+
+
+def trainer_path(dev, run_cfg, root, what="mobilenet"):
+    """``classification.main`` with ``run_cfg`` (one FP32 and one QAT
+    epoch), ``evaluate.main --export_int8`` on ``best/``, ``serve.main`` on
+    the artifact: its logits equal the in-process freeze of the evaluator's
+    model bit for bit; each step's launches as the model's sites and INT8
+    routes say (phase 15, part 4, and phase 16, part 5)."""
     from frostnet_tpu_torch.train import classification, evaluate as evaluator
 
-    name = MB_TRAINER_CFG["model"]
-    root = os.path.join(PHASE15_DIR, "trainer")
+    name = run_cfg["model"]
     shutil.rmtree(root, ignore_errors=True)
     save_dir = os.path.join(root, "run")
     probe = create_model(name, num_classes=CLASSES)
     n_sites = observers(probe)
     probe.prepare_int8("cpu", IMAGE)
-    n_mm = len(matmul_convs(probe))
-    expect = {("train", FP32): {"fake_quant_observe": 0, "int8_matmul_requant": 0},
-              ("train", QAT): {"fake_quant_observe": n_sites, "int8_matmul_requant": 0},
-              ("eval", QAT_FROZEN): {"fake_quant_observe": n_sites, "int8_matmul_requant": 0},
-              ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": n_mm}}
+    n_mm, n_conv = len(matmul_convs(probe)), len(dense_convs(probe))
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    expect = {("train", FP32): zero,
+              ("train", QAT): {**zero, "fake_quant_observe": n_sites},
+              ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
+              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm, "int8_conv": n_conv}}
     rep = {}
     torch.cuda.reset_peak_memory_stats()
-    cfg = classification.ClassificationConfig(save_dir=save_dir, **MB_TRAINER_CFG)
+    cfg = classification.ClassificationConfig(save_dir=save_dir, **run_cfg)
     with StepCounter(classification) as counter:
         _, res = classification.main(cfg)
     rep["train_steps"] = check_step_launches(counter.rows, f"{name} train run", expect)
@@ -1522,9 +1562,10 @@ def mobilenet_trainer(dev):
         raise AssertionError(f"{name}: served logits != in-process freeze (max abs diff "
                              f"{np.abs(got - want).max()})")
     rep["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[mobilenet] trainer {name}: steps per mode {rep['train_steps']} (fake_quant_observe "
+    log(f"[{what}] trainer {name}: steps per mode {rep['train_steps']} (fake_quant_observe "
         f"0 per FP32 step, {n_sites} per QAT step and QAT_FROZEN forward; int8_matmul_requant "
-        f"{n_mm} per INT8 forward); evaluate.main QAT_FROZEN {ev['qat']}, INT8 {ev['int8']}; "
+        f"{n_mm} and int8_conv {n_conv} per INT8 forward); evaluate.main QAT_FROZEN "
+        f"{ev['qat']}, INT8 {ev['int8']}; "
         f"serve.main on its artifact == in-process freeze bit for bit "
         f"({len(np.unique(want))} distinct values); peak memory {rep['peak_memory_gib']:.2f} GiB")
     return rep
@@ -1629,7 +1670,7 @@ def mobilenet_phase(dev):
         torch.cuda.empty_cache()
     rep["training"] = training
     ops.reset_launch_counts()
-    rep["trainer"] = mobilenet_trainer(dev)
+    rep["trainer"] = trainer_path(dev, MB_TRAINER_CFG, os.path.join(PHASE15_DIR, "trainer"))
     launches["trainer"] = ops.launch_counts()
     for k in ("fake_quant_observe", "int8_matmul_requant"):
         if launches["trainer"][k] == 0:
@@ -1638,6 +1679,254 @@ def mobilenet_phase(dev):
     del preds
     torch.cuda.empty_cache()
     return rep, launches
+
+
+RESNETS = ("qresnet18", "qresnet50")
+PHASE16_DIR = os.path.join(ROOT, "build", "phase16")
+# launches of one INT8 forward (read from the JAX modules): the
+# non-strided 3x3s on the dense conv kernel; the stem, the strided 3x3s, the
+# 1x1s and the downsamples on the matmul kernel
+RESNET_LAUNCHES = {"qresnet18": {"int8_matmul_requant": 7, "frost_block_int8": 0,
+                                 "fake_quant_observe": 0, "int8_conv": 13},
+                   "qresnet50": {"int8_matmul_requant": 40, "frost_block_int8": 0,
+                                 "fake_quant_observe": 0, "int8_conv": 13}}
+RESNET_SITES = {"qresnet18": 51, "qresnet50": 125}
+RESNET_KERNELS = {"int8_conv": "conv3x3_s1_int8", "int8_matmul_requant": "int8_matmul_requant"}
+# ResNeXt-101 32x8d's grouped 3x3s, one per stage: (H in, width, stride)
+RESNEXT_GROUPED = [(56, 256, 1), (56, 512, 2), (28, 1024, 2), (14, 2048, 2)]
+RESNET_TRAINER_CFG = dict(model="qresnet18", image_size=IMAGE, num_classes=CLASSES,
+                          dataset="synthetic", batch_size=64, steps_per_epoch=2, fp_epochs=1,
+                          epochs=1, optim="QSGD", lrsch="cos_lr", log_every=1, device="cuda")
+
+
+def serve_resnets(dev):
+    """Phase 16, part 1: serve each ResNet fixture at batch 8 through
+    ``Int8Predictor``: every layer's codes against the JAX digests, the
+    logits against JAX's (bit-equal, or within one step of the ``fc``
+    output grid), the launches of one forward; then the dense conv kernel
+    at each of the forward's dense convs (its inputs, and an fbgemm grid)
+    and the matmul kernel at each of its matmuls (aligned and unaligned
+    rows), against their plain versions."""
+    images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    x = torch.as_tensor(images, device=dev)
+    out, preds, err = {}, {}, {"int8_conv": 0, "int8_matmul_requant": 0}
+    for name in RESNETS:
+        ref = np.load(os.path.join(TESTDATA, f"{name}_reference.npz"))
+        pred = preds[name] = mobilenet_predictor(name, dev, PHASE16_DIR)
+        ops.reset_launch_counts()
+        logits, codes = layer_codes(pred, images)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts != RESNET_LAUNCHES[name]:
+            raise AssertionError(f"{name}: launches per forward {counts} != "
+                                 f"{RESNET_LAUNCHES[name]}")
+        layers, _ = check_mobilenet_layers(name, codes, ref, banded=False)
+        got, want = logits.cpu().numpy(), ref["logits"][:BATCH]
+        if got.shape != (BATCH, CLASSES) or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: bad logits {got.shape}")
+        step = float(pred.model.fc._out_t[0])
+        diff = float(np.abs(got - want).max())
+        if diff > step * 1.0001:
+            raise AssertionError(f"{name}: logits {diff} from JAX's (fc grid step {step})")
+        convs = [(c, m, inp.q) for c, m, inp in capture(pred.model, x) if m._route == "dense3x3"]
+        e, n_conv = check_conv_calls(name, convs, dev)
+        err["int8_conv"] = max(err["int8_conv"], e)
+        e, shapes = check_mobilenet_matmuls(name, pred, x, dev)
+        err["int8_matmul_requant"] = max(err["int8_matmul_requant"], e)
+        out[name] = {"launches": counts, "layers": len(layers), "logits_max_diff": diff,
+                     "logits_step": step, "logits_equal": bool(np.array_equal(got, want)),
+                     "conv_checks": n_conv, "conv_shapes": sorted({
+                         f"{tuple(q.shape)}->{m._op.cout}" for _, m, q in convs}),
+                     "matmul_shapes": shapes}
+        log(f"[resnet] {name} served at batch {BATCH}: launches per forward {counts}; codes == "
+            f"JAX reference at {len(layers)} layers x {BATCH} images; logits {diff:.3g} from "
+            f"JAX's (fc grid step {step:.4g}, equal: {out[name]['logits_equal']}); int8_conv == "
+            f"plain at {n_conv} checks ({len(convs)} convs x fixture input, fbgemm grid with and "
+            f"without ReLU) {out[name]['conv_shapes']}; matmul == plain at {len(shapes)} "
+            f"shapes, aligned and unaligned rows: {sorted(set(shapes))}")
+    return out, preds, err
+
+
+def check_grouped(dev):
+    """Phase 16, part 2: the grouped INT8 route (torch ops) at ResNeXt-101
+    32x8d's four stage shapes at batch 2, on the card against its CPU
+    result, bit for bit."""
+    rows = []
+    for i, (h, width, stride) in enumerate(RESNEXT_GROUPED):
+        g = torch.Generator().manual_seed(200 + i)
+        conv = QConvBNAct(width, width, 3, strides=stride, padding=1, groups=32)
+        with torch.no_grad():
+            conv.kernel.copy_(torch.randn(conv.kernel.shape, generator=g) * (2.0 / 72) ** 0.5)
+            conv.bias_bn.copy_(torch.randn(width, generator=g) * 0.3 + 0.2)
+            conv.w_obs.min_val.fill_(-0.6)
+            conv.w_obs.max_val.fill_(0.6)
+            conv.act_obs.min_val.fill_(0.0)
+            conv.act_obs.max_val.fill_(4.0)
+        x = torch.randint(0, 256, (2, h, h, width), generator=g, dtype=torch.uint8)
+        grid = QParams(0.021, 97)
+        outs = []
+        for d in ("cpu", dev):
+            conv.to(d).eval()
+            conv.prepare_int8(grid, d)
+            outs.append(conv(QTensor(x.to(d), *grid.tensors(d)), mode=INT8).q.cpu())
+        if conv._route != "grouped" or not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"grouped route {h}x{h}x{width}/{stride}: card != CPU")
+        if len(torch.unique(outs[0])) <= 32:
+            raise AssertionError(f"grouped route {h}x{h}x{width}: too few codes")
+        rows.append(f"2x{h}x{h}x{width} g32 s{stride}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def check_resnet_fake_quant(dev):
+    """Phase 16, part 3: the fake-quant kernel against its plain version at
+    every per-tensor site of a qresnet50 QAT forward at batch 8, float32 and
+    bfloat16, with the QAT_FROZEN pass; then the largest site at batch 256
+    in bfloat16 (205.5 M elements: the batch-8 site tiled 32 times, its last
+    image scaled by 1.5 so that the extremes lie at the far end)."""
+    name = RESNETS[1]
+    model = create_model(name, num_classes=CLASSES)
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    sites = capture_sites(model, prep_image(torch.as_tensor(train_batch(0)["image"], device=dev)),
+                          QAT)
+    if len(sites) != RESNET_SITES[name]:
+        raise AssertionError(f"{name}: {len(sites)} per-tensor sites, expected "
+                             f"{RESNET_SITES[name]}")
+    checked, err = 0, 0.0
+    for i, (x, mn, mx, spec) in enumerate(sites):
+        for dt in (torch.float32, torch.bfloat16):
+            err = max(err, check_site(f"{name} site {i} {tuple(x.shape)} {dt}", x.to(dt), mn, mx,
+                                      spec))
+            checked += 1
+    x, mn, mx, spec = max(sites, key=lambda s: s[0].numel())
+    del sites, model
+    torch.cuda.empty_cache()
+    big = x.to(torch.bfloat16).repeat(256 // x.shape[0], 1, 1, 1)
+    big[-1] *= 1.5
+    err = max(err, check_site(f"{name} largest site at batch 256 {tuple(big.shape)} bf16", big,
+                              mn, mx, spec))
+    shape = tuple(big.shape)
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return checked + 1, err, shape
+
+
+def time_resnets(preds, dev):
+    """Phase 16, part 6: the dense conv at its four ResNet shapes (ReLU,
+    batch 8 and 128) and qresnet50's distinct matmul shapes at batch 8, each
+    beside its bound, its plain version and ``torch._int_mm``; serving
+    images/s at batch 8 and 128; one profiled forward at batch 8."""
+    conv_rows, mm_rows, out = [], [], {}
+    pred = preds["qresnet50"]
+    for b in (8, 128):
+        xb = torch.as_tensor(np.random.RandomState(1).randn(b, IMAGE, IMAGE, 3)
+                             .astype(np.float32), device=dev)
+        seen = set()
+        for name, mod, inp in capture(preds["qresnet18"].model, xb):
+            x = inp.q
+            if mod._route != "dense3x3" or not mod._op.relu or tuple(x.shape) in seen:
+                continue
+            seen.add(tuple(x.shape))
+            op = mod._op
+            a = mod.matmul_input(x)
+            a = a.reshape(-1, a.shape[-1])
+            wt = torch.nn.functional.pad(op.weight().permute(0, 2, 3, 1).reshape(op.cout, -1),
+                                         (0, a.shape[1] - 9 * op.cin))  # (Cout, K), (dy, dx, c)
+            lib = int_mm_ms(a, wt, reps=10)
+            del a
+            bb, h, w, cin = x.shape
+            conv_rows.append(kernel_row(f"{name} {bb}x{h}x{w}x{cin}->{op.cout}",
+                                        lambda: conv3x3_s1_int8(x, op),
+                                        lambda: conv3x3_s1_int8_plain(x, op),
+                                        conv3x3_cost(tuple(x.shape), op.cout), lib,
+                                        reps=20 if b == 8 else 5, plain_reps=1))
+            conv_rows[-1]["path"] = f"resnet bs{b}"
+            log(f"[time] int8_conv {conv_rows[-1]['shape']}: {row_text(conv_rows[-1])}")
+        del xb
+    x8 = torch.as_tensor(np.random.RandomState(1).randn(BATCH, IMAGE, IMAGE, 3)
+                         .astype(np.float32), device=dev)
+    seen = set()
+    for name, mod, inp in capture(pred.model, x8):
+        if mod._route not in ("matmul", "im2col"):
+            continue
+        a, op = matmul_operand(mod, inp.q), mod._op
+        key = (a.shape[0], op.k, op.n)
+        if key in seen:
+            continue
+        seen.add(key)
+        mm_rows.append(kernel_row(f"qresnet50 {name} {matmul_shape(a, op)}",
+                                  lambda: int8_matmul_requant(a, op),
+                                  lambda: int8_matmul_requant_plain(a, op),
+                                  matmul_cost(a.shape[0], op.k, op.n),
+                                  int_mm_ms(a, op.wt, reps=20), reps=20, plain_reps=1))
+        mm_rows[-1]["path"] = "resnet"
+        log(f"[time] int8_matmul_requant {mm_rows[-1]['shape']}: {row_text(mm_rows[-1])}")
+    for name, p in preds.items():
+        rec = {}
+        for b in (8, 128):
+            xb = torch.as_tensor(np.random.RandomState(1).randn(b, IMAGE, IMAGE, 3)
+                                 .astype(np.float32), device=dev)
+            ms = time_ms(lambda: p(xb), reps=10 if b == 8 else 3, warmup=1)
+            rec[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3}
+            log(f"[time] {name} serving batch {b}: {ms:.3f} ms/batch, {b / ms * 1e3:.1f} images/s")
+            del xb
+        try:
+            rec["profile"] = profile_forward(p, x8, RESNET_KERNELS)
+            log_profile(f"{name} forward at batch {BATCH}", rec["profile"])
+        except RuntimeError as e:  # torch.profiler stops recording after many sessions
+            log(f"[time] {name}: no profile ({e})")
+            rec["profile"] = None
+        out[name] = rec
+    return conv_rows, mm_rows, out
+
+
+def resnet_phase(dev):
+    """Phase 16: the ResNets on the card (serving, the kernels at their
+    shapes, the grouped route, the fake-quant sites, training, the user's
+    path, timings). Returns (report, launches of each path, conv rows,
+    matmul rows)."""
+    rep, launches = {}, {}
+    os.makedirs(PHASE16_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep["serving"], preds, rep["max_abs_err"] = serve_resnets(dev)
+    launches["serving"] = {n: r["launches"] for n, r in rep["serving"].items()}
+    rep["grouped"] = check_grouped(dev)
+    log(f"[resnet] grouped INT8 route (torch ops) on the card == CPU at {rep['grouped']}")
+    checked, rep["fake_quant_max_abs_err"], largest = check_resnet_fake_quant(dev)
+    rep["fake_quant_site_checks"] = checked
+    log(f"[resnet] fake_quant_observe == plain at {checked} site checks ({RESNETS[1]} QAT "
+        f"forward x {RESNET_SITES[RESNETS[1]]} sites x float32/bfloat16, QAT and QAT_FROZEN "
+        f"passes; the largest site at {largest} bfloat16)")
+    training = {}
+    for name in RESNETS:
+        ops.reset_launch_counts()
+        training[name] = time_training(dev, name, time_sites=False, reps=(3, 5))
+        counts = ops.launch_counts()
+        for b, r in training[name].items():
+            got = (r.get("qat_fake_quant_launches"), r.get("fp32_fake_quant_launches"))
+            if r.get("fits", True) and got != (RESNET_SITES[name], 0):
+                raise AssertionError(f"{name} {b}: fake-quant launches per QAT / FP32 step "
+                                     f"{r['qat_fake_quant_launches']} / "
+                                     f"{r['fp32_fake_quant_launches']} != "
+                                     f"{RESNET_SITES[name]} / 0")
+        if counts["fake_quant_observe"] == 0:
+            raise AssertionError(f"{name} training launched no fake-quant kernel")
+        launches[f"training {name}"] = counts
+        torch.cuda.empty_cache()
+    rep["training"] = training
+    ops.reset_launch_counts()
+    rep["trainer"] = trainer_path(dev, RESNET_TRAINER_CFG, os.path.join(PHASE16_DIR, "trainer"),
+                                  "resnet")
+    launches["trainer"] = ops.launch_counts()
+    for k in ("fake_quant_observe", "int8_matmul_requant", "int8_conv"):
+        if launches["trainer"][k] == 0:
+            raise AssertionError(f"phase 16's trainer path launched no {k}")
+    conv_rows, mm_rows, rep["timing"] = time_resnets(preds, dev)
+    del preds
+    torch.cuda.empty_cache()
+    return rep, launches, conv_rows, mm_rows
 
 
 def main(argv=None):
@@ -1885,6 +2174,17 @@ def main(argv=None):
     max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
                                         report["mobilenet"]["fake_quant_max_abs_err"])
 
+    # 16. the ResNets: serving, the kernels at their shapes, the grouped
+    # route, the fake-quant sites, training, the user's path, timings
+    torch.cuda.empty_cache()
+    report["resnet"], rn_counts, rn_conv_rows, rn_mm_rows = resnet_phase(dev)
+    timing["int8_conv"] += rn_conv_rows
+    timing["int8_matmul_requant"] += rn_mm_rows
+    for k, v in report["resnet"]["max_abs_err"].items():
+        max_err[k] = max(max_err[k], v)
+    max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
+                                        report["resnet"]["fake_quant_max_abs_err"])
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -1920,9 +2220,11 @@ def main(argv=None):
         summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
-        entry["mobilenet_launches"] = {path: (sum(c[entry["name"]] for c in counts.values())
-                                              if path == "serving" else counts[entry["name"]])
-                                       for path, counts in mb_counts.items()}
+        for key, path_counts in (("mobilenet_launches", mb_counts),
+                                 ("resnet_launches", rn_counts)):
+            entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
+                                 if path == "serving" else counts[entry["name"]])
+                          for path, counts in path_counts.items()}
     report["kernels"] = kernels["kernels"]
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

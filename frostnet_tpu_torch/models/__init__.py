@@ -4,14 +4,16 @@
 with the JAX factories' defaults (``num_classes`` 1000, ``drop_rate`` 0.2);
 keyword arguments (``num_classes``, ``qconfig``, ``drop_rate``, ``dtype``,
 ``width_mult``, ``fuse_int8``) go to the model. The port has the 30
-FrostNets and the quantized and float MobileNetV2/V3; every other JAX name
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+FrostNets, the quantized and float MobileNetV2/V3 and the quantized and
+float ResNets (ResNet-18/34/50/101/152, ResNeXt-101 32x8d); every other JAX
+name raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 from .frostnet import FROSTNET_SETTINGS, CascadePreExBottleneck, FrostNet, make_divisible
 from .mobilenetv2 import MobileNetV2, mobilenetv2_factories
 from .mobilenetv3 import MobileNetV3, mobilenetv3_factories
+from .resnet import BasicBlock, Bottleneck, ResNet, resnet_factories
 
 _WIDTHS = {"0_35": 0.35, "0_5": 0.5, "0_75": 0.75, "1_0": 1.0, "1_25": 1.25}
 
@@ -31,14 +33,12 @@ def _frostnet_factories():
     return reg
 
 
-_REGISTRY = {**_frostnet_factories(), **mobilenetv2_factories(), **mobilenetv3_factories()}
+_REGISTRY = {**_frostnet_factories(), **mobilenetv2_factories(), **mobilenetv3_factories(),
+             **resnet_factories()}
 
 _ITEM7 = "ROADMAP.md, Queue A item 7"
 # the JAX names the port does not have yet, by family, with their ROADMAP item
 _NOT_PORTED = {
-    f"the ResNets ({_ITEM7}, first)": (
-        "resnet18", "resnet34", "resnet50", "resnet101", "resnet152", "resnext101_32x8d",
-        "qresnet18", "qresnet34", "qresnet50", "qresnet101", "qresnet152", "qresnext101_32x8d"),
     f"ShuffleNetV2 ({_ITEM7}, second)": tuple(
         f"{q}shufflenet_v2_x{w}" for q in ("", "q") for w in ("0_5", "1_0", "1_5", "2_0")),
     f"VGG and AlexNet ({_ITEM7}, third)": ("alexnet", "qalexnet") + tuple(
@@ -69,4 +69,5 @@ def list_models(filter_substr: str = "") -> list:
 
 
 __all__ = ["create_model", "list_models", "FrostNet", "CascadePreExBottleneck", "MobileNetV2",
-           "MobileNetV3", "FROSTNET_SETTINGS", "make_divisible"]
+           "MobileNetV3", "ResNet", "BasicBlock", "Bottleneck", "FROSTNET_SETTINGS",
+           "make_divisible"]

@@ -35,14 +35,19 @@ follow the caller's TF32 setting.
 weight observer's grid (``fold_bn`` -> ``calculate_qparams_folded`` ->
 ``quantize``, the JAX chain op for op), column sums, the epilogue constants
 and the packed operands, all on the target device. The INT8 forward then
-takes one of four routes:
+takes one of five routes:
 
 * 1x1: one INT8 matmul (``ops/int8_matmul``);
 * depthwise kxk: k*k shifted integer multiply-adds in torch;
 * dense 3x3 stride 1 with 'same' padding (the GAN's ResnetBlock and up
   convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
 * any other dense kxk (the stems, strided convs): zero-point-padded im2col
-  patches and one INT8 matmul, whatever K the patches have.
+  patches and one INT8 matmul, whatever K the patches have;
+* grouped kxk (ResNeXt's ``groups=32`` 3x3s): the exact int32 sum of a
+  float64 grouped conv in torch (``ops/requant.py::conv_acc``; JAX
+  runs it as an s32 ``lax.conv``, XLA code, not a TPU kernel), then the
+  shared epilogue. Padded 1x1 convs and depthwise convs with a channel
+  multiplier are refused.
 
 Every route takes ``relu6`` as a narrower clamp of the codes. The frozen
 epilogue computes ``quantize(clip(y, 0, 6))``; quantize is monotone, so that
@@ -61,7 +66,8 @@ from torch import nn
 
 from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
-from ..ops.requant import depthwise_acc, epilogue_constants, reciprocal, requant_epilogue
+from ..ops.requant import (conv_acc, depthwise_acc, epilogue_constants, reciprocal,
+                           requant_epilogue)
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
 from .mode import FP32, QuantMode
@@ -173,7 +179,7 @@ class QConvBNAct(nn.Module):
             self._route = "depthwise"
             self._taps = qw.reshape(kh * kw, self.features).to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
-            self._dw = (scale.to(device), bias.to(device), mult, qmin, qmax)
+            self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
         elif (kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1 and self.groups == 1:
             self._route = "dense3x3"
             self._op = conv3x3_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
@@ -183,8 +189,14 @@ class QConvBNAct(nn.Module):
             self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
                                         comb, bf, x.zero_point, out_s, out_zp, relu,
                                         qmin, qmax, device)
+        elif not self.depthwise:
+            self._route = "grouped"
+            self._w64 = qw.to(torch.float64).permute(3, 2, 0, 1).contiguous().to(device)
+            scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
+            self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
         else:
-            raise ValueError(f"grouped conv (groups={self.groups}) is not part of the INT8 port")
+            raise ValueError(f"a depthwise conv with a channel multiplier ({self.in_features} "
+                             f"-> {self.features}) is not part of the INT8 port")
         return self._out
 
     def _patches(self, q: torch.Tensor) -> torch.Tensor:
@@ -263,10 +275,14 @@ class QConvBNAct(nn.Module):
         QTensor into a quantized block in INT8 (frozen)."""
         if not mode.int8 or not self.quantized:
             return self._float_forward(x, mode, train)
-        if self._route == "depthwise":
-            acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
-                                self._in.zero_point)
-            scale, bias, mult, qmin, qmax = self._dw
+        if self._route in ("depthwise", "grouped"):
+            if self._route == "depthwise":
+                acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
+                                    self._in.zero_point)
+            else:
+                acc = conv_acc(x.q, self._w64, self._in.zero_point, self.strides,
+                               self.padding, self.groups)
+            scale, bias, mult, qmin, qmax = self._epilogue
             q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
                                  self.act in ("relu", "relu6"), qmin, qmax)
             return QTensor(q, *self._out_t)

@@ -6,7 +6,7 @@
 * :class:`QuantStub` / :func:`dequant`: the QuantStub/DeQuantStub pair.
 * :func:`observed_standalone_act`: a bare ReLU6 module's FakeQuantize
   (observed in QAT, a pass-through for QTensors in INT8).
-* :class:`QAdd` / :class:`QCat` / :class:`QMul`: the ``FloatFunctional``
+* :class:`QAdd` / :class:`QAddReLU` / :class:`QCat` / :class:`QMul`: the ``FloatFunctional``
   requant points of skips, concats and gates, each with its own activation
   observer; :func:`add_scalar` / :func:`mul_scalar` have none (they move the
   zero point or the scale of a QTensor).
@@ -186,6 +186,30 @@ class QAdd(_QBinary):
         (sa, za), (sb, zb) = self._in
         q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
                        self.qconfig.activation.qmin, self.qconfig.activation.qmax)
+        return QTensor(q, *self._out_t)
+
+
+class QAddReLU(_QBinary):
+    """FloatFunctional.add_relu (the ResNet blocks' joins): ``relu(a + b)``
+    observed and fake-quantized; in INT8 the codes of
+    ``relu((qa - za) * sa + (qb - zb) * sb)`` on the stored grid, rounded as
+    the frozen graph's fusion rounds it (``ops.requant.qadd_codes``):
+    ``loaded`` names the operands whose codes that fusion reads from memory
+    (the max pool's output, for the first block of a BasicBlock ResNet)."""
+
+    def prepare_int8(self, inputs: Sequence[QParams], device,
+                     loaded: Sequence[bool] = (False, False)) -> QParams:
+        self._contract = next((i for i, on in enumerate(loaded) if on), None)
+        return super().prepare_int8(inputs, device)
+
+    def forward(self, a, b, mode: QuantMode = FP32):
+        if not mode.int8:
+            return observed_fake_quant(torch.relu(a + b), self.act, self.qconfig.activation,
+                                       mode)
+        (sa, za), (sb, zb) = self._in
+        q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
+                       self.qconfig.activation.qmin, self.qconfig.activation.qmax, relu=True,
+                       contract=self._contract)
         return QTensor(q, *self._out_t)
 
 

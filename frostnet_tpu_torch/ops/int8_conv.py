@@ -4,7 +4,8 @@
 Replaces the Pallas TPU kernel ``frostnet_tpu/ops/pallas_int8_conv.py::
 conv3x3_s1_int8``. It computes what the frozen JAX graph computes for a dense
 3x3 stride-1 INT8 conv with 'same' padding (``frostnet_tpu/nn/conv.py`` INT8
-branch, the s32 ``lax.conv`` and its epilogue)::
+branch, the s32 ``lax.conv`` and its epilogue): the GAN generator's convs and
+the ResNets' non-strided 3x3s::
 
     acc = sum_{dy,dx,c} (x - zp_in)[h+dy-1, w+dx-1, c] * qw[dy, dx, c, o]   int32,
           taps outside the image are 0 (they read the zero point)
@@ -27,10 +28,9 @@ import ctypes
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from . import cuda_build
-from .requant import epilogue_constants, requant_epilogue
+from .requant import conv_acc, epilogue_constants, requant_epilogue
 
 KC = 32  # input channels per kernel stage; the packed weight pads Cin to it
 
@@ -88,17 +88,9 @@ def conv3x3_operands(qw: torch.Tensor, comb: torch.Tensor, bias: torch.Tensor, i
 
 
 def conv3x3_acc(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
-    """The int32 accumulator, zero-point term included, as a float64 conv.
-
-    Every product and partial sum is an integer below 9 * Cin * 255 * 128
-    (< 2^31 at the generator's widths), exact in float64 in any order. A
-    library conv may still transform its operands (cuDNN's Winograd and FFT
-    algorithms do, on the card), so the sum is rounded to the nearest integer
-    before the cast: such errors are far below 0.5 in float64.
-    """
-    xs = (x.to(torch.float64) - float(op.zp_in)).permute(0, 3, 1, 2).contiguous()
-    acc = F.conv2d(xs, op.weight().to(torch.float64).contiguous(), None, 1, 1)
-    return torch.round(acc).permute(0, 2, 3, 1).to(torch.int32)
+    """The int32 accumulator, zero-point term included (``requant.conv_acc``:
+    a float64 conv, exact, rounded once)."""
+    return conv_acc(x, op.weight().to(torch.float64).contiguous(), op.zp_in)
 
 
 def conv3x3_s1_int8_plain(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:

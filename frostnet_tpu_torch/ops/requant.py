@@ -12,12 +12,15 @@ before it runs. The port computes what that program computes, site by site
   fused multiply-add by the CPU backend where the add reads the product
   directly: the conv epilogue is ``fma(float(acc), scale, bias)``
   (:func:`fma_f32` rounds once).
-* The residual add ``(qa - za) * sa + (qb - zb) * sb`` is not contracted in
-  the frozen model: XLA recomputes both codes inside the add's fusion, and
-  their saturating float-to-uint8 converts leave each product behind a
-  select, which LLVM does not fuse across. Both products and the sum round
-  on their own. (A QAdd jitted alone, on codes loaded from memory, does
-  contract its first product; the served graph never runs it that way.)
+* The residual add ``(qa - za) * sa + (qb - zb) * sb`` is not contracted
+  where XLA recomputes both codes inside the add's fusion (the frozen
+  FrostNet, every ResNet block but the first): their saturating
+  float-to-uint8 converts leave each product behind a select, which LLVM
+  does not fuse across, so both products and the sum round on their own.
+  An operand whose codes the fusion loads from memory has its product
+  contracted into the sum (the first ResNet block of ``BasicBlock`` models,
+  whose identity is the max pool's output; a QAdd jitted alone on loaded
+  codes contracts its first product): :func:`qadd_codes`'s ``contract``.
 * ``(acc * c1) * c2`` with two scalar constants and nothing between them is
   folded into ``acc * f32(c1 * c2)``. In a conv that happens when the bias
   is all zero, there is no activation and the weight scale is per-tensor
@@ -31,7 +34,7 @@ they run on any device (every step is an IEEE-exact torch op).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -115,14 +118,30 @@ def requant_codes(q: torch.Tensor, z_in: int, s_in: float, mult: float,
 
 
 def qadd_codes(qa: torch.Tensor, za: int, sa: float, qb: torch.Tensor, zb: int,
-               sb: float, mult: float, z_out: int, qmin: int, qmax: int) -> torch.Tensor:
-    """Residual add: ``rint(((qa - za) * sa + (qb - zb) * sb) * mult)``, each
-    product and the sum rounded on its own."""
+               sb: float, mult: float, z_out: int, qmin: int, qmax: int,
+               relu: bool = False, contract: Optional[int] = None) -> torch.Tensor:
+    """Residual add: ``rint(((qa - za) * sa + (qb - zb) * sb) * mult)``; with
+    ``relu`` (``QAddReLU``) the sum is clamped at 0 before the multiply.
+
+    ``contract`` says which product XLA fuses into the sum: None when the
+    add's fusion makes both operands' codes itself (each product and the sum
+    round on their own), else the index (0 or 1) of the operand whose codes
+    it loads from memory, ``fma(q - z, s, other product)``. Read from the
+    LLVM IR: a made operand's product sits behind the select of its
+    saturating convert, a loaded one's feeds the add directly.
+    """
     dev = qa.device
     f32 = torch.float32
-    ya = (qa.to(f32) - float(za)) * _const(sa, dev)
-    yb = (qb.to(f32) - float(zb)) * _const(sb, dev)
-    y = (ya + yb) * _const(mult, dev)
+    xa, xb = qa.to(f32) - float(za), qb.to(f32) - float(zb)
+    if contract == 0:
+        y = fma_f32(xa, _const(sa, dev), xb * _const(sb, dev))
+    elif contract == 1:
+        y = fma_f32(xb, _const(sb, dev), xa * _const(sa, dev))
+    else:
+        y = xa * _const(sa, dev) + xb * _const(sb, dev)
+    if relu:
+        y = torch.clamp(y, min=0.0)
+    y = y * _const(mult, dev)
     return torch.clamp(torch.round(y) + float(z_out), qmin, qmax).to(torch.uint8)
 
 
@@ -149,3 +168,23 @@ def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
                     dx:dx + (wo - 1) * stride + 1:stride, :]
             acc += sl * wi[dy * kernel + dx]
     return acc
+
+
+def conv_acc(x: torch.Tensor, w: torch.Tensor, zp: int, stride: int = 1, padding: int = 1,
+             groups: int = 1) -> torch.Tensor:
+    """The int32 sum of a conv of uint8 NHWC codes around their zero point.
+
+    ``w`` is the (Cout, Cin / groups, kh, kw) weight as float64. The JAX
+    package computes this sum as an s32 ``lax.conv`` (``feature_group_count``
+    ``groups``) over zero-point-padded codes; here it is a float64 conv of
+    ``x - zp`` with zero padding, the same integer. Every product and
+    partial sum is an integer of magnitude at most
+    ``kh * kw * Cin / groups * 255 * 128`` (about 1.5e8 at a dense 3x3 with
+    Cin = 512, far below 2^53), exact in float64 in any order. A library conv
+    may still transform its operands (cuDNN's Winograd and FFT algorithms
+    do, on the card), so the sum is rounded to the nearest integer before
+    the cast: such errors are far below 0.5 in float64.
+    """
+    xs = (x.to(torch.float64) - float(zp)).permute(0, 3, 1, 2).contiguous()
+    acc = torch.nn.functional.conv2d(xs, w, None, stride, padding, 1, groups)
+    return torch.round(acc).permute(0, 2, 3, 1).to(torch.int32)

@@ -37,7 +37,12 @@ MATMUL_SHAPES = [(256, 136, 816), (100, 24, 144), (17, 8, 40),
                  # of 16 (rows not 16-byte aligned): K = 24, 40, 72, 88, 120,
                  # 184, 200; its head at M = 8
                  (25088, 24, 72), (6272, 72, 40), (6272, 40, 120), (6272, 120, 40),
-                 (6272, 88, 24), (1568, 184, 80), (1568, 200, 80), (8, 960, 1280)]
+                 (6272, 88, 24), (1568, 184, 80), (1568, 200, 80), (8, 960, 1280),
+                 # qresnet50 at batch 8: layer1's 1x1s, a strided downsample,
+                 # a strided 3x3 on the im2col route (K = 9 x 256), layer4's
+                 # 1x1s on a 7x7 map
+                 (25088, 64, 256), (25088, 256, 64), (6272, 256, 512), (1568, 2304, 256),
+                 (392, 2048, 512), (392, 512, 2048)]
 
 BLOCKS = [
     dict(h=14, w=14, cin=96, cout=96, kernel=5, stride=1, has_squeeze=True,
@@ -281,7 +286,10 @@ def test_fake_quant_ste_gradient(cuda_device):
 # columns x 64 or 128 channels, 32-channel chunks; 16-byte loads only where
 # Cin is a multiple of 16): W and Cout past a tile, Cin not a multiple of 32
 CONV_SHAPES = [(64, 64, 256, 256), (128, 128, 256, 128), (256, 256, 128, 64), (13, 21, 68, 36),
-               (37, 75, 68, 132), (6, 70, 48, 52), (9, 130, 100, 200)]
+               (37, 75, 68, 132), (6, 70, 48, 52), (9, 130, 100, 200),
+               # the ResNets' four stages: most of a 4 x 64 tile masked at
+               # 14x14 and 7x7, Cin = 512 in 16 chunks
+               (56, 56, 64, 64), (28, 28, 128, 128), (14, 14, 256, 256), (7, 7, 512, 512)]
 
 
 @pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
@@ -327,3 +335,58 @@ def test_gan_predictor_launches(cuda_device):
     assert out.shape == (4, 256, 256, 3) and bool(torch.isfinite(out).all())
     want = ref["output"]
     assert float(np.abs(out[:len(want)].cpu().numpy() - want).max()) <= GAN_TAIL_BAND
+
+
+@pytest.mark.parametrize("name", ["qresnet18", "qresnet50"])
+def test_resnet_predictor_launches(cuda_device, name, tmp_path):
+    """The full-width ResNet fixture served on the card: 13 dense conv
+    launches and one matmul launch per 1x1, strided 1x1 or im2col conv
+    (7 / 40), nothing else; every layer's codes and the logits equal to the
+    committed JAX reference (first two images)."""
+    from chip_smoke import TESTDATA, code_digests, layer_codes, mobilenet_predictor
+
+    ref = np.load(f"{TESTDATA}/{name}_reference.npz")
+    pred = mobilenet_predictor(name, cuda_device, str(tmp_path))
+    images = np.random.RandomState(0).randn(2, 224, 224, 3).astype(np.float32)
+    ops.reset_launch_counts()
+    logits, codes = layer_codes(pred, images)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"int8_matmul_requant": 7 if name == "qresnet18" else 40,
+                                   "frost_block_int8": 0, "fake_quant_observe": 0,
+                                   "int8_conv": 13}
+    for k in ref.files:
+        if k.startswith("sha256/"):
+            assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
+    assert np.array_equal(logits.cpu().numpy(), ref["logits"][:2])
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_grouped_route_and_max_pool_match_cpu(cuda_device, stride):
+    """ResNeXt's grouped INT8 route (torch ops: a float64 conv rounded to the
+    int32 sum, then the epilogue) and the INT8 max pool give the same codes
+    on the card as on the CPU."""
+    from frostnet_tpu_torch.nn import INT8, QConvBNAct, max_pool
+    from frostnet_tpu_torch.quant import QParams, QTensor
+
+    g = torch.Generator().manual_seed(stride)
+    conv = QConvBNAct(256, 256, 3, strides=stride, padding=1, groups=32)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.randn(conv.kernel.shape, generator=g) * 0.1)
+        conv.bias_bn.copy_(torch.randn(256, generator=g) * 0.2)
+        conv.w_obs.min_val.fill_(-0.4)
+        conv.w_obs.max_val.fill_(0.4)
+        conv.act_obs.min_val.fill_(0.0)
+        conv.act_obs.max_val.fill_(3.0)
+    x = torch.randint(0, 256, (2, 28, 28, 256), generator=g, dtype=torch.uint8)
+    grid = QParams(0.02, 100)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        conv.to(dev).eval()
+        conv.prepare_int8(grid, dev)
+        xq = QTensor(x.to(dev), *grid.tensors(dev))
+        y = conv(xq, mode=INT8)
+        pooled = max_pool(y, 3, 2, padding=1, zero_point=conv._out.zero_point)
+        outs.append((y.q.cpu(), pooled.q.cpu()))
+    assert conv._route == "grouped"
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert len(torch.unique(outs[0][0])) > 32

@@ -79,7 +79,7 @@ def test_registry_and_float_names():
     assert not float_model.quantized and not hasattr(float_model, "quant")
     assert not any(k.startswith("quant/") for k in model_variables(float_model))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("resnet18")  # a JAX name not ported yet
+        create_model("shufflenet_v2_x1_0")  # a JAX name not ported yet
     with pytest.raises(ValueError):
         create_model("frostnet_huge_1_0")
 

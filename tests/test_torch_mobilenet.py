@@ -1,7 +1,7 @@
 """PyTorch port, the MobileNets and the float FrostNets as whole models, against JAX.
 
-* Registry: every JAX name of the MobileNetV2/V3 families and the 30
-  FrostNets builds in the port with JAX's variables (names and shapes, from
+* Registry: every JAX name of the MobileNetV2/V3 and ResNet families and
+  the 30 FrostNets builds in the port with JAX's variables (names and shapes, from
   ``jax.eval_shape`` of ``init``: no compile); every other JAX name raises
   ``NotImplementedError`` naming its ROADMAP item.
 * Export and INT8 at small sizes (``qmobilenet_v2_ReLU6``, width 0.35, and
@@ -36,7 +36,9 @@ from frostnet_tpu_torch.quant import (export_int8, freeze, from_jax_variables, g
 from frostnet_tpu_torch.quant.export import flatten_variables, unflatten_variables
 
 pytestmark = pytest.mark.usefixtures("few_threads")
-FAMILIES = ("frostnet_", "mobilenet_v2", "mobilenet_v3", "qmobilenet_v2", "qmobilenet_v3")
+FAMILIES = ("frostnet_", "mobilenet_v2", "mobilenet_v3", "qmobilenet_v2", "qmobilenet_v3",
+            "resnet", "qresnet", "resnext", "qresnext")
+N_PORTED = 56  # 30 FrostNets, 14 MobileNets, 12 ResNets
 CLASSES = 10
 
 
@@ -59,9 +61,9 @@ def _jax_shapes(name):
 
 def test_registry_names():
     """The port's names are exactly the JAX names of the ported families
-    (44); the JAX registry has no other name of those families."""
+    (56); the JAX registry has no other name of those families."""
     assert list_models() == _ported_jax_names()
-    assert len(list_models()) == 44
+    assert len(list_models()) == N_PORTED
 
 
 @pytest.mark.parametrize("name", ["mobilenet_v2", "mobilenet_v2_ReLU6", "qmobilenet_v2",
@@ -86,11 +88,13 @@ def _architecture(name):
         return name.replace("quant_", "")
     if "mobilenet_v2" in name:
         return "mobilenet_v2"
-    return "mobilenet_v3_" + name.split("_")[2]
+    if "mobilenet_v3" in name:
+        return "mobilenet_v3_" + name.split("_")[2]
+    return name.lstrip("q")
 
 
 def test_parameter_counts_of_every_ported_name():
-    """Each of the 44 names: the port's parameter count equals JAX's
+    """Each of the 56 names: the port's parameter count equals JAX's
     (``jax.eval_shape`` of ``init``) at the default 1000 classes, for one
     name of each architecture; the others of its group have the same count
     in the port (``test_variables_match_jax`` holds quantized and float
@@ -98,7 +102,7 @@ def test_parameter_counts_of_every_ported_name():
     groups = {}
     for name in list_models():
         groups.setdefault(_architecture(name), []).append(name)
-    assert len(groups) == 18
+    assert len(groups) == 24
     for names in groups.values():
         model = jax_create_model(names[0])
         shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
@@ -110,7 +114,7 @@ def test_parameter_counts_of_every_ported_name():
 
 def test_other_jax_names_raise_not_implemented():
     others = sorted(set(jax_list_models()) - set(list_models()))
-    assert len(others) == len(jax_list_models()) - 44 > 50
+    assert len(others) == len(jax_list_models()) - N_PORTED == 45
     for name in others:
         with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item"):
             create_model(name)
