@@ -155,6 +155,37 @@ Phases (each raises on failure, and any failure exits non-zero):
      batch 8 and 128, and qresnet50's distinct matmul shapes at batch 8, each
      with wall and device time, bound, plain version and ``torch._int_mm``;
      serving images/s at batch 8 and 128; one profiled forward at batch 8.
+ 17. semantic segmentation at the Cityscapes crop of 768x768 (19 classes,
+     the LR-ASPP pool (37, 12), qnnpack), with TF32 off: (a)
+     ``mobilenetv3_RE_small`` (the trainer's default) and
+     ``mobilenetv3_large`` built from ``numpy_init(seed 0)`` and the
+     committed calibration (``testdata/seg_<model>_calibration.npz``),
+     written by the port's ``export_int8``, read back with ``load_int8`` and
+     frozen, on 2 images: every layer's codes (``quant``, each trunk block,
+     the LR-ASPP head and its gate) against the committed JAX digests, the
+     sampled logits within ``SEG_LOGIT_BAND`` of their range and the argmax
+     within ``SEG_ARGMAX_SHARE`` (an image whose codes moved at a
+     squeeze-excite: the flip bands ``SEG_FLIP_*``), one matmul launch per
+     1x1 or im2col conv and nothing else; (b) the matmul kernel against its
+     plain version at every INT8 matmul of both forwards at batch 8 and 16
+     (the stem at M = 2,359,296, the gate at M = batch; aligned and
+     unaligned rows); (c) the fake-quant kernel against its plain version at
+     every site of a float32 QAT forward of the default model at batch 16,
+     with the QAT_FROZEN pass; (d) one FP32 and two QAT steps and a
+     QAT_FROZEN eval step at 256x256, batch 2, against the committed JAX
+     reference (``testdata/seg_mobilenetv3_RE_small_train_reference.npz``) in
+     phase 8's bands, with the fake-quant launches of each step; (e)
+     ``segmentation.train.main`` (synthetic, batch 8, 2 steps an epoch, one
+     FP32 and one QAT epoch), its resume to a second QAT epoch,
+     ``segmentation.evaluate.main --export_int8`` on ``best/``, whose
+     artifact served in a fresh model gives the evaluator's INT8 mIoU, and
+     ``evaluate.main`` on the final ``checkpoint/``, which gives the
+     trainer's; each step's launches; (f) the INT8 forward at batch 1, 8 and
+     16, one profiled forward at batch 8 with the torch-op groups (dilated
+     depthwise, hard-swish, squeeze-excite), the float32 QAT and FP32 train
+     steps at batch 16 (ms, peak memory), the matmul kernel at each distinct
+     matmul of the batch-16 forward and the fake-quant kernel at the sites
+     of (c), beside their bounds, plain versions and library calls.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -166,8 +197,10 @@ matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
 Each entry also gives ``trainer_launches``, its launches in phase 14,
 ``mobilenet_launches``, its launches on each path of phase 15 (the two
-served forwards, each model's training, the trainer path), and
-``resnet_launches``, the same for phase 16.
+served forwards, each model's training, the trainer path),
+``resnet_launches``, the same for phase 16, and ``seg_launches``, its
+launches on phase 17's paths (the two served forwards, the training check
+against the reference, the trainer path).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -1174,12 +1207,13 @@ TRAINER_CFG = dict(model=MODEL, image_size=IMAGE, num_classes=CLASSES, dataset="
 
 
 class StepCounter:
-    """Wraps the trainer's step factories: each step's kernel launches and
+    """Wraps a trainer's step factories (``make_train_step`` and
+    ``make_eval_step``, or the names given): each step's kernel launches and
     host wall time, by mode."""
 
-    def __init__(self, classification):
-        self.mod, self.rows = classification, []
-        self.train, self.eval = classification.make_train_step, classification.make_eval_step
+    def __init__(self, module, train="make_train_step", eval="make_eval_step"):
+        self.mod, self.rows, self.names = module, [], (train, eval)
+        self.train, self.eval = getattr(module, train), getattr(module, eval)
 
     def _wrap(self, make, kind):
         def factory(mode, *args, **kwargs):
@@ -1197,12 +1231,13 @@ class StepCounter:
         return factory
 
     def __enter__(self):
-        self.mod.make_train_step = self._wrap(self.train, "train")
-        self.mod.make_eval_step = self._wrap(self.eval, "eval")
+        setattr(self.mod, self.names[0], self._wrap(self.train, "train"))
+        setattr(self.mod, self.names[1], self._wrap(self.eval, "eval"))
         return self
 
     def __exit__(self, *exc):
-        self.mod.make_train_step, self.mod.make_eval_step = self.train, self.eval
+        setattr(self.mod, self.names[0], self.train)
+        setattr(self.mod, self.names[1], self.eval)
 
 
 MODE_NAMES = {FP32: "FP32", QAT: "QAT", QAT_FROZEN: "QAT_FROZEN", INT8: "INT8"}
@@ -1929,6 +1964,571 @@ def resnet_phase(dev):
     return rep, launches, conv_rows, mm_rows
 
 
+SEG_MODELS_CHECKED = ("mobilenetv3_RE_small", "mobilenetv3_large")
+SEG_CROP, SEG_CLASSES = 768, 19
+PHASE17_DIR = os.path.join(ROOT, "build", "phase17")
+SEG_TRAIN_REFERENCE = os.path.join(TESTDATA, "seg_mobilenetv3_RE_small_train_reference.npz")
+# The segmentation fixtures store the logits at every SEG_LOGIT_STRIDE-th
+# pixel. The float tail (two 1x1 convs with a bias, an add, the bilinear
+# resize) sums in other orders than XLA's conv: logits within SEG_LOGIT_BAND
+# of their range, absolute; the argmax then agrees at all but
+# SEG_ARGMAX_SHARE of the pixels (ties at a float ulp). The same bands hold on
+# the CPU (tests/test_torch_seg_fixture.py).
+SEG_LOGIT_STRIDE, SEG_LOGIT_BAND, SEG_ARGMAX_SHARE = 16, 1e-5, 1e-4
+# Where an image's codes move: XLA's squeeze-excite mean and dense products
+# sum in their own orders (the port: exactly), so a code on a rounding
+# boundary of the gating mul moves (the origin, at a block with a
+# squeeze-excite, within MB_FLIP_SHARE), and the next layers carry it; the
+# LR-ASPP gate (a 37x37 pool of c4) spreads it over the whole image. On the
+# CPU, image 1 of mobilenetv3_RE_small moved 7 codes of layer3_4 (3.2e-5),
+# then up to 0.0055 of a later map's codes, 0.16 of the 1x1 gate's, the
+# logits 0.013 of their range and the argmax at 0.0106 of the pixels;
+# mobilenetv3_large and image 0 moved none. Bands for such an image:
+SEG_FLIP_MAP_SHARE, SEG_FLIP_GATE_SHARE = 0.02, 0.25
+SEG_FLIP_LOGIT_BAND, SEG_FLIP_ARGMAX_SHARE = 0.05, 0.03
+SEG_TRAINER_CFG = dict(model=SEG_MODELS_CHECKED[0], dataset="synthetic", crop_size=SEG_CROP,
+                       batch_size=8, steps_per_epoch=2, fp_epochs=1, epochs=1, seed=0)
+
+
+def seg_layer_codes(model, fn, images):
+    """(output, {layer: codes}) of one ``fn(images)`` call on a frozen
+    segmentation model: the QTensor output of ``quant``, of each child of
+    ``backbone`` and of ``head/lr_aspp`` and its children, and as
+    ``head/lr_aspp/pool`` the pooled codes that ``b1_conv`` takes (the
+    JAX module paths, joined by ``/``). The hooks only keep references."""
+    codes, hooks = {}, []
+    for name, mod in model.named_modules():
+        parts = name.split(".")
+        in_head = len(parts) == 3 and parts[:2] == ["head", "lr_aspp"]
+        if not name or not (len(parts) <= 2 or in_head):
+            continue
+        key = "/".join(parts)
+
+        def hook(m, args, out, key=key):
+            if key == "head/lr_aspp/b1_conv":
+                codes["head/lr_aspp/pool"] = args[0].q
+            if isinstance(out, QTensor):
+                codes[key] = out.q
+        hooks.append(mod.register_forward_hook(hook))
+    try:
+        out = fn(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, codes
+
+
+def seg_variables(name: str) -> dict:
+    """The flat variables of a segmentation fixture: ``numpy_init(model, 0)``
+    with the committed calibration on top (``tests/test_torch_seg_fixture.py``
+    makes it)."""
+    from frostnet_tpu_torch.segmentation import get_seg_model
+
+    flat = flatten_variables(numpy_init(get_seg_model(name, num_classes=SEG_CLASSES), 0))
+    with np.load(os.path.join(TESTDATA, f"seg_{name}_calibration.npz")) as cal:
+        for k in cal.files:
+            if k not in flat or flat[k].shape != cal[k].shape:
+                raise AssertionError(f"{name} calibration: {k} does not fit the model")
+            flat[k] = cal[k]
+    return flat
+
+
+def seg_served_model(name: str, device, artifact_dir=None):
+    """The segmentation fixture as a user serves it: the port's model filled
+    with :func:`seg_variables`, written by the port's ``export_int8`` (into
+    ``artifact_dir`` or a temporary directory), read back with
+    ``load_int8`` into a fresh model and frozen on ``device``. Returns
+    (model, ``fn(images) -> logits``)."""
+    from frostnet_tpu_torch.quant import load_int8
+    from frostnet_tpu_torch.segmentation import get_seg_model
+
+    trained = from_jax_variables(get_seg_model(name, num_classes=SEG_CLASSES),
+                                 unflatten_variables(seg_variables(name)))
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = os.path.join(artifact_dir or tmp, f"seg_{name}_int8.npz")
+        if artifact_dir:
+            os.makedirs(artifact_dir, exist_ok=True)
+        export_int8(trained, artifact)
+        model = from_jax_variables(get_seg_model(name, num_classes=SEG_CLASSES),
+                                   load_int8(artifact))
+    return model, freeze(model, device)
+
+
+def seg_images(seed: int, batch: int) -> np.ndarray:
+    return np.random.RandomState(seed).randn(batch, SEG_CROP, SEG_CROP, 3).astype(np.float32)
+
+
+def se_layers(model):
+    """The trunk's blocks with a squeeze-excite, by their layer names."""
+    return {f"backbone/{n}" for n, m in model.backbone.named_children()
+            if getattr(m, "se_on", False)}
+
+
+def check_seg_layers(name, codes, ref, with_se):
+    """Every layer's digests (in forward order) against the JAX reference.
+    The first layer that differs must be a block of ``with_se`` within
+    ``MB_FLIP_SHARE`` of its codes (histogram); the later ones within
+    ``SEG_FLIP_MAP_SHARE`` (``SEG_FLIP_GATE_SHARE`` for the gate's 1x1 maps).
+    Returns (layers, {layer: what moved}, the images with moved codes)."""
+    layers = [k for k in codes if f"sha256/{k}" in ref.files]
+    missing = {k[len("sha256/"):] for k in ref.files if k.startswith("sha256/")} - set(layers)
+    if missing:
+        raise AssertionError(f"{name}: no codes recorded at {sorted(missing)}")
+    moved, images_moved = {}, set()
+    for layer in layers:
+        got = codes[layer]
+        if tuple(got.shape[1:]) != tuple(ref[f"shape/{layer}"][1:]):
+            raise AssertionError(f"{name} {layer}: shape {tuple(got.shape)}")
+        digests = code_digests(got)
+        images = [i for i, (g, w) in enumerate(zip(digests, ref[f"sha256/{layer}"])) if g != w]
+        if not images:
+            continue
+        lo, want = int(ref[f"histmin/{layer}"]), ref[f"hist/{layer}"]
+        vals = got[:len(digests)].reshape(-1).to(torch.int64).cpu() - lo
+        hist = torch.bincount(torch.clamp(vals, min=0), minlength=len(want)).numpy()[:len(want)]
+        share = float(np.abs(hist - want).sum() / 2 / got.numel())
+        origin = not moved
+        limit = (MB_FLIP_SHARE if origin else
+                 SEG_FLIP_GATE_SHARE if got.shape[1] * got.shape[2] == 1 else SEG_FLIP_MAP_SHARE)
+        moved[layer] = {"images": images, "hist_share": share}
+        images_moved.update(images)
+        if (origin and layer not in with_se) or share > limit:
+            raise AssertionError(f"{name}: codes differ from the JAX reference at {layer} "
+                                 f"(images {images}, histogram share {share:.3g}; "
+                                 f"{'first differing layer' if origin else 'limit'} {limit})")
+    return layers, moved, images_moved
+
+
+def seg_logits_check(name, logits, ref, images_moved=()):
+    """Each image's sampled logits within ``SEG_LOGIT_BAND`` of their range
+    and its argmax within ``SEG_ARGMAX_SHARE`` of the committed JAX
+    reference; an image with moved codes within the flip bands."""
+    o = SEG_LOGIT_STRIDE // 2
+    got = logits[:, o::SEG_LOGIT_STRIDE, o::SEG_LOGIT_STRIDE].cpu().numpy()
+    want = ref["logits_sampled"][:got.shape[0]]
+    argmax = logits.argmax(-1).cpu().numpy()
+    span = float(want.max() - want.min())
+    out = []
+    for i in range(got.shape[0]):
+        diff = float(np.abs(got[i] - want[i]).max())
+        share = float((argmax[i] != ref["argmax"][i]).mean())
+        band, arg = ((SEG_FLIP_LOGIT_BAND, SEG_FLIP_ARGMAX_SHARE) if i in images_moved
+                     else (SEG_LOGIT_BAND, SEG_ARGMAX_SHARE))
+        if not np.isfinite(got[i]).all() or diff > band * span or share > arg:
+            raise AssertionError(f"{name} image {i}: logits {diff:.3g} from JAX's (band "
+                                 f"{band * span:.3g}), argmax differs at {share:.3g} (band {arg})")
+        out.append({"logits_max_diff": diff, "argmax_mismatch_share": share,
+                    "codes_moved": i in images_moved})
+    return {"logits_span": span, "images": out}
+
+
+def serve_segs(dev):
+    """Phase 17, part a: each segmentation fixture served at 768x768 from
+    the port's own export: every layer's codes against the committed JAX
+    digests, the logits and the argmax in their bands, one matmul launch per
+    1x1 or im2col conv and nothing else."""
+    images = seg_images(0, 2)
+    out, served = {}, {}
+    for name in SEG_MODELS_CHECKED:
+        ref = np.load(os.path.join(TESTDATA, f"seg_{name}_reference.npz"))
+        model, fn = seg_served_model(name, dev, PHASE17_DIR)
+        served[name] = (model, fn)
+        n_mm = len(matmul_convs(model))
+        ops.reset_launch_counts()
+        logits, codes = seg_layer_codes(model, fn, images)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+                  "int8_conv": 0}
+        if counts != expect:
+            raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
+        layers, moved, images_moved = check_seg_layers(name, codes, ref, se_layers(model))
+        rec = {"launches": counts, "layers": len(layers), "moved": moved,
+               **seg_logits_check(name, logits, ref, images_moved)}
+        out[name] = rec
+        log(f"[seg] {name} served at {SEG_CROP}x{SEG_CROP}, batch 2: launches per forward "
+            f"{counts}; codes == JAX reference at {len(layers) - len(moved)} of {len(layers)} "
+            f"layers x 2 images{f' (moved, in the bands: {moved})' if moved else ''}; per image, "
+            f"sampled logits from JAX's (span {rec['logits_span']:.4g}) and argmax mismatch: "
+            + ", ".join(f"{r['logits_max_diff']:.3g} / {r['argmax_mismatch_share']:.3g}"
+                        for r in rec["images"]))
+    return out, served
+
+
+def check_seg_matmuls(served, dev):
+    """Phase 17, part b: the matmul kernel against its plain version at every
+    INT8 matmul of each model's forward at batch 8 and 16 (its inputs, and
+    the same input one byte into its storage). Returns (max error, the
+    distinct (model, conv, operand) of the batch-16 forwards)."""
+    err, shapes, rows = 0, {}, []
+    for b in (8, 16):
+        x = torch.as_tensor(seg_images(1, b), device=dev)
+        for name, (model, _) in served.items():
+            for cname, mod, inp in capture(model, x):
+                if getattr(mod, "_route", None) not in ("matmul", "im2col"):
+                    continue
+                a, op = matmul_operand(mod, inp.q), mod._op
+                want = int8_matmul_requant_plain(a, op)
+                err = max(err, check_equal(f"int8_matmul_requant {name} {cname} batch {b}",
+                                           int8_matmul_requant(a, op), want))
+                buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+                shifted = buf[1:].view(a.shape)
+                shifted.copy_(a)
+                err = max(err, check_equal(f"int8_matmul_requant {name} {cname} batch {b} "
+                                           "(unaligned rows)", int8_matmul_requant(shifted, op),
+                                           want))
+                key = matmul_shape(a, op)
+                shapes.setdefault(b, set()).add(key)
+                if b == 16 and name == SEG_MODELS_CHECKED[0]:
+                    rows.append((f"{name} {cname}", a, op))
+                del buf, shifted, want
+        del x
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return err, {b: sorted(v) for b, v in shapes.items()}, rows
+
+
+def check_seg_fake_quant(dev):
+    """Phase 17, part c: the fake-quant kernel against its plain version,
+    bit for bit, at every per-tensor site of a full-width float32 QAT
+    forward of the default model at batch 16 (768x768), with the QAT_FROZEN
+    pass. Returns (checks, max error, sites, the sites for timing)."""
+    from frostnet_tpu_torch.segmentation import get_seg_model
+
+    model = get_seg_model(SEG_MODELS_CHECKED[0])
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    n_sites = observers(model)
+    sites = capture_sites(model, torch.as_tensor(seg_images(2, 16), device=dev), QAT)
+    if len(sites) != n_sites:
+        raise AssertionError(f"segmentation: {len(sites)} per-tensor sites in a QAT forward, "
+                             f"expected {n_sites}")
+    err = 0.0
+    for i, (x, mn, mx, spec) in enumerate(sites):
+        err = max(err, check_site(f"seg site {i} {tuple(x.shape)}", x, mn, mx, spec))
+    torch.cuda.synchronize()
+    return len(sites), err, n_sites, sites
+
+
+def seg_train_batch(k: int, crop: int, batch: int):
+    """Batch ``k`` of the segmentation training reference: ``RandomState(300
+    + k)`` images (``randn``), then labels (``randint(0, 19)``) with every
+    19th pixel set to the ignore label 255."""
+    rng = np.random.RandomState(300 + k)
+    image = rng.randn(batch, crop, crop, 3).astype(np.float32)
+    label = rng.randint(0, SEG_CLASSES, (batch, crop, crop)).astype(np.int32)
+    label.reshape(-1)[::19] = 255
+    return {"image": image, "label": label}
+
+
+def train_seg_against_reference(dev):
+    """Phase 17, part d: the segmentation train step against the committed
+    JAX reference (256x256, batch 2, float32, TF32 off): one FP32 step,
+    ``start_qat``, two QAT steps, a QAT_FROZEN eval step, in phase 8's bands;
+    the fake-quant launches per step."""
+    from frostnet_tpu_torch.segmentation import get_seg_model, train as seg_train
+    from frostnet_tpu_torch.segmentation.data import CITYSCAPES_CLASS_WEIGHTS
+
+    ref = np.load(SEG_TRAIN_REFERENCE)
+    meta = json.loads(bytes(ref["__meta__"]).decode())
+    model = get_seg_model(meta["model"])
+    n_sites = observers(model)
+    tx = get_optimizer("QSGD", meta["lr"], weight_decay=grouped_weight_decay(meta["wd"]),
+                       noise_decay=1.0)
+    state = create_train_state(model, tx, seed=meta["seed"], device=dev)
+    fq = ops.fake_quant_observe
+
+    def batch(k):
+        return seg_train_batch(k, meta["crop"], meta["batch"])
+
+    losses, cms, launches = [], [], []
+    for k, mode in enumerate((FP32, QAT, QAT)):
+        if k == 1:
+            state.start_qat()
+        before = fq.launches
+        m = seg_train.make_seg_train_step(mode, CITYSCAPES_CLASS_WEIGHTS, 255, SEG_CLASSES)(
+            state, batch(k))
+        losses.append(float(m["loss"]))
+        cms.append(m["cm"].cpu().numpy())
+        launches.append(fq.launches - before)
+    before = fq.launches
+    cms.append(seg_train.make_seg_eval_step(QAT_FROZEN, SEG_CLASSES, 255)(state, batch(3))
+               .cpu().numpy())
+    launches.append(fq.launches - before)
+    torch.cuda.synchronize()
+    if launches != [0, n_sites, n_sites, n_sites]:
+        raise AssertionError(f"segmentation steps: fake_quant_observe launches {launches} != "
+                             f"[0, {n_sites}, {n_sites}, {n_sites}]")
+    rep = {"losses": losses, "launches_per_step": launches}
+    rel = [abs(a - float(b)) / float(b) for a, b in zip(losses, ref["loss"])]
+    rep["loss_rel"] = rel
+    band_check("segmentation FP32 step loss, relative to JAX", rel[0], FP32_LOSS_REL)
+    band_check("segmentation QAT losses, worst relative to JAX", max(rel[1:]), QAT_LOSS_REL)
+    moved = float(np.abs(cms[0] - ref["cm"][0]).sum() / 2 / ref["cm"][0].sum())
+    rep["fp32_cm_moved_share"] = moved
+    band_check("segmentation FP32 step confusion matrix, share of pixels moved", moved,
+               SEG_ARGMAX_SHARE)
+    if [int(c.sum()) for c in cms] != [int(c.sum()) for c in ref["cm"]]:
+        raise AssertionError("segmentation steps counted other pixels than JAX's")
+    mine = {k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()}
+    obs = []
+    for k in ref.files:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(ref[hi] - ref[k]), 1e-6)
+            obs.append(max(abs(float(mine[k] - ref[k])), abs(float(mine[hi] - ref[hi]))) / span)
+    if len(obs) != n_sites:
+        raise AssertionError(f"{len(obs)} observers in the reference, {n_sites} in the model")
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs))}
+    band_check("segmentation observers, median |diff| / range", float(np.median(obs)), OBS_MEDIAN)
+    band_check("segmentation observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+    bn_mean = [float(np.max(np.abs(mine[k] - ref[k]) / np.sqrt(ref[k[:-4] + "var"])))
+               for k in ref.files if k.endswith("/mean")]
+    bn_var = [float(np.max(np.abs(mine[k] - ref[k]) / ref[k])) for k in ref.files
+              if k.endswith("/var")]
+    rep["bn"] = {"mean_over_std_median": float(np.median(bn_mean)),
+                 "var_rel_median": float(np.median(bn_var))}
+    band_check("segmentation BN means, median |diff| / std", float(np.median(bn_mean)),
+               BN_MEAN_MEDIAN)
+    band_check("segmentation BN variances, median |diff| / var", float(np.median(bn_var)),
+               BN_VAR_MEDIAN)
+    return rep
+
+
+def seg_trainer_path(dev):
+    """Phase 17, part e: ``segmentation.train.main`` at 768x768 (batch 8, 2
+    steps an epoch, one FP32 and one QAT epoch), its resume to a second QAT
+    epoch, ``evaluate.main --export_int8`` on ``best/``; the artifact served
+    in a fresh model gives the evaluator's INT8 mIoU, and ``evaluate.main`` on
+    the final ``checkpoint/`` gives the trainer's; each step's launches as
+    the model's sites and matmuls say."""
+    from frostnet_tpu_torch.quant import load_int8
+    from frostnet_tpu_torch.segmentation import evaluate as seg_eval
+    from frostnet_tpu_torch.segmentation import get_seg_model, train as seg_train
+
+    root = os.path.join(PHASE17_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(root, "run")
+    probe = get_seg_model(SEG_TRAINER_CFG["model"])
+    n_sites = observers(probe)
+    probe.prepare_int8("cpu")
+    n_mm = len(matmul_convs(probe))
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    expect = {("train", FP32): zero,
+              ("train", QAT): {**zero, "fake_quant_observe": n_sites},
+              ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
+              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm}}
+    names = ("make_seg_train_step", "make_seg_eval_step")
+    rep = {}
+    torch.cuda.reset_peak_memory_stats()
+    with StepCounter(seg_train, *names) as counter:
+        _, res = seg_train.main(seg_train.SegConfig(save_dir=save_dir, device=dev.type,
+                                                    **SEG_TRAINER_CFG))
+    rep["train_steps"] = check_step_launches(counter.rows, "segmentation train run", expect)
+    for f in ("checkpoint", "best", "checkpoint_meta.json", "metrics.jsonl", "arguments.json"):
+        if not os.path.exists(os.path.join(save_dir, f)):
+            raise AssertionError(f"segmentation trainer: {f} was not written")
+    with StepCounter(seg_train, *names) as counter:
+        _, resumed = seg_train.main(seg_train.SegConfig(
+            save_dir=save_dir, resume=True, device=dev.type, **{**SEG_TRAINER_CFG, "epochs": 2}))
+    rep["resume_steps"] = check_step_launches(counter.rows, "segmentation resume", expect)
+    if resumed["resumed"] != {"qat_epoch": 1, "step": 4} or \
+            [h["tag"] for h in resumed["history"]] != ["qat"]:
+        raise AssertionError(f"segmentation resume: {resumed['resumed']}, "
+                             f"{[h['tag'] for h in resumed['history']]}")
+    history = res["history"] + resumed["history"]
+    for h in history:
+        if not np.isfinite(h["loss"]):
+            raise AssertionError(f"segmentation trainer: {h['tag']} loss {h['loss']}")
+    rep["epochs"] = [{"tag": h["tag"], "epoch": h["epoch"], "loss": h["loss"],
+                      "images_per_sec": h["images_per_sec"], "step_ms": h["step_ms"],
+                      "val_miou": h.get("val", {}).get("miou")} for h in history]
+    rep["final"] = {k: resumed[k]["miou"] for k in ("qat", "int8")}
+    for e in rep["epochs"]:
+        log(f"[seg] trainer {e['tag']} epoch {e['epoch']}: loss {e['loss']:.4f}, "
+            f"{e['images_per_sec']:.1f} images/s, step wall ms "
+            f"{[round(t, 1) for t in e['step_ms']]}, val mIoU {e['val_miou']}")
+    artifact = os.path.join(root, "seg_int8.npz")
+    common = ["--model", SEG_TRAINER_CFG["model"], "--crop_size",
+              str(SEG_TRAINER_CFG["crop_size"]), "--batch_size",
+              str(SEG_TRAINER_CFG["batch_size"]), "--device", dev.type]
+    with StepCounter(seg_train, *names) as counter:
+        ev = seg_eval.main(seg_eval.build_parser().parse_args(
+            common + ["--checkpoint", os.path.join(save_dir, "best"), "--export_int8",
+                      artifact]))
+        last = seg_eval.main(seg_eval.build_parser().parse_args(
+            common + ["--checkpoint", os.path.join(save_dir, "checkpoint")]))
+    rep["evaluate_steps"] = check_step_launches(counter.rows, "segmentation evaluate", expect)
+    state = create_train_state(get_seg_model(SEG_TRAINER_CFG["model"]),
+                               get_optimizer("QSGD", 1e-3), device=dev,
+                               variables=load_int8(artifact))
+    cfg = seg_train.resolve_dataset_defaults(seg_train.SegConfig(
+        crop_size=SEG_TRAINER_CFG["crop_size"], batch_size=SEG_TRAINER_CFG["batch_size"]))
+    served = seg_train.evaluate_seg(state, seg_eval.eval_dataset(cfg, ""), dev, INT8, cfg)
+    if served["miou"] != ev["int8"] or not np.array_equal(served["cm"], ev["int8_eval"]["cm"]):
+        raise AssertionError(f"served artifact mIoU {served['miou']} != the evaluator's "
+                             f"{ev['int8']}")
+    if last["int8"] != resumed["int8"]["miou"] or \
+            not np.array_equal(last["int8_eval"]["cm"], resumed["int8"]["cm"]):
+        raise AssertionError(f"evaluate.main on the final checkpoint: INT8 mIoU {last['int8']} "
+                             f"!= the trainer's {resumed['int8']['miou']}")
+    rep["evaluate"] = {"best": {"qat": ev["qat"], "int8": ev["int8"],
+                                "export_bytes": ev["export_bytes"]},
+                       "final": {"qat": last["qat"], "int8": last["int8"]},
+                       "served_artifact_int8": served["miou"]}
+    rep["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[seg] trainer path: steps {rep['train_steps']}, resume {rep['resume_steps']}, "
+        f"evaluate {rep['evaluate_steps']} (fake_quant_observe {n_sites} per QAT step and "
+        f"QAT_FROZEN forward, int8_matmul_requant {n_mm} per INT8 forward); final mIoU QAT sim "
+        f"{rep['final']['qat']:.4f}, INT8 {rep['final']['int8']:.4f} (== evaluate.main on "
+        f"checkpoint/); evaluate.main on best/: {rep['evaluate']['best']}; its artifact served "
+        f"in a fresh model gives the same INT8 mIoU and confusion matrix; peak memory "
+        f"{rep['peak_memory_gib']:.2f} GiB")
+    return rep
+
+
+def time_seg_steps(dev, batch=16):
+    """Phase 17, part f: the float32 QAT and FP32 train steps of the default
+    model at 768x768: ms/step, images/s, peak memory, launches a step."""
+    from frostnet_tpu_torch.segmentation import get_seg_model, train as seg_train
+    from frostnet_tpu_torch.segmentation.data import CITYSCAPES_CLASS_WEIGHTS
+
+    model = get_seg_model(SEG_MODELS_CHECKED[0])
+    tx = get_optimizer("QSGD", 0.05, weight_decay=grouped_weight_decay(4e-5))
+    state = create_train_state(model, tx, seed=0, device=dev)
+    rng = np.random.RandomState(4)
+    b = {"image": torch.as_tensor(seg_images(4, batch), device=dev),
+         "label": torch.as_tensor(rng.randint(0, SEG_CLASSES, (batch, SEG_CROP, SEG_CROP))
+                                  .astype(np.int32), device=dev)}
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mode, tag in ((FP32, "fp32"), (QAT, "qat")):
+        if mode is QAT:
+            state.start_qat()
+        step = seg_train.make_seg_train_step(mode, CITYSCAPES_CLASS_WEIGHTS, 255, SEG_CLASSES)
+        before = ops.launch_counts()
+        step(state, b)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        rec[f"{tag}_launches"] = {k: after[k] - before[k] for k in after}
+        ms = time_ms(lambda: step(state, b), reps=3, warmup=1)
+        rec[f"{tag}_ms_per_step"], rec[f"{tag}_images_per_sec"] = ms, batch / ms * 1e3
+    rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[time] segmentation train steps at {SEG_CROP}x{SEG_CROP}, batch {batch} (float32): "
+        f"QAT {rec['qat_ms_per_step']:.2f} ms/step, {rec['qat_images_per_sec']:.2f} images/s; "
+        f"FP32 {rec['fp32_ms_per_step']:.2f} ms/step, {rec['fp32_images_per_sec']:.2f} images/s; "
+        f"peak memory {rec['max_memory_allocated_gib']:.2f} GiB; launches QAT "
+        f"{rec['qat_launches']}, FP32 {rec['fp32_launches']}")
+    del state, model, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_segs(served, mm_rows, sites, dev):
+    """Phase 17, part f: the INT8 forward at batch 1, 8 and 16; one profiled
+    forward at batch 8 (the matmul kernel, the torch ops, the idle share)
+    and the device time of the torch-op groups (dilated depthwise convs,
+    hard-swishes, squeeze-excites); the matmul kernel at each distinct
+    matmul of the batch-16 forward and the fake-quant kernel at the sites
+    of part c, each beside its bound, its plain version and the library
+    call."""
+    out = {"serving": {}}
+    for name, (model, fn) in served.items():
+        rec = {}
+        for b in (1, 8, 16):
+            xb = torch.as_tensor(seg_images(5, b), device=dev)
+            ms = time_ms(lambda: fn(xb), reps=10 if b < 16 else 5, warmup=1)
+            rec[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3}
+            log(f"[time] {name} INT8 forward at {SEG_CROP}x{SEG_CROP}, batch {b}: {ms:.3f} "
+                f"ms/batch, {b / ms * 1e3:.2f} images/s")
+            del xb
+        x8 = torch.as_tensor(seg_images(6, 8), device=dev)
+        try:
+            rec["profile"] = profile_forward(fn, x8, MB_KERNELS)
+            log_profile(f"{name} INT8 forward at batch 8", rec["profile"])
+        except RuntimeError as e:  # torch.profiler stops recording after many sessions
+            log(f"[time] {name}: no profile ({e})")
+            rec["profile"] = None
+        groups = {}
+        with torch.inference_mode():
+            for group, calls in group_inputs(model, x8).items():
+                if not calls:
+                    continue
+
+                def run(calls=calls):
+                    return [m(x, INT8) for m, x in calls]
+
+                groups[group] = {"modules": len(calls), "device_ms": graph_ms(run, 3),
+                                 "wall_ms": time_ms(run, reps=3)}
+        rec["groups"] = groups
+        log(f"[time] {name} torch-op groups at batch 8, ms device (CUDA graph) / wall: "
+            + ", ".join(f"{g} {v['device_ms']:.4f} / {v['wall_ms']:.4f} ({v['modules']} modules)"
+                        for g, v in groups.items()))
+        out["serving"][name] = rec
+        del x8
+    rows, seen = [], set()
+    for label, a, op in mm_rows:
+        key = (a.shape[0], op.k, op.n)
+        if key in seen:
+            continue
+        seen.add(key)
+        rows.append(kernel_row(f"{label} {matmul_shape(a, op)}", lambda: int8_matmul_requant(a, op),
+                               lambda: int8_matmul_requant_plain(a, op),
+                               matmul_cost(a.shape[0], op.k, op.n), int_mm_ms(a, op.wt, reps=10),
+                               reps=10, plain_reps=1))
+        rows[-1]["path"] = "seg"
+        log(f"[time] int8_matmul_requant {rows[-1]['shape']}: {row_text(rows[-1])}")
+    out["fake_quant"] = fq = time_fake_quant_sites(sites)
+    lib = "n/a" if fq["library_ms"] is None else (
+        f"{fq['library_ms']:.4f} device, {fq['library_wall_ms']:.4f} wall")
+    log(f"[time] fake_quant_observe, the {len(sites)} sites of a segmentation QAT forward at "
+        f"batch 16 ({SEG_CROP}x{SEG_CROP}, float32): {fq['ms']:.4f} ms device, "
+        f"{fq['graph_ms']:.4f} graph, {fq['wall_ms']:.4f} wall ({fq['launches_per_site']} launch "
+        f"a site; bound {fq['bound_ms']:.4f} {fq['bound_by']}, {100 * fq['bound_share']:.1f}%; "
+        f"plain {fq['plain_ms']:.3f}, fused_moving_avg_obs_fake_quant {lib})")
+    for line in bucket_lines(fq):
+        log(f"    {line}")
+    return rows, out
+
+
+def seg_phase(dev):
+    """Phase 17: segmentation on the card (serving against the JAX digests,
+    the matmul and fake-quant kernels at the segmentation shapes, training
+    against the JAX reference, the trainer and evaluator, times). Returns
+    (report, launches of each path, matmul timing rows)."""
+    rep, launches = {}, {}
+    os.makedirs(PHASE17_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep["serving"], served = serve_segs(dev)
+    launches["serving"] = {n: r["launches"] for n, r in rep["serving"].items()}
+    rep["matmul_max_abs_err"], rep["matmul_shapes"], mm_rows = check_seg_matmuls(served, dev)
+    log(f"[seg] int8_matmul_requant == plain at every matmul of both forwards at batch 8 and "
+        f"16, aligned and unaligned rows: {rep['matmul_shapes']}")
+    checked, rep["fake_quant_max_abs_err"], n_sites, sites = check_seg_fake_quant(dev)
+    rep["fake_quant_site_checks"] = checked
+    log(f"[seg] fake_quant_observe == plain at all {checked} sites of a {SEG_MODELS_CHECKED[0]} "
+        f"QAT forward at batch 16 (float32; QAT and QAT_FROZEN passes); largest "
+        f"{max(tuple(x.shape) for x, _, _, _ in sites)} "
+        f"({max(x.numel() for x, _, _, _ in sites) / 1e6:.1f} M elements)")
+    ops.reset_launch_counts()
+    rep["training_reference"] = train_seg_against_reference(dev)
+    launches["training"] = ops.launch_counts()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    rep["trainer"] = seg_trainer_path(dev)
+    launches["trainer"] = ops.launch_counts()
+    for k in ("fake_quant_observe", "int8_matmul_requant"):
+        if launches["trainer"][k] == 0:
+            raise AssertionError(f"phase 17's trainer path launched no {k}")
+    torch.cuda.empty_cache()
+    rep["train_steps"] = time_seg_steps(dev)
+    mm, rep["timing"] = time_segs(served, mm_rows, sites, dev)
+    del served, sites, mm_rows
+    torch.cuda.empty_cache()
+    return rep, launches, mm
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2185,6 +2785,16 @@ def main(argv=None):
     max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
                                         report["resnet"]["fake_quant_max_abs_err"])
 
+    # 17. segmentation: serving against the JAX digests at 768x768, the
+    # kernels at its shapes, training, the trainer and evaluator, timings
+    torch.cuda.empty_cache()
+    report["seg"], seg_counts, seg_mm_rows = seg_phase(dev)
+    timing["int8_matmul_requant"] += seg_mm_rows
+    max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"],
+                                         report["seg"]["matmul_max_abs_err"])
+    max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
+                                        report["seg"]["fake_quant_max_abs_err"])
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -2221,7 +2831,7 @@ def main(argv=None):
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
         for key, path_counts in (("mobilenet_launches", mb_counts),
-                                 ("resnet_launches", rn_counts)):
+                                 ("resnet_launches", rn_counts), ("seg_launches", seg_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

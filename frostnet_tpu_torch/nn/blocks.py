@@ -109,15 +109,27 @@ class QHswish(nn.Module):
 
 class QHsigmoid(nn.Module):
     """``relu6(x + 3) / 6``; the standalone relu6 is observed in QAT. In the
-    models its input is the float output of a ``QDense``, so in INT8 it runs
-    in float (the observer neither steps nor applies)."""
+    squeeze-excite its input is the float output of a ``QDense``, so in INT8
+    it runs in float (the observer neither steps nor applies); in the
+    LR-ASPP gate it takes a conv's QTensor, and ``prepare_int8`` freezes
+    the ReLU6's int32 clamp on the shifted grid and the scaled output grid,
+    as ``QHswish`` does."""
 
     def __init__(self, qconfig: QConfig = QNNPACK):
         super().__init__()
         self.qconfig = qconfig
         self.relu6_obs = Observer()
 
+    def prepare_int8(self, x: QParams, device) -> QParams:
+        shifted = add_scalar(x, 3.0)
+        self._lo, self._hi = relu6_bounds(shifted)
+        out = mul_scalar(shifted, SIXTH)
+        self._out_t = out.tensors(device)
+        return out
+
     def forward(self, x, mode: QuantMode = FP32):
+        if isinstance(x, QTensor):  # INT8, frozen: int32 codes on the output grid
+            return QTensor(torch.clamp(x.q.to(torch.int32), self._lo, self._hi), *self._out_t)
         out = _relu6(add_scalar(x, 3.0))
         out = observed_standalone_act(out, self.relu6_obs, self.qconfig.activation, mode)
         return mul_scalar(out, SIXTH)
@@ -232,8 +244,9 @@ class InvertedResidual(nn.Module):
     -> linear project, with an observed skip add where shapes allow."""
 
     def __init__(self, in_channels: int, out_channels: int, strides: int = 1,
-                 expand_ratio: int = 6, kernel_size: int = 3, quantized: bool = True,
-                 qconfig: QConfig = QNNPACK, dtype: torch.dtype = torch.float32):
+                 expand_ratio: int = 6, kernel_size: int = 3, dilation: int = 1,
+                 quantized: bool = True, qconfig: QConfig = QNNPACK,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(round(in_channels * expand_ratio))
         self.quantized = quantized
@@ -242,7 +255,8 @@ class InvertedResidual(nn.Module):
         if expand_ratio != 1:
             self.expand = QConvBNAct(in_channels, hidden, 1, act="relu", **kw)
         self.dw = QConvBNAct(hidden, hidden, kernel_size, strides=strides,
-                             padding=(kernel_size - 1) // 2, groups=hidden, act="relu", **kw)
+                             padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
+                             groups=hidden, act="relu", **kw)
         self.project = QConvBNAct(hidden, out_channels, 1, act=None, **kw)
         if self.use_res and quantized:
             self.skip_add = QAdd(qconfig)
@@ -270,8 +284,9 @@ class BottleneckV3(nn.Module):
     QAT gives a plain ReLU none)."""
 
     def __init__(self, in_channels: int, out_channels: int, exp_size: int, kernel_size: int,
-                 strides: int, se: bool = False, nl: str = "RE", quantized: bool = True,
-                 qconfig: QConfig = QNNPACK, dtype: torch.dtype = torch.float32):
+                 strides: int, dilation: int = 1, se: bool = False, nl: str = "RE",
+                 quantized: bool = True, qconfig: QConfig = QNNPACK,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.quantized, self.hs, self.se_on = quantized, nl == "HS", se
         self.use_res = strides == 1 and in_channels == out_channels
@@ -280,7 +295,8 @@ class BottleneckV3(nn.Module):
         if self.hs and quantized:
             self.expand_hs = QHswish(qconfig)
         self.dw = QConvBNAct(exp_size, exp_size, kernel_size, strides=strides,
-                             padding=(kernel_size - 1) // 2, groups=exp_size, act=None, **kw)
+                             padding=(kernel_size - 1) // 2 * dilation, dilation=dilation,
+                             groups=exp_size, act=None, **kw)
         if se:
             self.se = QSEModule(exp_size, quantized=quantized, qconfig=qconfig)
         if self.hs and quantized:

@@ -38,11 +38,15 @@ and the packed operands, all on the target device. The INT8 forward then
 takes one of five routes:
 
 * 1x1: one INT8 matmul (``ops/int8_matmul``);
-* depthwise kxk: k*k shifted integer multiply-adds in torch;
-* dense 3x3 stride 1 with 'same' padding (the GAN's ResnetBlock and up
-  convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
-* any other dense kxk (the stems, strided convs): zero-point-padded im2col
-  patches and one INT8 matmul, whatever K the patches have;
+* depthwise kxk, dilated or not (the segmentation trunks' last stage runs
+  dilation 2): k*k shifted integer multiply-adds in torch, tap ``(dy, dx)``
+  at ``dilation * (dy, dx)`` (JAX runs the same multiply-adds as XLA code,
+  not a TPU kernel);
+* dense 3x3 stride 1 dilation 1 with 'same' padding (the GAN's ResnetBlock
+  and up convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
+* any other dense kxk (the stems, strided convs, R-ASPP's atrous 3x3s):
+  zero-point-padded im2col patches (dilated taps where the conv is) and one
+  INT8 matmul, whatever K the patches have;
 * grouped kxk (ResNeXt's ``groups=32`` 3x3s): the exact int32 sum of a
   float64 grouped conv in torch (``ops/requant.py::conv_acc``; JAX
   runs it as an s32 ``lax.conv``, XLA code, not a TPU kernel), then the
@@ -97,7 +101,7 @@ class QConvBNAct(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 3, strides: int = 1,
-                 padding: int = 0, groups: int = 1, use_bn: bool = True,
+                 padding: int = 0, dilation: int = 1, groups: int = 1, use_bn: bool = True,
                  use_bias: bool = False, act: Optional[str] = "relu",
                  quantized: bool = True, qconfig: QConfig = QNNPACK,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
@@ -110,6 +114,7 @@ class QConvBNAct(nn.Module):
         kh, kw = _pair(kernel_size)
         self.in_features, self.features = in_features, features
         self.kernel_size, self.strides, self.padding = (kh, kw), strides, padding
+        self.dilation = dilation
         self.groups, self.use_bn, self.use_bias, self.act = groups, use_bn, use_bias, act
         self.quantized = quantized
         self.qconfig, self.bn_momentum, self.bn_eps, self.dtype = qconfig, bn_momentum, bn_eps, dtype
@@ -173,14 +178,15 @@ class QConvBNAct(nn.Module):
             self._op = conv1x1_operands(qw[0, 0], comb, bf, x.zero_point, out_s, out_zp,
                                         relu, qmin, qmax, device)
         elif self.depthwise and self.features == self.groups:
-            if kh != kw or self.padding != (kh - 1) // 2:
+            if kh != kw or self.padding != self.dilation * (kh - 1) // 2:
                 raise ValueError("the INT8 depthwise route takes square kernels with "
-                                 "'same' padding")
+                                 "'same' padding (dilation * (k - 1) // 2)")
             self._route = "depthwise"
             self._taps = qw.reshape(kh * kw, self.features).to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
             self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
-        elif (kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1 and self.groups == 1:
+        elif ((kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1
+              and self.dilation == 1 and self.groups == 1):
             self._route = "dense3x3"
             self._op = conv3x3_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
                                         qmin, qmax, device)
@@ -190,6 +196,8 @@ class QConvBNAct(nn.Module):
                                         comb, bf, x.zero_point, out_s, out_zp, relu,
                                         qmin, qmax, device)
         elif not self.depthwise:
+            if self.dilation != 1:
+                raise ValueError("dilated grouped convs are not part of the INT8 port")
             self._route = "grouped"
             self._w64 = qw.to(torch.float64).permute(3, 2, 0, 1).contiguous().to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
@@ -200,16 +208,17 @@ class QConvBNAct(nn.Module):
         return self._out
 
     def _patches(self, q: torch.Tensor) -> torch.Tensor:
-        """Zero-point-padded im2col patches, columns in (dy, dx, cin) order,
-        then zero columns up to a multiple of 16: the matmul kernel reads
-        16-byte aligned rows, and the packed weight is zero there."""
+        """Zero-point-padded im2col patches, columns in (dy, dx, cin) order
+        (tap ``(dy, dx)`` reads ``dilation * (dy, dx)`` from the window's
+        corner), then zero columns up to a multiple of 16: the matmul kernel
+        reads 16-byte aligned rows, and the packed weight is zero there."""
         kh, kw = self.kernel_size
-        s, p = self.strides, self.padding
+        s, p, d = self.strides, self.padding, self.dilation
         if p:
             q = torch.nn.functional.pad(q, (0, 0, p, p, p, p), value=self._in.zero_point)
         hp, wp = q.shape[1], q.shape[2]
-        ho, wo = (hp - kh) // s + 1, (wp - kw) // s + 1
-        cols = [q[:, dy:dy + (ho - 1) * s + 1:s, dx:dx + (wo - 1) * s + 1:s, :]
+        ho, wo = (hp - d * (kh - 1) - 1) // s + 1, (wp - d * (kw - 1) - 1) // s + 1
+        cols = [q[:, d * dy:d * dy + (ho - 1) * s + 1:s, d * dx:d * dx + (wo - 1) * s + 1:s, :]
                 for dy in range(kh) for dx in range(kw)]
         pad = -(kh * kw * q.shape[3]) % 16
         if pad:
@@ -221,7 +230,7 @@ class QConvBNAct(nn.Module):
         xt = x.to(self.dtype).permute(0, 3, 1, 2)
         wt = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         with _full_f32(xt, not self.quantized):
-            y = F.conv2d(xt, wt, None, self.strides, self.padding, 1, self.groups)
+            y = F.conv2d(xt, wt, None, self.strides, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
     def _batch_norm(self, y: torch.Tensor, train: bool) -> torch.Tensor:
@@ -278,7 +287,7 @@ class QConvBNAct(nn.Module):
         if self._route in ("depthwise", "grouped"):
             if self._route == "depthwise":
                 acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
-                                    self._in.zero_point)
+                                    self._in.zero_point, self.dilation)
             else:
                 acc = conv_acc(x.q, self._w64, self._in.zero_point, self.strides,
                                self.padding, self.groups)

@@ -1,10 +1,12 @@
 """Pooling of float tensors and QTensors (``frostnet_tpu/nn/pool.py``).
 
 PyTorch's quantized pooling keeps the input grid (no observer).
-:func:`global_avg_pool` rounds the integer average as the frozen JAX graph
-does: the float sum of the codes (exact) times ``f32(1 / count)``, rounded
-half to even and clipped at 255 for every qconfig. :func:`max_pool` takes
-the max of the codes on the input's grid, exact in any order.
+:func:`global_avg_pool` and :func:`avg_pool` round the integer average as
+the frozen JAX graph does: the float sum of the codes (exact) times
+``f32(1 / count)`` (XLA rewrites flax's division by the constant window
+area into that multiply; read from the optimized HLO), rounded half to even
+and clipped at 255 for every qconfig. :func:`max_pool` takes the max of the
+codes on the input's grid, exact in any order.
 """
 from __future__ import annotations
 
@@ -26,6 +28,27 @@ def global_avg_pool(x, keepdims: bool = True):
         q = torch.clamp(torch.round(m), 0, 255).to(x.q.dtype)
         return QTensor(q, x.scale, x.zero_point)
     return x.mean(dim=(1, 2), keepdim=keepdims)
+
+
+def avg_pool(x, window: int, strides: Optional[int] = None):
+    """'VALID' average pooling over NHWC ``x`` (the LR-ASPP gate's pool).
+
+    A QTensor keeps its grid: each window's code sum (an integer up to
+    ``255 * window**2``, exact) times ``f32(1 / window**2)``, rounded half to
+    even and clipped. A float tensor takes the same form on its float32
+    window sums, each summed exactly in float64 and rounded once (XLA's
+    ``reduce_window`` sums in window order: the float sums may differ from
+    it in the last bit, on every device alike).
+    """
+    strides = strides or window
+    xt = (x.q if isinstance(x, QTensor) else x).permute(0, 3, 1, 2)
+    s = F.avg_pool2d(xt.to(torch.float64), window, strides, divisor_override=1)
+    s = s.to(torch.float32).permute(0, 2, 3, 1)
+    m = s * torch.full((), reciprocal(float(window * window)), device=s.device)
+    if isinstance(x, QTensor):
+        q = torch.clamp(torch.round(m), 0, 255).to(x.q.dtype)
+        return QTensor(q.contiguous(), x.scale, x.zero_point)
+    return m.to(x.dtype)
 
 
 def max_pool(x, window: int, strides: int, padding: int = 0,

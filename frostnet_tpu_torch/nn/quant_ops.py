@@ -227,14 +227,19 @@ class QMul(_QBinary):
 
 
 class QCat(_QBinary):
-    """FloatFunctional.cat along the channel axis."""
+    """FloatFunctional.cat along the channel axis. In INT8 a QTensor part is
+    requantized from its own grid (``ops.requant.requant_codes``: its
+    dequantize, then the multiply by ``f32(1/s)``), a float part (R-ASPP's
+    pooled branch, resized) is quantized on the stored grid; the grid of a
+    float part given to ``prepare_int8`` is None."""
 
     def forward(self, xs: Sequence, mode: QuantMode = FP32):
         if not mode.int8:
             return observed_fake_quant(torch.cat(list(xs), dim=-1), self.act,
                                        self.qconfig.activation, mode)
         spec = self.qconfig.activation
-        parts = [requant_codes(x.q, z, s, self._mult, self._out.zero_point,
-                               spec.qmin, spec.qmax)
-                 for x, (s, z) in zip(xs, self._in)]
+        parts = [requant_codes(x.q, g.zero_point, g.scale, self._mult, self._out.zero_point,
+                               spec.qmin, spec.qmax) if isinstance(x, QTensor)
+                 else requantize(x, self._mult_t, self._out.zero_point, spec)
+                 for x, g in zip(xs, self._in)]
         return QTensor(torch.cat(parts, dim=-1), *self._out_t)

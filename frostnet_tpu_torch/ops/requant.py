@@ -60,17 +60,20 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     ``a`` and ``b`` are float32, so their product is exact in float64. The
     float64 sum is made round-to-odd from its exact error (TwoSum), and a
     round-to-odd result at 53 bits rounds to the nearest float32 exactly as
-    the exact sum does: no double-rounding error.
+    the exact sum does: no double-rounding error. The round-to-odd step is
+    an exact float64 offset added outside autograd, so the gradient is that
+    of ``a * b + c`` (the segmentation tail's resize trains through it).
     """
     p = a.to(torch.float64) * b.to(torch.float64)
-    c = c.to(torch.float64)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, _INF), torch.full_like(s, -_INF))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
+    s = p + c.to(torch.float64)
+    with torch.no_grad():
+        bb = s - p
+        err = (p - (s - bb)) + (c.to(torch.float64) - bb)
+        even = (s.view(torch.int64) & 1) == 0
+        toward = torch.where(err > 0, torch.full_like(s, _INF), torch.full_like(s, -_INF))
+        step = torch.where((err != 0) & even, torch.nextafter(s, toward) - s,
+                           torch.zeros_like(s))
+    return (s + step).to(torch.float32)
 
 
 def epilogue_constants(comb: torch.Tensor, bias: torch.Tensor, out_scale,
@@ -146,26 +149,29 @@ def qadd_codes(qa: torch.Tensor, za: int, sa: float, qb: torch.Tensor, zb: int,
 
 
 def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
-                  zp: int) -> torch.Tensor:
+                  zp: int, dilation: int = 1) -> torch.Tensor:
     """int32 depthwise conv of uint8 NHWC codes around their zero point.
 
-    ``w`` is (k*k, C) int8 taps in (dy, dx) order. Out-of-image taps read the
-    zero point (qnnpack pad semantics), so they contribute exactly 0:
+    ``w`` is (k*k, C) int8 taps in (dy, dx) order; tap ``(dy, dx)`` reads
+    the input ``dilation * (dy, dx)`` from the window's corner, and the
+    padding is ``dilation * (k - 1) // 2`` ('same'). Out-of-image taps read
+    the zero point (qnnpack pad semantics), so they contribute exactly 0:
     ``acc = sum (x - zp) * w``, the same integer as the JAX package's
     zero-point-shifted form.
     """
-    p = (kernel - 1) // 2
+    d = dilation
+    p = d * (kernel - 1) // 2
     b, h, w_sp, c = x.shape
     xi = x.to(torch.int32) - zp
     xi = torch.nn.functional.pad(xi, (0, 0, p, p, p, p))
-    ho = (h + 2 * p - kernel) // stride + 1
-    wo = (w_sp + 2 * p - kernel) // stride + 1
+    ho = (h + 2 * p - d * (kernel - 1) - 1) // stride + 1
+    wo = (w_sp + 2 * p - d * (kernel - 1) - 1) // stride + 1
     acc = torch.zeros((b, ho, wo, c), dtype=torch.int32, device=x.device)
     wi = w.to(torch.int32)
     for dy in range(kernel):
         for dx in range(kernel):
-            sl = xi[:, dy:dy + (ho - 1) * stride + 1:stride,
-                    dx:dx + (wo - 1) * stride + 1:stride, :]
+            sl = xi[:, d * dy:d * dy + (ho - 1) * stride + 1:stride,
+                    d * dx:d * dx + (wo - 1) * stride + 1:stride, :]
             acc += sl * wi[dy * kernel + dx]
     return acc
 

@@ -3,15 +3,22 @@
 The JAX package resizes NHWC tensors with two float32 einsums against
 host-built interpolation matrices (``frostnet_tpu/ops/resize.py``), the H
 pass first. Each output is the dot of one matrix row with the input, and a
-row has at most two nonzero taps, ``lo = floor(pos)`` and ``lo + 1``. On the
-CPU, XLA's dot accumulates the taps in index order with fused multiply-adds
-at the generator's sizes (an input side of 32, 64 or 128): the ``lo``
-product is rounded, then the ``hi`` product is added to it and the sum
-rounded once, ``fma(w_hi, x_hi, w_lo * x_lo)``. The zero taps add exact
-zeros. :func:`resize_bilinear` writes that form as elementwise torch ops, so
-it gives the same bits on any device (no cuBLAS, whose order of summation is
+row has at most two nonzero taps, ``lo = floor(pos)`` and ``lo + 1``. The
+zero taps add exact zeros. How XLA's CPU dot rounds the two taps depends on
+the pass's output side (read from its output at the GAN's and the
+segmentation models' sizes, for 16 or more channels):
+
+* a multiple of 64 (the GAN's 64 -> 128 and 128 -> 256, the segmentation
+  tails' 96 -> 768, 8 -> 64, 48 -> 192): fused multiply-adds in index order,
+  the ``lo`` product rounded, then ``fma(w_hi, x_hi, w_lo * x_lo)``;
+* any other side (the LR-ASPP heads' 48 -> 96, 6 -> 12, 4 -> 8; the 96
+  crop's tail 12 -> 96): each product rounded, then their sum,
+  ``w_lo * x_lo + w_hi * x_hi``.
+
+:func:`resize_bilinear` writes these forms as elementwise torch ops, so it
+gives the same bits on any device (no cuBLAS, whose order of summation is
 not specified). ``tests/test_torch_resize.py`` holds it bit-exact against
-the JAX function.
+the JAX function at each of those sizes.
 """
 from __future__ import annotations
 
@@ -59,7 +66,9 @@ def _interp(x: torch.Tensor, dim: int, n_out: int, align_corners: bool) -> torch
 
     x_lo = x.index_select(dim, torch.as_tensor(lo, device=dev))
     x_hi = x.index_select(dim, torch.as_tensor(hi, device=dev))
-    return fma_f32(x_hi, weight(w_hi), x_lo * weight(w_lo))
+    if n_out % 64 == 0:
+        return fma_f32(x_hi, weight(w_hi), x_lo * weight(w_lo))
+    return x_lo * weight(w_lo) + x_hi * weight(w_hi)
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],

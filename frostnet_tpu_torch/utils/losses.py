@@ -1,4 +1,5 @@
-"""Classification loss (``frostnet_tpu/utils/losses.py::cross_entropy``)."""
+"""Losses (``frostnet_tpu/utils/losses.py``): the weighted, ignore-aware
+cross-entropy and the segmentation trainer's ``bce`` branch."""
 from __future__ import annotations
 
 from typing import Optional
@@ -30,3 +31,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if ignore_index is not None:
         w = torch.where(labels == ignore_index, torch.zeros_like(w), w)
     return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                                     pos_weight: Optional[torch.Tensor] = None,
+                                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """BCEWithLogits with mean reduction (the JAX package's, after
+    SegmentationLoss's bce branch): ``-(t * log sigmoid(x) + (1 - t) *
+    log sigmoid(-x))``, ``pos_weight`` scaling the positive term and
+    ``weight`` the elementwise loss (per class when shaped (C,) against
+    NHWC logits)."""
+    log_p, log_not_p = F.logsigmoid(logits), F.logsigmoid(-logits)
+    pos = targets * log_p if pos_weight is None else pos_weight * targets * log_p
+    loss = -(pos + (1 - targets) * log_not_p)
+    if weight is not None:
+        loss = loss * weight
+    return loss.mean()

@@ -390,3 +390,84 @@ def test_grouped_route_and_max_pool_match_cpu(cuda_device, stride):
     assert conv._route == "grouped"
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
     assert len(torch.unique(outs[0][0])) > 32
+
+
+# the segmentation path at the Cityscapes crop of 768: the im2col stem at
+# batch 2 and 16 (M = B x 384 x 384, K = 27 in rows padded to 32), the
+# LR-ASPP gate's b1_conv at M = B (K = 288 and 480), 1x1s whose K is not a
+# multiple of 16 on the 96x96 and 48x48 maps
+SEG_MATMUL_SHAPES = [(294912, 27, 16), (2359296, 27, 16), (2, 288, 128), (16, 480, 128),
+                     (147456, 24, 88), (36864, 40, 120), (36864, 120, 48)]
+
+
+@pytest.mark.parametrize("m,k,n", SEG_MATMUL_SHAPES)
+def test_int8_matmul_kernel_seg_shapes(cuda_device, m, k, n):
+    x, op = _matmul_case(m, k, n, False, 255, cuda_device, seed=4)
+    assert torch.equal(int8_matmul_requant(x, op), int8_matmul_requant_plain(x, op))
+
+
+@pytest.mark.parametrize("shape", [(16, 384, 384, 16), (16, 768, 768, 3)],
+                         ids=["stem_out", "input_stub"])
+def test_fake_quant_kernel_seg_largest_sites(cuda_device, shape):
+    """The segmentation trainer's largest QAT sites at batch 16 (151 MB and
+    113 MB of float32: the cooperative-grid launch, x read twice)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda_device) * 2.0
+    mn, mx = torch.tensor(-1.5, device=cuda_device), torch.tensor(2.5, device=cuda_device)
+    spec = tq.QNNPACK.activation
+    kmin, kmax = mn.clone(), mx.clone()
+    y, mask, qp = fake_quant_observe(x, kmin, kmax, spec, observe=True)
+    py, pmask, pst, ps, pz = fake_quant_observe_plain(x, tq.ObserverState(mn, mx), spec, True)
+    assert torch.equal(y, py) and torch.equal(mask, pmask)
+    assert torch.equal(kmin, pst.min_val) and torch.equal(kmax, pst.max_val)
+    assert torch.equal(qp[0], ps) and torch.equal(qp[1], pz.to(torch.float32))
+
+
+@pytest.mark.parametrize("name", ["mobilenetv3_RE_small", "mobilenetv3_large"])
+def test_seg_fixture_served_on_the_card(cuda_device, name, tmp_path):
+    """The full-width segmentation fixture (768x768) served on the card: one
+    matmul launch per 1x1 or im2col conv and nothing else; every layer's
+    codes equal to the committed JAX digests, the sampled logits and the
+    argmax within the bands of ``tests/test_torch_seg_fixture.py`` (first
+    image)."""
+    from chip_smoke import seg_layer_codes, seg_served_model
+    from frostnet_tpu_torch.nn import QConvBNAct
+    from test_torch_seg_fixture import check_against_reference
+
+    model, fn = seg_served_model(name, cuda_device, str(tmp_path))
+    n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in model.modules()
+               if isinstance(m, QConvBNAct))
+    images = np.random.RandomState(0).randn(1, 768, 768, 3).astype(np.float32)
+    ops.reset_launch_counts()
+    logits, codes = seg_layer_codes(model, fn, images)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
+                                   "fake_quant_observe": 0, "int8_conv": 0}
+    check_against_reference(name, model, logits, codes, 1)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_dilated_depthwise_route_matches_cpu(cuda_device, k):
+    """The dilated INT8 depthwise route (torch ops, dilation 2) gives the
+    same codes on the card as on the CPU."""
+    from frostnet_tpu_torch.nn import INT8, QConvBNAct
+    from frostnet_tpu_torch.quant import QParams, QTensor
+
+    g = torch.Generator().manual_seed(k)
+    conv = QConvBNAct(96, 96, k, padding=k - 1, dilation=2, groups=96, act="relu")
+    with torch.no_grad():
+        conv.kernel.copy_(torch.randn(conv.kernel.shape, generator=g) * 0.3)
+        conv.bias_bn.copy_(torch.randn(96, generator=g) * 0.2)
+        conv.w_obs.min_val.fill_(-0.8)
+        conv.w_obs.max_val.fill_(0.8)
+        conv.act_obs.min_val.fill_(0.0)
+        conv.act_obs.max_val.fill_(3.0)
+    x = torch.randint(0, 256, (2, 48, 48, 96), generator=g, dtype=torch.uint8)
+    grid = QParams(0.02, 100)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        conv.to(dev).eval()
+        conv.prepare_int8(grid, dev)
+        outs.append(conv(QTensor(x.to(dev), *grid.tensors(dev)), mode=INT8).q.cpu())
+    assert conv._route == "depthwise" and torch.equal(outs[0], outs[1])
+    assert len(torch.unique(outs[0])) > 32

@@ -123,14 +123,18 @@ def test_other_jax_names_raise_not_implemented():
 
 
 def test_unported_options_raise():
+    """``fuse_int8`` is FrostNet's and raises on a MobileNet. The
+    segmentation options are ported: ``dilated=True`` builds the trunk
+    without a classifier, ``features_only`` returns the stage features."""
     for name in ("qmobilenet_v2_ReLU", "qmobilenet_v3_large_HS"):
         with pytest.raises(ValueError, match="FrostNet-only"):
             create_model(name, fuse_int8=True)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            create_model(name, dilated=True)
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            create_model(name, num_classes=CLASSES)(torch.zeros(1, 32, 32, 3),
-                                                    features_only=True)
+        trunk = create_model(name, dilated=True)
+        assert not any(k.startswith(("params/classifier", "params/cls_"))
+                       for k in model_variables(trunk))
+        feats = create_model(name, num_classes=CLASSES)(torch.zeros(1, 32, 32, 3),
+                                                        features_only=True)
+        assert len(feats) == (4 if "v2" in name else 5)
     # defaults of the JAX factories
     m = create_model("qmobilenet_v3_small_HS")
     assert m.num_classes == 1000 and m.drop_rate == 0.2

@@ -34,6 +34,8 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.data, frostnet_tpu_torch.optim.schedules, "
             "frostnet_tpu_torch.train.classification, frostnet_tpu_torch.train.evaluate, "
             "frostnet_tpu_torch.utils.checkpoint, frostnet_tpu_torch.utils.logging, "
+            "frostnet_tpu_torch.segmentation, frostnet_tpu_torch.segmentation.train, "
+            "frostnet_tpu_torch.segmentation.evaluate, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
@@ -84,6 +86,15 @@ def test_entry_points_default_to_cuda():
         evaluate.main(evaluate.build_parser([]).parse_args([]))
     with pytest.raises(RuntimeError, match="CUDA"):
         classification.cli([])
+    # the segmentation trainer's and evaluator's
+    from frostnet_tpu_torch.segmentation import evaluate as seg_evaluate
+    from frostnet_tpu_torch.segmentation import train as seg_train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_train.main(seg_train.SegConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_train.cli([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_evaluate.main(seg_evaluate.build_parser().parse_args([]))
 
 
 def test_chip_smoke_refuses_without_a_gpu():
