@@ -186,6 +186,37 @@ Phases (each raises on failure, and any failure exits non-zero):
      steps at batch 16 (ms, peak memory), the matmul kernel at each distinct
      matmul of the batch-16 forward and the fake-quant kernel at the sites
      of (c), beside their bounds, plain versions and library calls.
+ 18. object detection at 300x300 (VOC: 21 classes, 8,732 / 8,744 priors,
+     qnnpack), with TF32 off: (a) SSDLite-MobileNetV2 (``qssd``) and
+     Tiny-DSOD (``qtdsod``) built from ``numpy_init(seed 0)`` and the
+     committed calibration (``testdata/det_<net>_calibration.npz``), written
+     by the port's ``export_int8`` as ``_feat.npz`` and ``_head.npz`` and
+     served by ``serve.DetPredictor`` on 2 images: every layer's codes and
+     each dequantized source against the committed JAX digests, loc and conf
+     within ``DET_HEAD_BAND`` of their range, ``detect``'s kept boxes at the
+     server's settings (``DET_SERVE``) within ``DET_BOX_BAND``, one matmul
+     launch per 1x1 or im2col conv (38 / 39) and nothing else; (b) the
+     matmul kernel against its plain version at every INT8 matmul of both
+     forwards at batch 8 and 32 (the stems at M = B x 22,500, K = 27;
+     aligned and unaligned rows), and the fake-quant kernel at all 127 sites
+     of a float32 qssd QAT forward at batch 32, with the QAT_FROZEN pass;
+     (c) one FP32 and two QAT steps and a QAT_FROZEN eval of the loss at
+     300x300, batch 2, against the committed JAX reference
+     (``testdata/det_qssd_train_reference.npz``), the steps in phase 8's
+     bands and the eval in ``DET_EVAL_LOSS_REL``, with the fake-quant launches
+     of each step; (d) qssd's float32 FP32 and QAT steps at batch 32 (ms,
+     images/s, peak memory, launches: 127 fake-quant a QAT step); (e)
+     ``detection.train.main`` (synthetic, batch 32, 2 FP32 warm-up and 2 QAT
+     iterations), its resume to a fifth, ``qeval.evaluator`` with
+     ``--export_int8``, whose artifact served in a fresh ``DetPredictor``
+     gives its INT8 mAP (and the calibrated fixture's, whose mAP is not 0),
+     and ``serve.main --workload det``; each step's launches; (f) the INT8
+     forward with and without ``detect`` at batch 1, 8 and 32, one profiled
+     forward at batch 8, ``detect`` alone at the server's and the
+     evaluator's settings (device time and launches), the matmul kernel at
+     each distinct matmul of the batch-8 forwards and the fake-quant kernel
+     at the sites of (b), beside their bounds, plain versions and library
+     calls.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -198,9 +229,11 @@ rows with.
 Each entry also gives ``trainer_launches``, its launches in phase 14,
 ``mobilenet_launches``, its launches on each path of phase 15 (the two
 served forwards, each model's training, the trainer path),
-``resnet_launches``, the same for phase 16, and ``seg_launches``, its
+``resnet_launches``, the same for phase 16, ``seg_launches``, its
 launches on phase 17's paths (the two served forwards, the training check
-against the reference, the trainer path).
+against the reference, the trainer path), and ``det_launches``, the same for
+phase 18 (the two served forwards, the training check, the timed steps, the
+trainer path).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -2529,6 +2562,603 @@ def seg_phase(dev):
     return rep, launches, mm
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: object detection (SSDLite-MobileNetV2 and Tiny-DSOD at 300x300)
+# ---------------------------------------------------------------------------
+DET_NETS = ("qssd", "qtdsod")
+DET_SIZE, DET_CLASSES = 300, 21
+PHASE18_DIR = os.path.join(ROOT, "build", "phase18")
+DET_TRAIN_REFERENCE = os.path.join(TESTDATA, "det_qssd_train_reference.npz")
+# The fixtures store loc and conf at every DET_PRIOR_STRIDE-th prior. The
+# head is float32 (TF32 off) on bit-equal sources, but its 3x3 convs sum in
+# other orders than XLA's: loc and conf within DET_HEAD_BAND of their range,
+# absolute. detect()'s kept boxes at the server's settings (DET_SERVE) then
+# agree: per image and class as many, each score and coordinate within
+# DET_BOX_BAND. The same bands hold on the CPU (tests/test_torch_det_fixture.py).
+DET_PRIOR_STRIDE, DET_HEAD_BAND, DET_BOX_BAND = 4, 1e-5, 1e-5
+DET_SERVE = dict(conf_thresh=0.25, top_k=50)
+# The training check's QAT_FROZEN eval of the loss after two QAT steps: the
+# observers agree (median 8e-5 of their range, worst 0.2%), but each frozen
+# grid that moves by so little re-rounds a whole map, and the eval's loss
+# follows: the port against JAX 1.2-4.6% apart on 1-8 CPU threads and 6.2%
+# on the card (NVIDIA H100 80GB HBM3, 700 W), the port against itself 3.4%
+# apart between 1 and 8 CPU threads. The FP32 and QAT steps keep phase 8's
+# bands (measured 7e-8, 0.45% and 0.73% on the card).
+DET_EVAL_LOSS_REL = 0.15
+
+
+def det_variables(net: str):
+    """(feat_vars, head_vars) of a detection fixture: ``numpy_init((feat,
+    head), 0)`` with the committed calibration on top
+    (``tests/test_torch_det_fixture.py`` makes it; flat keys of the
+    ``Detector`` tree, ``params/feat/...``)."""
+    from frostnet_tpu_torch.detection.models import join_variables, split_variables
+    from frostnet_tpu_torch.detection.train import build_net
+
+    flat = flatten_variables(join_variables(*numpy_init(build_net(net, DET_CLASSES), 0)))
+    with np.load(os.path.join(TESTDATA, f"det_{net}_calibration.npz")) as cal:
+        for k in cal.files:
+            if k not in flat or flat[k].shape != cal[k].shape:
+                raise AssertionError(f"{net} calibration: {k} does not fit the model")
+            flat[k] = cal[k]
+    return split_variables(unflatten_variables(flat))
+
+
+def det_train_variables(net: str = "qssd"):
+    """The start of the detection training reference: :func:`det_variables`
+    with the head's conf BN scales back at 1 (the fixture's gain of 3 makes
+    the conf losses large, and the QAT_FROZEN eval loss after two QAT steps
+    then moved by up to 9% between the port on 1 and 8 CPU threads; at 1 it
+    moved 3.4%)."""
+    fv, hv = det_variables(net)
+    flat = flatten_variables(hv)
+    for k in flat:
+        parts = k.split("/")
+        if parts[0] == "params" and parts[-1] == "scale" and parts[-2].startswith("conf"):
+            flat[k] = np.ones_like(flat[k])
+    return fv, unflatten_variables(flat)
+
+
+def det_served(net: str, device, artifact_dir=None):
+    """The detection fixture as a user serves it: the port's nets filled with
+    :func:`det_variables`, written by the port's ``export_int8`` as
+    ``det_<net>_feat.npz`` and ``det_<net>_head.npz`` (into ``artifact_dir``
+    or a temporary directory) and served by ``serve.DetPredictor``."""
+    from frostnet_tpu_torch.detection.train import build_net
+
+    feat, head = from_jax_variables(build_net(net, DET_CLASSES), det_variables(net))
+    if artifact_dir:
+        os.makedirs(artifact_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(artifact_dir or tmp, f"det_{net}")
+        export_int8(feat, base + "_feat")
+        export_int8(head, base + "_head")
+        return serve.DetPredictor(net, artifact=base, device=device)
+
+
+def det_train_batch(k: int, batch: int = 2):
+    """Batch ``k`` of the detection training reference: the first batch of
+    ``SyntheticDetection(20, 300, batch, batch, seed=400 + k)`` (normal
+    images, 1-5 boxes an image padded to ``MAX_GT``)."""
+    from frostnet_tpu_torch.detection.data import SyntheticDetection
+
+    return next(iter(SyntheticDetection(DET_CLASSES - 1, DET_SIZE, batch, batch, 400 + k)))
+
+
+def det_images(seed: int, batch: int) -> np.ndarray:
+    return np.random.RandomState(seed).randn(batch, DET_SIZE, DET_SIZE, 3).astype(np.float32)
+
+
+def det_layer_codes(pred, images):
+    """((loc, conf), sources, {layer: codes}) of one ``pred(images)`` call:
+    the QTensor output of every top-level module of the feature net (the JAX
+    module paths) and the feature net's dequantized sources. The hooks only
+    keep references."""
+    codes, got, hooks = {}, {}, []
+    for name, mod in pred.feat.named_children():
+        def hook(m, args, out, name=name):
+            if isinstance(out, QTensor):
+                codes[name] = out.q
+        hooks.append(mod.register_forward_hook(hook))
+    hooks.append(pred.feat.register_forward_hook(
+        lambda m, args, out: got.__setitem__("sources", out)))
+    try:
+        out = pred(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, got["sources"], codes
+
+
+def check_det_layers(net: str, codes, sources, ref):
+    """Every layer's codes and every source's float32 values against the JAX
+    reference's per-image digests; returns the layers checked."""
+    layers = [k[len("sha256/"):] for k in ref.files if k.startswith("sha256/")]
+    got = dict(codes, **{f"source{i}": s for i, s in enumerate(sources)})
+    bad = []
+    for layer in layers:
+        t = got.get(layer)
+        if t is None or tuple(t.shape[1:]) != tuple(ref[f"shape/{layer}"][1:]):
+            bad.append(f"{layer} (shape {None if t is None else tuple(t.shape)})")
+            continue
+        images = [i for i, (g, w) in enumerate(zip(code_digests(t), ref[f"sha256/{layer}"]))
+                  if g != w]
+        if images:
+            bad.append(f"{layer} (images {images})")
+    missing = sorted(set(codes) - set(layers))
+    if bad or missing:
+        raise AssertionError(f"{net}: differs from the JAX reference at {bad}; layers without "
+                             f"a reference {missing}")
+    return layers
+
+
+def kept_boxes(dets: np.ndarray):
+    """{(image, class): (n, 5) rows with a score, sorted by (x1, y1)}."""
+    out = {}
+    for b in range(dets.shape[0]):
+        for c in range(1, dets.shape[1]):
+            rows = dets[b, c][dets[b, c, :, 0] > 0]
+            if len(rows):
+                out[(b, c)] = rows[np.lexsort((rows[:, 2], rows[:, 1]))]
+    return out
+
+
+def det_outputs_check(net: str, loc, conf, priors, ref):
+    """loc and conf (sampled) within ``DET_HEAD_BAND`` of the committed JAX
+    head's, and ``detect``'s kept boxes at the server's settings matching
+    JAX's within ``DET_BOX_BAND``. Returns the measured differences."""
+    from frostnet_tpu_torch.detection.nms import detect
+
+    n = loc.shape[0]
+    rep = {}
+    for key, t in (("loc", loc), ("conf", conf)):
+        got = t[:, ::DET_PRIOR_STRIDE].cpu().numpy()
+        want = ref[f"{key}_sampled"][:n]
+        span = float(want.max() - want.min())
+        diff = float(np.abs(got - want).max())
+        rep[key] = {"max_diff": diff, "span": span}
+        if not np.isfinite(got).all() or diff > DET_HEAD_BAND * span:
+            raise AssertionError(f"{net} {key}: {diff:.3g} from JAX's (band "
+                                 f"{DET_HEAD_BAND * span:.3g})")
+    dets = detect(loc, torch.softmax(conf, dim=-1), priors, **DET_SERVE).cpu().numpy()
+    mine, want = kept_boxes(dets), kept_boxes(ref["detections"][:n])
+    if set(mine) != set(want) or any(len(mine[k]) != len(want[k]) for k in want):
+        raise AssertionError(f"{net}: detect() keeps {sum(map(len, mine.values()))} boxes in "
+                             f"{len(mine)} (image, class) pairs, JAX "
+                             f"{sum(map(len, want.values()))} in {len(want)}")
+    diff = max((float(np.abs(mine[k] - want[k]).max()) for k in want), default=0.0)
+    if diff > DET_BOX_BAND:
+        raise AssertionError(f"{net}: kept boxes {diff:.3g} from JAX's (band {DET_BOX_BAND})")
+    rep["detections"] = {"kept": sum(map(len, want.values())), "pairs": len(want),
+                         "max_diff": diff}
+    return rep
+
+
+def det_band_report(ref, state, losses, what):
+    """The training check's bands against the committed JAX reference (phase
+    8's): the FP32 step's loss, the two QAT steps' losses, every observer and
+    every BN statistic after the last step; the eval's loss in
+    ``DET_EVAL_LOSS_REL``. Returns the measured values."""
+    rep = {}
+    rel = [abs(a - float(b)) / float(b) for a, b in zip(losses, ref["loss"])]
+    rep["loss_rel"] = rel
+    log(f"[train] {what} losses {losses}, JAX {ref['loss'].tolist()}: relative "
+        f"{[f'{r:.3g}' for r in rel]}")
+    band_check(f"{what} FP32 step loss, relative to JAX", rel[0], FP32_LOSS_REL)
+    band_check(f"{what} QAT step losses, worst relative to JAX", max(rel[1:3]), QAT_LOSS_REL)
+    band_check(f"{what} QAT_FROZEN eval loss, relative to JAX", rel[3], DET_EVAL_LOSS_REL)
+    mine = {k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()}
+    obs = []
+    for k in ref.files:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(ref[hi] - ref[k]), 1e-6)
+            obs.append(max(abs(float(mine[k] - ref[k])), abs(float(mine[hi] - ref[hi]))) / span)
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs)),
+                                 "count": len(obs)}
+    band_check(f"{what} observers, median |diff| / range", float(np.median(obs)), OBS_MEDIAN)
+    band_check(f"{what} observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+    bn_mean = [float(np.max(np.abs(mine[k] - ref[k]) / np.sqrt(ref[k[:-4] + "var"])))
+               for k in ref.files if k.endswith("/mean")]
+    bn_var = [float(np.max(np.abs(mine[k] - ref[k]) / ref[k])) for k in ref.files
+              if k.endswith("/var")]
+    rep["bn"] = {"mean_over_std_median": float(np.median(bn_mean)),
+                 "var_rel_median": float(np.median(bn_var))}
+    band_check(f"{what} BN means, median |diff| / std", float(np.median(bn_mean)),
+               BN_MEAN_MEDIAN)
+    band_check(f"{what} BN variances, median |diff| / var", float(np.median(bn_var)),
+               BN_VAR_MEDIAN)
+    return rep
+
+
+def train_det_against_reference(dev):
+    """Phase 18, part c (and ``tests/test_torch_det_train.py`` on the CPU):
+    the detection train step against the committed JAX reference (qssd from
+    the calibrated fixture, 300x300, batch 2, float32, TF32 off, QSGD with
+    the noise off): one FP32
+    step, ``start_qat``, two QAT steps, a QAT_FROZEN eval of the loss, in
+    phase 8's bands; on the card, the fake-quant launches of each step (one
+    a site in QAT and QAT_FROZEN, none in FP32)."""
+    from frostnet_tpu_torch.detection import train as det_train
+    from frostnet_tpu_torch.detection.anchors import make_priors
+    from frostnet_tpu_torch.detection.models import Detector, join_variables
+    from frostnet_tpu_torch.optim import schedules
+
+    ref = np.load(DET_TRAIN_REFERENCE)
+    meta = json.loads(bytes(ref["__meta__"]).decode())
+    det_cfg = det_train.select_config(meta["net"], "synthetic")
+    model = Detector(*det_train.build_net(meta["net"], meta["classes"]))
+    n_sites = observers(model)
+    tx = get_optimizer("QSGD", schedules.multistep(meta["lr"], det_cfg["lr_steps"], 0.1),
+                       momentum=meta["momentum"], weight_decay=meta["wd"],
+                       clip_by=meta["clip_by"], noise_decay=1.0)
+    state = create_train_state(model, tx, seed=meta["seed"], device=dev,
+                               variables=join_variables(*det_train_variables(meta["net"])))
+    priors = torch.as_tensor(make_priors(det_cfg), device=dev)
+    fq = ops.fake_quant_observe
+    losses, parts, launches = [], [], []
+    for k, mode in enumerate((FP32, QAT, QAT)):
+        if k == 1:
+            state.start_qat()
+        before = fq.launches
+        m = det_train.make_det_train_step(mode, priors)(state, det_train_batch(k, meta["batch"]))
+        losses.append(float(m["loss"]))
+        parts.append((float(m["loss_l"]), float(m["loss_c"])))
+        launches.append(fq.launches - before)
+    before = fq.launches
+    m = det_train.make_det_eval_step(QAT_FROZEN, priors)(state, det_train_batch(3, meta["batch"]))
+    losses.append(float(m["loss"]))
+    parts.append((float(m["loss_l"]), float(m["loss_c"])))
+    launches.append(fq.launches - before)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if launches != [0, n_sites, n_sites, n_sites]:
+            raise AssertionError(f"detection steps: fake_quant_observe launches {launches} != "
+                                 f"[0, {n_sites}, {n_sites}, {n_sites}]")
+    rep = {"losses": losses, "loss_l_c": parts, "launches_per_step": launches,
+           "sites": n_sites}
+    rep.update(det_band_report(ref, state, losses, "detection"))
+    return rep
+
+
+DET_TRAINER_CFG = dict(net_type="qssd", dataset="synthetic", batch_size=32, warmup_iters=2,
+                       max_iter=4, seed=0)
+
+
+def serve_dets(dev):
+    """Phase 18, part a: both nets served at 300x300, batch 2, from the
+    port's own export through ``serve.DetPredictor``: every layer's codes and
+    each source against the committed JAX digests, loc and conf in the band,
+    the kept boxes of ``detect`` at the server's settings, one matmul launch
+    per 1x1 or im2col conv and nothing else."""
+    images = det_images(0, 2)
+    out, served = {}, {}
+    for net in DET_NETS:
+        ref = np.load(os.path.join(TESTDATA, f"det_{net}_reference.npz"))
+        pred = det_served(net, dev, PHASE18_DIR)
+        served[net] = pred
+        n_mm = len(matmul_convs(pred.feat))
+        ops.reset_launch_counts()
+        (loc, conf), sources, codes = det_layer_codes(pred, images)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+                  "int8_conv": 0}
+        if counts != expect:
+            raise AssertionError(f"{net}: launches per forward {counts} != {expect}")
+        layers = check_det_layers(net, codes, sources, ref)
+        rec = {"launches": counts, "layers": len(layers),
+               **det_outputs_check(net, loc, conf, pred.priors, ref)}
+        out[net] = rec
+        log(f"[det] {net} served at {DET_SIZE}x{DET_SIZE}, batch 2: launches per forward "
+            f"{counts}; codes and sources == JAX reference at {len(layers)} layers x 2 images; "
+            f"loc {rec['loc']['max_diff']:.3g} and conf {rec['conf']['max_diff']:.3g} from JAX's "
+            f"(spans {rec['loc']['span']:.4g}, {rec['conf']['span']:.4g}); detect keeps "
+            f"{rec['detections']['kept']} boxes in {rec['detections']['pairs']} (image, class) "
+            f"pairs as JAX does, within {rec['detections']['max_diff']:.3g}")
+    return out, served
+
+
+def check_det_matmuls(served, dev):
+    """Phase 18, part b: the matmul kernel against its plain version at every
+    INT8 matmul of both forwards at batch 8 and 32 (the forward's inputs, and
+    the same input one byte into its storage). Returns (max error, the
+    shapes by batch, the distinct (net, conv, operand) of the batch-8
+    forwards)."""
+    err, shapes, rows, seen = 0, {}, [], set()
+    for b in (8, 32):
+        x = torch.as_tensor(det_images(1, b), device=dev)
+        for net, pred in served.items():
+            for cname, mod, inp in capture(pred.feat, x):
+                if getattr(mod, "_route", None) not in ("matmul", "im2col"):
+                    continue
+                a, op = matmul_operand(mod, inp.q), mod._op
+                want = int8_matmul_requant_plain(a, op)
+                err = max(err, check_equal(f"int8_matmul_requant {net} {cname} batch {b}",
+                                           int8_matmul_requant(a, op), want))
+                buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)
+                shifted = buf[1:].view(a.shape)
+                shifted.copy_(a)
+                err = max(err, check_equal(f"int8_matmul_requant {net} {cname} batch {b} "
+                                           "(unaligned rows)", int8_matmul_requant(shifted, op),
+                                           want))
+                key = matmul_shape(a, op)
+                shapes.setdefault(b, set()).add(key)
+                if b == 8 and (a.shape[0], op.k, op.n) not in seen:
+                    seen.add((a.shape[0], op.k, op.n))
+                    rows.append((f"{net} {cname}", a, op))
+                del buf, shifted, want
+        del x
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return err, {b: sorted(v) for b, v in shapes.items()}, rows
+
+
+def check_det_fake_quant(dev, batch=32):
+    """Phase 18, part b: the fake-quant kernel against its plain version, bit
+    for bit, at every per-tensor site of a float32 QAT forward of qssd at
+    batch 32 (300x300), with the QAT_FROZEN pass. Returns (max error, sites)."""
+    from frostnet_tpu_torch.detection.models import Detector
+    from frostnet_tpu_torch.detection.train import build_net
+
+    model = Detector(*build_net("qssd", DET_CLASSES))
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    n_sites = observers(model)
+    sites = capture_sites(model, torch.as_tensor(det_images(2, batch), device=dev), QAT)
+    if len(sites) != n_sites:
+        raise AssertionError(f"qssd: {len(sites)} per-tensor sites in a QAT forward, expected "
+                             f"{n_sites}")
+    err = 0.0
+    for i, (x, mn, mx, spec) in enumerate(sites):
+        err = max(err, check_site(f"det site {i} {tuple(x.shape)}", x, mn, mx, spec))
+    torch.cuda.synchronize()
+    return err, sites
+
+
+def time_det_steps(dev, batch=32):
+    """Phase 18, part d: qssd's float32 FP32 and QAT train steps at 300x300
+    (the JAX trainer's dtype and batch): ms/step, images/s, peak memory,
+    launches a step (the QAT step must launch the fake-quant kernel)."""
+    from frostnet_tpu_torch.detection import train as det_train
+    from frostnet_tpu_torch.detection.anchors import make_priors
+    from frostnet_tpu_torch.detection.models import Detector
+    from frostnet_tpu_torch.optim import schedules
+
+    det_cfg = det_train.select_config("qssd", "synthetic")
+    model = Detector(*det_train.build_net("qssd", DET_CLASSES))
+    tx = get_optimizer("QSGD", schedules.multistep(1e-3, det_cfg["lr_steps"], 0.1),
+                       momentum=0.9, weight_decay=5e-4, clip_by=1e-3)
+    state = create_train_state(model, tx, seed=0, device=dev)
+    priors = torch.as_tensor(make_priors(det_cfg), device=dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in det_train_batch(5, batch).items()}
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mode, tag in ((FP32, "fp32"), (QAT, "qat")):
+        if mode is QAT:
+            state.start_qat()
+        step = det_train.make_det_train_step(mode, priors)
+        before = ops.launch_counts()
+        step(state, b)
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        rec[f"{tag}_launches"] = {k: after[k] - before[k] for k in after}
+        ms = time_ms(lambda: step(state, b), reps=5, warmup=1)
+        rec[f"{tag}_ms_per_step"], rec[f"{tag}_images_per_sec"] = ms, batch / ms * 1e3
+    if rec["qat_launches"]["fake_quant_observe"] != observers(model) or \
+            rec["fp32_launches"]["fake_quant_observe"] != 0:
+        raise AssertionError(f"detection train steps: launches QAT {rec['qat_launches']}, FP32 "
+                             f"{rec['fp32_launches']}")
+    rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[time] qssd train steps at {DET_SIZE}x{DET_SIZE}, batch {batch} (float32): QAT "
+        f"{rec['qat_ms_per_step']:.2f} ms/step, {rec['qat_images_per_sec']:.2f} images/s; FP32 "
+        f"{rec['fp32_ms_per_step']:.2f} ms/step, {rec['fp32_images_per_sec']:.2f} images/s; peak "
+        f"memory {rec['max_memory_allocated_gib']:.2f} GiB; launches QAT {rec['qat_launches']}, "
+        f"FP32 {rec['fp32_launches']}")
+    del state, model, b
+    torch.cuda.empty_cache()
+    return rec
+
+
+def det_trainer_path(dev):
+    """Phase 18, part e: ``detection.train.main`` (qssd, synthetic, batch 32,
+    2 FP32 warm-up and 2 QAT iterations), its resume to a fifth,
+    ``qeval.evaluator`` on ``ssd300_5`` with ``--export_int8``; the artifact
+    served in a fresh ``DetPredictor`` gives the evaluator's INT8 mAP (and so
+    does the calibrated fixture's, whose mAP is not 0); then ``serve.main
+    --workload det`` on the trained artifact. Each step's launches."""
+    from frostnet_tpu_torch.detection import qeval, train as det_train
+    from frostnet_tpu_torch.detection.evaluate import evaluate_map
+
+    root = os.path.join(PHASE18_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(root, "run")
+    probe = det_train.build_net("qssd", DET_CLASSES)[0]
+    n_sites = observers(probe)
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    expect = {("train", FP32): zero, ("train", QAT): {**zero, "fake_quant_observe": n_sites}}
+    names = ("make_det_train_step", "make_det_eval_step")
+    rep = {}
+    torch.cuda.reset_peak_memory_stats()
+    with StepCounter(det_train, *names) as counter:
+        _, res = det_train.main(det_train.DetConfig(save_dir=save_dir, device=dev.type,
+                                                    **DET_TRAINER_CFG))
+    rep["train_steps"] = check_step_launches(counter.rows, "detection train run", expect)
+    with StepCounter(det_train, *names) as counter:
+        _, resumed = det_train.main(det_train.DetConfig(
+            save_dir=save_dir, device=dev.type, resume_iter=4, **{**DET_TRAINER_CFG,
+                                                                   "max_iter": 5}))
+    rep["resume_steps"] = check_step_launches(counter.rows, "detection resume", expect)
+    for f in ("ssd300_4", "ssd300_5", "metrics.jsonl", "arguments.json"):
+        if not os.path.exists(os.path.join(save_dir, f)):
+            raise AssertionError(f"detection trainer: {f} was not written")
+    history = res["history"] + resumed["history"]
+    if resumed["resumed"] != 4 or [h["iter"] for h in history] != [1, 2, 3, 4, 5] or \
+            not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"detection trainer: {[(h['tag'], h['iter'], h['loss']) for h in history]}")
+    rep["iterations"] = [{k: h[k] for k in ("tag", "iter", "loss", "loss_l", "loss_c", "wall_ms")}
+                         for h in history]
+    for h in rep["iterations"]:
+        log(f"[det] trainer {h['tag']} iteration {h['iter']}: loss {h['loss']:.4f} (loc "
+            f"{h['loss_l']:.4f}, conf {h['loss_c']:.4f}), {h['wall_ms']:.1f} ms wall")
+    base = os.path.join(root, "ssd")
+    before = ops.launch_counts()
+    ev = qeval.evaluator("qssd", checkpoint=os.path.join(save_dir, "ssd300_5"),
+                         export_int8_path=base, batch_size=8, device=dev)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    rep["evaluator_launches"] = {k: after[k] - before[k] for k in after}
+    if rep["evaluator_launches"]["fake_quant_observe"] == 0 or \
+            rep["evaluator_launches"]["int8_matmul_requant"] == 0:
+        raise AssertionError(f"qeval launched {rep['evaluator_launches']}")
+    pred = serve.DetPredictor("qssd", artifact=base, device=dev)
+    ds = qeval.eval_dataset("synthetic", "", DET_CLASSES, 8)
+    served = evaluate_map(pred.feat, pred.head, ds, pred.priors.cpu().numpy(), INT8,
+                          DET_CLASSES, dev)
+    if served["mAP"] != ev["int8"]["mAP"] or \
+            not np.array_equal(served["ap_per_class"], ev["int8"]["ap_per_class"]):
+        raise AssertionError(f"served artifact mAP {served['mAP']} != the evaluator's INT8 "
+                             f"mAP {ev['int8']['mAP']}")
+    rep["evaluate"] = {"qat": ev["qat"]["mAP"], "int8": ev["int8"]["mAP"],
+                       "served_int8": served["mAP"], "export_bytes": ev["export_bytes"]}
+    # the calibrated fixture's nets detect more than five trained iterations
+    # do: the same check where the mAP is not 0
+    fix_base = os.path.join(root, "fixture")
+    fv, hv = det_variables("qssd")
+    fev = qeval.evaluator("qssd", feat_vars=fv, head_vars=hv, export_int8_path=fix_base,
+                          batch_size=8, device=dev)
+    fpred = serve.DetPredictor("qssd", artifact=fix_base, device=dev)
+    fserved = evaluate_map(fpred.feat, fpred.head, ds, fpred.priors.cpu().numpy(), INT8,
+                           DET_CLASSES, dev)
+    if fserved["mAP"] != fev["int8"]["mAP"] or not fserved["mAP"] > 0:
+        raise AssertionError(f"fixture: served artifact mAP {fserved['mAP']} != the "
+                             f"evaluator's INT8 mAP {fev['int8']['mAP']}, or 0")
+    rep["evaluate_fixture"] = {"qat": fev["qat"]["mAP"], "int8": fev["int8"]["mAP"],
+                               "served_int8": fserved["mAP"]}
+    dets = os.path.join(root, "detections.jsonl")
+    rep["serve_main"] = serve.main(serve.build_parser().parse_args(
+        ["--workload", "det", "--artifact", base, "--iters", "10", "--output", dets]))
+    with open(dets) as f:
+        lines = [json.loads(x) for x in f]
+    if len(lines) != 4 * rep["serve_main"]["batch_size"]:  # --predict_batches 4
+        raise AssertionError(f"serve --workload det wrote {len(lines)} lines")
+    rep["served_detections"] = sum(len(r["detections"]) for r in lines)
+    rep["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[det] trainer path: steps {rep['train_steps']}, resume {rep['resume_steps']} "
+        f"(fake_quant_observe {n_sites} per QAT step); qeval launches "
+        f"{rep['evaluator_launches']}; mAP QAT sim {rep['evaluate']['qat']:.4f}, INT8 "
+        f"{rep['evaluate']['int8']:.4f}, the served artifact {served['mAP']:.4f} (equal); the "
+        f"calibrated fixture's: QAT sim {fev['qat']['mAP']:.4f}, INT8 {fev['int8']['mAP']:.4f}, "
+        f"served {fserved['mAP']:.4f} (equal); serve.main "
+        f"--workload det: {rep['serve_main']['request_images_per_sec']} images/s a request, "
+        f"{rep['served_detections']} detections in {len(lines)} images; peak memory "
+        f"{rep['peak_memory_gib']:.2f} GiB")
+    return rep
+
+
+def time_dets(served, mm_rows, sites, dev):
+    """Phase 18, timings: each net's INT8 forward (feature net and head) and
+    the forward with ``detect`` at the server's settings at batch 1, 8 and
+    32; one profiled forward at batch 8 (the matmul kernel, the torch ops,
+    the idle share) and ``detect`` alone at the server's and the
+    evaluator's settings (its device time and launches); the matmul kernel
+    at each distinct matmul of the batch-8 forwards and the fake-quant kernel
+    at the qssd sites of part b, beside their bounds, plain versions and
+    library calls."""
+    from frostnet_tpu_torch.detection.nms import detect
+
+    out = {"serving": {}}
+    for net, pred in served.items():
+        rec = {}
+        for b in (1, 8, 32):
+            xb = torch.as_tensor(det_images(5, b), device=dev)
+            ms = time_ms(lambda: pred(xb), reps=10, warmup=1)
+            ms_det = time_ms(lambda: pred.detect(xb), reps=10, warmup=1)
+            rec[f"bs{b}"] = {"ms_per_batch": ms, "images_per_sec": b / ms * 1e3,
+                             "with_detect_ms": ms_det, "with_detect_images_per_sec":
+                             b / ms_det * 1e3}
+            log(f"[time] {net} INT8 forward at {DET_SIZE}x{DET_SIZE}, batch {b}: {ms:.3f} "
+                f"ms/batch ({b / ms * 1e3:.2f} images/s); with detect {ms_det:.3f} ms/batch "
+                f"({b / ms_det * 1e3:.2f} images/s)")
+            del xb
+        x8 = torch.as_tensor(det_images(6, 8), device=dev)
+        try:
+            rec["profile"] = profile_forward(pred, x8, MB_KERNELS)
+            log_profile(f"{net} INT8 forward at batch 8", rec["profile"])
+            loc, conf = pred(x8)
+            scores = torch.softmax(conf, dim=-1)
+            for tag, kw in (("serve", DET_SERVE), ("eval", dict(conf_thresh=0.01, top_k=200))):
+                rec[f"nms_{tag}"] = profile_forward(
+                    lambda _x, kw=kw: detect(loc, scores, pred.priors, **kw), x8, {})
+                log_profile(f"{net} detect {kw} at batch 8", rec[f"nms_{tag}"])
+        except RuntimeError as e:  # torch.profiler stops recording after many sessions
+            log(f"[time] {net}: no profile ({e})")
+            rec["profile"] = None
+        out["serving"][net] = rec
+        del x8
+    rows = []
+    for label, a, op in mm_rows:
+        rows.append(kernel_row(f"{label} {matmul_shape(a, op)}", lambda: int8_matmul_requant(a, op),
+                               lambda: int8_matmul_requant_plain(a, op),
+                               matmul_cost(a.shape[0], op.k, op.n), int_mm_ms(a, op.wt, reps=10),
+                               reps=10, plain_reps=1))
+        rows[-1]["path"] = "det"
+        log(f"[time] int8_matmul_requant {rows[-1]['shape']}: {row_text(rows[-1])}")
+    out["fake_quant"] = fq = time_fake_quant_sites(sites)
+    lib = "n/a" if fq["library_ms"] is None else (
+        f"{fq['library_ms']:.4f} device, {fq['library_wall_ms']:.4f} wall")
+    log(f"[time] fake_quant_observe, the {len(sites)} sites of a qssd QAT forward at batch "
+        f"{sites[0][0].shape[0]} ({DET_SIZE}x{DET_SIZE}, float32): {fq['ms']:.4f} ms device, "
+        f"{fq['graph_ms']:.4f} graph, {fq['wall_ms']:.4f} wall ({fq['launches_per_site']} launch "
+        f"a site; bound {fq['bound_ms']:.4f} {fq['bound_by']}, {100 * fq['bound_share']:.1f}%; "
+        f"plain {fq['plain_ms']:.3f}, fused_moving_avg_obs_fake_quant {lib})")
+    for line in bucket_lines(fq):
+        log(f"    {line}")
+    return rows, out
+
+
+def det_phase(dev):
+    """Phase 18: detection on the card (serving against the JAX digests, the
+    matmul and fake-quant kernels at the detection shapes, training against
+    the JAX reference, the timed steps, the trainer -> evaluator -> server
+    path, times). Returns (report, launches of each path, matmul timing
+    rows)."""
+    rep, launches = {}, {}
+    os.makedirs(PHASE18_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep["serving"], served = serve_dets(dev)
+    launches["serving"] = {n: r["launches"] for n, r in rep["serving"].items()}
+    rep["matmul_max_abs_err"], rep["matmul_shapes"], mm_rows = check_det_matmuls(served, dev)
+    log(f"[det] int8_matmul_requant == plain at every matmul of both forwards at batch 8 and "
+        f"32, aligned and unaligned rows: {rep['matmul_shapes']}")
+    rep["fake_quant_max_abs_err"], sites = check_det_fake_quant(dev)
+    largest = max((x for x, _, _, _ in sites), key=lambda x: x.numel())
+    log(f"[det] fake_quant_observe == plain at all {len(sites)} sites of a qssd QAT forward at "
+        f"batch 32 (float32; QAT and QAT_FROZEN passes); largest {tuple(largest.shape)} "
+        f"({largest.numel() / 1e6:.1f} M elements)")
+    ops.reset_launch_counts()
+    rep["training_reference"] = train_det_against_reference(dev)
+    launches["training"] = ops.launch_counts()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    rep["train_steps"] = time_det_steps(dev)
+    launches["train_steps"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    rep["trainer"] = det_trainer_path(dev)
+    launches["trainer"] = ops.launch_counts()
+    for path in ("training", "train_steps", "trainer"):
+        if launches[path]["fake_quant_observe"] == 0:
+            raise AssertionError(f"phase 18's {path} path launched no fake_quant_observe")
+    if launches["trainer"]["int8_matmul_requant"] == 0:
+        raise AssertionError("phase 18's trainer path launched no int8_matmul_requant")
+    torch.cuda.empty_cache()
+    mm, rep["timing"] = time_dets(served, mm_rows, sites, dev)
+    del served, sites, mm_rows
+    torch.cuda.empty_cache()
+    return rep, launches, mm
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2795,6 +3425,17 @@ def main(argv=None):
     max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
                                         report["seg"]["fake_quant_max_abs_err"])
 
+    # 18. detection: serving both nets against the JAX digests at 300x300,
+    # the kernels at their shapes, training, the trainer, evaluator and
+    # server, timings
+    torch.cuda.empty_cache()
+    report["det"], det_counts, det_mm_rows = det_phase(dev)
+    timing["int8_matmul_requant"] += det_mm_rows
+    max_err["int8_matmul_requant"] = max(max_err["int8_matmul_requant"],
+                                         report["det"]["matmul_max_abs_err"])
+    max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
+                                        report["det"]["fake_quant_max_abs_err"])
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -2831,7 +3472,8 @@ def main(argv=None):
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
         for key, path_counts in (("mobilenet_launches", mb_counts),
-                                 ("resnet_launches", rn_counts), ("seg_launches", seg_counts)):
+                                 ("resnet_launches", rn_counts), ("seg_launches", seg_counts),
+                                 ("det_launches", det_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

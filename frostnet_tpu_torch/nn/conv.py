@@ -39,9 +39,11 @@ takes one of five routes:
 
 * 1x1: one INT8 matmul (``ops/int8_matmul``);
 * depthwise kxk, dilated or not (the segmentation trunks' last stage runs
-  dilation 2): k*k shifted integer multiply-adds in torch, tap ``(dy, dx)``
-  at ``dilation * (dy, dx)`` (JAX runs the same multiply-adds as XLA code,
-  not a TPU kernel);
+  dilation 2), with or without a channel multiplier (the SSD extras' 3x3
+  maps 32 -> 128 channels, output channel ``oc`` reading input ``oc // 4``):
+  k*k shifted integer multiply-adds in torch over (k*k, Cout) taps, tap
+  ``(dy, dx)`` at ``dilation * (dy, dx)`` (JAX runs the same multiply-adds as
+  XLA code, not a TPU kernel);
 * dense 3x3 stride 1 dilation 1 with 'same' padding (the GAN's ResnetBlock
   and up convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
 * any other dense kxk (the stems, strided convs, R-ASPP's atrous 3x3s):
@@ -50,8 +52,7 @@ takes one of five routes:
 * grouped kxk (ResNeXt's ``groups=32`` 3x3s): the exact int32 sum of a
   float64 grouped conv in torch (``ops/requant.py::conv_acc``; JAX
   runs it as an s32 ``lax.conv``, XLA code, not a TPU kernel), then the
-  shared epilogue. Padded 1x1 convs and depthwise convs with a channel
-  multiplier are refused.
+  shared epilogue. Padded 1x1 convs and dilated grouped convs are refused.
 
 Every route takes ``relu6`` as a narrower clamp of the codes. The frozen
 epilogue computes ``quantize(clip(y, 0, 6))``; quantize is monotone, so that
@@ -177,7 +178,7 @@ class QConvBNAct(nn.Module):
             self._route = "matmul"
             self._op = conv1x1_operands(qw[0, 0], comb, bf, x.zero_point, out_s, out_zp,
                                         relu, qmin, qmax, device)
-        elif self.depthwise and self.features == self.groups:
+        elif self.depthwise:  # channel multiplier features // groups, 1 or more
             if kh != kw or self.padding != self.dilation * (kh - 1) // 2:
                 raise ValueError("the INT8 depthwise route takes square kernels with "
                                  "'same' padding (dilation * (k - 1) // 2)")
@@ -195,16 +196,14 @@ class QConvBNAct(nn.Module):
             self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
                                         comb, bf, x.zero_point, out_s, out_zp, relu,
                                         qmin, qmax, device)
-        elif not self.depthwise:
-            if self.dilation != 1:
-                raise ValueError("dilated grouped convs are not part of the INT8 port")
+        elif self.dilation == 1:
             self._route = "grouped"
             self._w64 = qw.to(torch.float64).permute(3, 2, 0, 1).contiguous().to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
             self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
         else:
-            raise ValueError(f"a depthwise conv with a channel multiplier ({self.in_features} "
-                             f"-> {self.features}) is not part of the INT8 port")
+            raise ValueError(f"a dilated grouped conv ({self.in_features} -> {self.features}, "
+                             f"groups {self.groups}) is not part of the INT8 port")
         return self._out
 
     def _patches(self, q: torch.Tensor) -> torch.Tensor:

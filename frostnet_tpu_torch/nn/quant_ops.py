@@ -178,39 +178,43 @@ class _QBinary(nn.Module):
 
 
 class QAdd(_QBinary):
-    """FloatFunctional.add: ``rint(((qa - za) * sa + (qb - zb) * sb) / s)``."""
+    """FloatFunctional.add: ``rint(((qa - za) * sa + (qb - zb) * sb) / s)``,
+    rounded as the frozen graph's fusion rounds it
+    (``ops.requant.qadd_codes``): ``loaded`` names the operands whose codes
+    that fusion reads from memory rather than makes."""
 
-    def forward(self, a, b, mode: QuantMode = FP32):
-        if not mode.int8:
-            return observed_fake_quant(a + b, self.act, self.qconfig.activation, mode)
-        (sa, za), (sb, zb) = self._in
-        q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
-                       self.qconfig.activation.qmin, self.qconfig.activation.qmax)
-        return QTensor(q, *self._out_t)
-
-
-class QAddReLU(_QBinary):
-    """FloatFunctional.add_relu (the ResNet blocks' joins): ``relu(a + b)``
-    observed and fake-quantized; in INT8 the codes of
-    ``relu((qa - za) * sa + (qb - zb) * sb)`` on the stored grid, rounded as
-    the frozen graph's fusion rounds it (``ops.requant.qadd_codes``):
-    ``loaded`` names the operands whose codes that fusion reads from memory
-    (the max pool's output, for the first block of a BasicBlock ResNet)."""
+    _relu = False
 
     def prepare_int8(self, inputs: Sequence[QParams], device,
                      loaded: Sequence[bool] = (False, False)) -> QParams:
         self._contract = next((i for i, on in enumerate(loaded) if on), None)
         return super().prepare_int8(inputs, device)
 
+    def _float(self, a, b):
+        return a + b
+
     def forward(self, a, b, mode: QuantMode = FP32):
         if not mode.int8:
-            return observed_fake_quant(torch.relu(a + b), self.act, self.qconfig.activation,
+            return observed_fake_quant(self._float(a, b), self.act, self.qconfig.activation,
                                        mode)
         (sa, za), (sb, zb) = self._in
         q = qadd_codes(a.q, za, sa, b.q, zb, sb, self._mult, self._out.zero_point,
-                       self.qconfig.activation.qmin, self.qconfig.activation.qmax, relu=True,
-                       contract=self._contract)
+                       self.qconfig.activation.qmin, self.qconfig.activation.qmax,
+                       relu=self._relu, contract=self._contract)
         return QTensor(q, *self._out_t)
+
+
+class QAddReLU(QAdd):
+    """FloatFunctional.add_relu (the ResNet blocks' joins): ``relu(a + b)``
+    observed and fake-quantized; in INT8 the codes of
+    ``relu((qa - za) * sa + (qb - zb) * sb)`` on the stored grid, rounded as
+    :class:`QAdd` rounds (the max pool's output is loaded, for the first
+    block of a BasicBlock ResNet)."""
+
+    _relu = True
+
+    def _float(self, a, b):
+        return torch.relu(a + b)
 
 
 class QMul(_QBinary):

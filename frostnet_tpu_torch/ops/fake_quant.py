@@ -11,6 +11,9 @@ computes there through ``apply_observer``::
     y, mask   = fake_quantize(x, scale, zp)         (y in x's dtype)
 
 An observing call is one launch, counted in ``fake_quant_observe.launches``.
+On the detection path (300x300) a QAT step of the SSDLite-MobileNetV2
+feature net observes 127 sites (the largest its 150x150x96 expand
+outputs), Tiny-DSOD's 185; the float head has none.
 :func:`plan_fake_quant` picks its shape per site: one thread-block cluster
 holding all of x in registers (small sites), or a cooperative grid of one
 CUDA block an SM, whose shared memory holds as much of x as fits while the

@@ -15,6 +15,14 @@ form. The TPU kernel is the case of no ReLU, ``zterm = 0`` and [0, 255].
 im2col route pads its rows to 16 bytes): they meet zero weights and are
 ignored.
 
+On the detection path (300x300, VOC geometry) one INT8 forward of the
+SSDLite-MobileNetV2 feature net launches it 38 times: the stem by im2col
+(M = B x 22,500, K = 27 in rows padded to 32, N = 32), every 1x1 of the
+trunk, ``final_conv`` (K = 320, N = 1280 on the 19x19 map) and the extras'
+1x1s (K = 1280 and 128, N = 32); Tiny-DSOD's launches it 39 times
+(``base1`` by im2col, K = 27, N = 64; its 1x1s, K up to 736). The float head
+launches none.
+
 :func:`int8_matmul_requant` launches the kernel for CUDA tensors and runs
 :func:`int8_matmul_requant_plain` for CPU tensors only. What bounds the
 kernel and how it is built is in the source note of the ``.cu`` file.

@@ -152,26 +152,32 @@ def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
                   zp: int, dilation: int = 1) -> torch.Tensor:
     """int32 depthwise conv of uint8 NHWC codes around their zero point.
 
-    ``w`` is (k*k, C) int8 taps in (dy, dx) order; tap ``(dy, dx)`` reads
+    ``w`` is (k*k, Cout) int8 taps in (dy, dx) order; tap ``(dy, dx)`` reads
     the input ``dilation * (dy, dx)`` from the window's corner, and the
     padding is ``dilation * (k - 1) // 2`` ('same'). Out-of-image taps read
     the zero point (qnnpack pad semantics), so they contribute exactly 0:
     ``acc = sum (x - zp) * w``, the same integer as the JAX package's
-    zero-point-shifted form.
+    zero-point-shifted form. With a channel multiplier (``Cout = m * C``, the
+    SSD extras' 32 -> 128) output channel ``oc`` reads input channel
+    ``oc // m``, as the JAX package repeats each input channel ``m`` times
+    (lax's group-major order).
     """
     d = dilation
     p = d * (kernel - 1) // 2
     b, h, w_sp, c = x.shape
+    mult = w.shape[1] // c
     xi = x.to(torch.int32) - zp
     xi = torch.nn.functional.pad(xi, (0, 0, p, p, p, p))
     ho = (h + 2 * p - d * (kernel - 1) - 1) // stride + 1
     wo = (w_sp + 2 * p - d * (kernel - 1) - 1) // stride + 1
-    acc = torch.zeros((b, ho, wo, c), dtype=torch.int32, device=x.device)
+    acc = torch.zeros((b, ho, wo, c * mult), dtype=torch.int32, device=x.device)
     wi = w.to(torch.int32)
     for dy in range(kernel):
         for dx in range(kernel):
             sl = xi[:, d * dy:d * dy + (ho - 1) * stride + 1:stride,
                     d * dx:d * dx + (wo - 1) * stride + 1:stride, :]
+            if mult > 1:
+                sl = sl.repeat_interleave(mult, dim=3)
             acc += sl * wi[dy * kernel + dx]
     return acc
 

@@ -212,13 +212,19 @@ def model_variables(model: nn.Module) -> Dict[str, torch.Tensor]:
     return {variable_key(name): t for name, t in named}
 
 
-def from_jax_variables(model: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+def from_jax_variables(model, tree):
     """Fill ``model``'s parameters and buffers from a JAX
     ``{params, batch_stats, quant}`` tree.
 
     Every variable must be present with its shape, and every leaf of the
-    tree must land in one. Returns the model.
+    tree must land in one. Returns the model. A tuple of models takes a
+    tuple of trees, one each: a detector's ``(feat, head)`` from the JAX
+    package's ``(feat_vars, head_vars)``.
     """
+    if isinstance(model, (tuple, list)):
+        if len(model) != len(tree):
+            raise ValueError(f"{len(model)} models, {len(tree)} variable trees")
+        return tuple(from_jax_variables(m, t) for m, t in zip(model, tree))
     flat = flatten_variables(tree)
     mine = model_variables(model)
     missing = sorted(set(mine) - set(flat))
@@ -262,8 +268,10 @@ def unflatten_variables(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def numpy_init(model: nn.Module, seed: int = 0) -> Dict[str, Any]:
-    """A fresh ``{params, batch_stats, quant}`` tree for ``model``, from numpy.
+def numpy_init(model, seed: int = 0):
+    """A fresh ``{params, batch_stats, quant}`` tree for ``model``, from numpy
+    (a tuple of trees for a tuple of models, drawn from one generator in
+    turn).
 
     The JAX package's initial values, drawn with ``np.random.RandomState(seed)``
     in sorted key order: conv kernels kaiming-normal with fan-out
@@ -272,6 +280,12 @@ def numpy_init(model: nn.Module, seed: int = 0) -> Dict[str, Any]:
     variances 1, biases and running means 0, observers at (+inf, -inf).
     """
     rng = np.random.RandomState(seed)
+    if isinstance(model, (tuple, list)):
+        return tuple(_numpy_init(m, rng) for m in model)
+    return _numpy_init(model, rng)
+
+
+def _numpy_init(model: nn.Module, rng: np.random.RandomState) -> Dict[str, Any]:
     flat: Dict[str, np.ndarray] = {}
     for key, t in sorted(model_variables(model).items()):
         shape = tuple(t.shape)

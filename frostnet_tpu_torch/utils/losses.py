@@ -1,5 +1,6 @@
 """Losses (``frostnet_tpu/utils/losses.py``): the weighted, ignore-aware
-cross-entropy and the segmentation trainer's ``bce`` branch."""
+cross-entropy, the segmentation trainer's ``bce`` branch and the SSD
+localization loss (``smooth_l1``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -47,3 +48,16 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor
     if weight is not None:
         loss = loss * weight
     return loss.mean()
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Huber / smooth-L1, elementwise (the SSD localization loss;
+    ``frostnet_tpu/utils/losses.py:60``): ``0.5 * d * d / beta`` where
+    ``d = |pred - target| < beta``, else ``d - 0.5 * beta``."""
+    d = torch.abs(pred - target)
+    half = torch.full((), 0.5, dtype=d.dtype, device=d.device)
+    if beta == 1.0:  # XLA drops the division by the constant 1
+        quad = half * d * d
+    else:
+        quad = half * d * d / beta
+    return torch.where(d < beta, quad, d - 0.5 * beta)

@@ -471,3 +471,69 @@ def test_dilated_depthwise_route_matches_cpu(cuda_device, k):
         outs.append(conv(QTensor(x.to(dev), *grid.tensors(dev)), mode=INT8).q.cpu())
     assert conv._route == "depthwise" and torch.equal(outs[0], outs[1])
     assert len(torch.unique(outs[0])) > 32
+
+
+# the detection path at 300x300: the im2col stems (qssd's 3 -> 32 and
+# Tiny-DSOD's base1 3 -> 64, K = 27 in rows padded to 32) at batch 2 and 32,
+# final_conv 320 -> 1280 and the first extra 1280 -> 32 on the 19x19 map,
+# the later extras' 128 -> 32 on 10x10 and 5x5 at batch 2
+DET_MATMUL_SHAPES = [(45000, 27, 32), (720000, 27, 32), (45000, 27, 64), (722, 320, 1280),
+                     (722, 1280, 32), (200, 128, 32), (50, 128, 32)]
+
+
+@pytest.mark.parametrize("m,k,n", DET_MATMUL_SHAPES)
+def test_int8_matmul_kernel_det_shapes(cuda_device, m, k, n):
+    x, op = _matmul_case(m, k, n, False, 255, cuda_device, seed=6)
+    assert torch.equal(int8_matmul_requant(x, op), int8_matmul_requant_plain(x, op))
+
+
+@pytest.mark.parametrize("net", ["qssd", "qtdsod"])
+def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
+    """The full-width detection fixture (300x300) served on the card through
+    ``serve.DetPredictor``: one matmul launch per 1x1 or im2col conv and
+    nothing else; every layer's codes and each source equal to the
+    committed JAX digests; loc, conf and the kept boxes within the bands of
+    ``tests/test_torch_det_fixture.py`` (first image)."""
+    from chip_smoke import (TESTDATA, check_det_layers, det_layer_codes, det_outputs_check,
+                            det_served)
+    from frostnet_tpu_torch.nn import QConvBNAct
+
+    pred = det_served(net, cuda_device, str(tmp_path))
+    n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in pred.feat.modules()
+               if isinstance(m, QConvBNAct))
+    images = np.random.RandomState(0).randn(1, 300, 300, 3).astype(np.float32)
+    ops.reset_launch_counts()
+    (loc, conf), sources, codes = det_layer_codes(pred, images)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
+                                   "fake_quant_observe": 0, "int8_conv": 0}
+    ref = np.load(f"{TESTDATA}/det_{net}_reference.npz")
+    check_det_layers(net, codes, sources, ref)
+    det_outputs_check(net, loc, conf, pred.priors, ref)
+
+
+def test_channel_multiplier_depthwise_matches_cpu(cuda_device):
+    """The SSD extras' INT8 depthwise conv with a channel multiplier (32 ->
+    128, stride 2; torch ops) gives the same codes on the card as on the
+    CPU."""
+    from frostnet_tpu_torch.nn import INT8, QConvBNAct
+    from frostnet_tpu_torch.quant import QParams, QTensor
+
+    g = torch.Generator().manual_seed(7)
+    conv = QConvBNAct(32, 128, 3, strides=2, padding=1, groups=32, act=None)
+    with torch.no_grad():
+        conv.kernel.copy_(torch.randn(conv.kernel.shape, generator=g) * 0.3)
+        conv.bias_bn.copy_(torch.randn(128, generator=g) * 0.2)
+        conv.w_obs.min_val.fill_(-0.8)
+        conv.w_obs.max_val.fill_(0.8)
+        conv.act_obs.min_val.fill_(-2.0)
+        conv.act_obs.max_val.fill_(3.0)
+    x = torch.randint(0, 256, (8, 19, 19, 32), generator=g, dtype=torch.uint8)
+    grid = QParams(0.02, 100)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        conv.to(dev).eval()
+        conv.prepare_int8(grid, dev)
+        outs.append(conv(QTensor(x.to(dev), *grid.tensors(dev)), mode=INT8).q.cpu())
+    assert conv._route == "depthwise" and torch.equal(outs[0], outs[1])
+    assert outs[0].shape == (8, 10, 10, 128) and len(torch.unique(outs[0])) > 32

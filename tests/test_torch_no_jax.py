@@ -36,6 +36,8 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.utils.checkpoint, frostnet_tpu_torch.utils.logging, "
             "frostnet_tpu_torch.segmentation, frostnet_tpu_torch.segmentation.train, "
             "frostnet_tpu_torch.segmentation.evaluate, "
+            "frostnet_tpu_torch.detection, frostnet_tpu_torch.detection.train, "
+            "frostnet_tpu_torch.detection.qeval, frostnet_tpu_torch.detection.evaluate, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
@@ -95,6 +97,18 @@ def test_entry_points_default_to_cuda():
         seg_train.cli([])
     with pytest.raises(RuntimeError, match="CUDA"):
         seg_evaluate.main(seg_evaluate.build_parser().parse_args([]))
+    # the detection trainer's, evaluator's and server's
+    from frostnet_tpu_torch.detection import qeval as det_qeval
+    from frostnet_tpu_torch.detection import train as det_train
+    from frostnet_tpu_torch.serve import DetPredictor
+    with pytest.raises(RuntimeError, match="CUDA"):
+        det_train.main(det_train.DetConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        det_train.cli([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        det_qeval.main(det_qeval.build_parser().parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DetPredictor(artifact="det")
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -262,9 +262,11 @@ def test_grouped_conv_int8_bit_equal(case):
 
 
 def test_refused_int8_routes():
-    """A padded 1x1 conv and a depthwise conv with a channel multiplier stay
-    outside the INT8 port."""
-    for mod in (tnn.QConvBNAct(8, 8, 1, padding=1), tnn.QConvBNAct(8, 16, 3, padding=1, groups=8)):
+    """A padded 1x1 conv and a dilated grouped conv stay outside the INT8
+    port (a depthwise conv with a channel multiplier is ported: the SSD
+    extras, ``tests/test_torch_det_layers.py``)."""
+    for mod in (tnn.QConvBNAct(8, 8, 1, padding=1),
+                tnn.QConvBNAct(16, 16, 3, padding=2, dilation=2, groups=4)):
         tree = unflatten_variables({k: (np.full(v.shape, -1.0 if k.endswith("min_val") else 1.0,
                                                 np.float32) if k.startswith("quant/")
                                         else v.detach().numpy())
