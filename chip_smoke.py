@@ -217,6 +217,30 @@ Phases (each raises on failure, and any failure exits non-zero):
      each distinct matmul of the batch-8 forwards and the fake-quant kernel
      at the sites of (b), beside their bounds, plain versions and library
      calls.
+ 19. GAN training at 256x256 (float32, TF32 off): (a) the fake-quant kernel
+     against its plain version, bit for bit, at the 58 per-tensor sites of a
+     ``resnet_9blocks`` QAT forward at batch 1 and 4 (y, mask, observers,
+     qparams, the QAT_FROZEN pass) and the STE gradient of the largest site;
+     (b) pix2pix (``resnet_9blocks`` at ngf 64, the ``basic`` PatchGAN with
+     BN at ndf 64, batch 1) from the GAN numpy init at seed 0 against the
+     committed JAX reference (``testdata/gan_pix2pix_train_reference.npz``):
+     one FP32 iteration, ``set_warmup(False)``, two QAT iterations and a
+     QAT_FROZEN forward, in the ``GAN_*`` bands, with 0 fake-quant launches
+     an FP32 iteration and two a site a QAT one, and G's buffers unchanged by
+     each ``d_step``; (c) CycleGAN (two such generators, two Ds without norm)
+     against ``testdata/gan_cyclegan_train_reference.npz``: one FP32 and one
+     QAT iteration with the image pools, six launches a site a QAT
+     ``g_step``; (d) ``gan.train.main`` (pix2pix, 2 steps an epoch, one FP32
+     and one QAT epoch), its ``--continue_train`` to a second QAT epoch
+     against an uninterrupted run (losses bit for bit), ``gan.test.main
+     --export_int8`` on ``latest_G`` (gallery, artifact), ``serve.main
+     --workload gan`` on it against the in-process ``freeze`` (bit for bit,
+     20 + 3 launches a forward) and ``eval_cityscapes.score_pairs`` on the
+     tester's outputs with the calibrated ``mobilenetv3_RE_small``; (e)
+     pix2pix FP32 and QAT iterations at batch 1 and 8, the CycleGAN QAT
+     iteration at batch 1 (ms, images/s, peak memory), the fake-quant kernel
+     at the batch-1 sites, and one profiled pix2pix QAT iteration (the
+     fake-quant kernel, cuDNN's convs, the other torch ops, idle share).
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -233,7 +257,8 @@ served forwards, each model's training, the trainer path),
 launches on phase 17's paths (the two served forwards, the training check
 against the reference, the trainer path), and ``det_launches``, the same for
 phase 18 (the two served forwards, the training check, the timed steps, the
-trainer path).
+trainer path), and ``gan_train_launches``, the same for phase 19 (the two
+training checks, the trainer path, the tester and server).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -852,25 +877,31 @@ def time_fake_quant_sites(sites):
             fake_quant_observe_plain(x, ObserverState(mn, mx), spec)
 
     out["plain_ms"] = time_ms(plain_all, reps=1, warmup=1)
-    dev = sites[0][0].device
-    on = torch.ones(1, dtype=torch.long, device=dev)
-    lib_args = [(x.to(torch.float32), mn.reshape(1).clone(), mx.reshape(1).clone(),
-                 torch.ones(1, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), spec)
-                for x, mn, mx, spec in sites]
-
-    def library_all():  # the yardstick only: the port never calls it
-        for xf, rmin, rmax, scale, zp, spec in lib_args:
-            torch.fused_moving_avg_obs_fake_quant(xf, on, on, rmin, rmax, scale, zp, 0.01,
-                                                  spec.qmin, spec.qmax, 0, False, spec.symmetric)
-
+    library_all = fq_library_call(sites)
     try:
         out["library_ms"] = device_ms(library_all)
         out["library_wall_ms"] = time_ms(library_all, reps=5)
     except RuntimeError as e:
         log(f"[time] torch.fused_moving_avg_obs_fake_quant refused: {e}")
         out["library_ms"] = out["library_wall_ms"] = None
-    del lib_args
     return out
+
+
+def fq_library_call(sites):
+    """``torch.fused_moving_avg_obs_fake_quant`` over ``sites`` on float32
+    copies: the yardstick only, the port never calls it."""
+    dev = sites[0][0].device
+    on = torch.ones(1, dtype=torch.long, device=dev)
+    args = [(x.to(torch.float32), mn.reshape(1).clone(), mx.reshape(1).clone(),
+             torch.ones(1, device=dev), torch.zeros(1, dtype=torch.int32, device=dev), spec)
+            for x, mn, mx, spec in sites]
+
+    def library_all():
+        for xf, rmin, rmax, scale, zp, spec in args:
+            torch.fused_moving_avg_obs_fake_quant(xf, on, on, rmin, rmax, scale, zp, 0.01,
+                                                  spec.qmin, spec.qmax, 0, False, spec.symmetric)
+
+    return library_all
 
 
 def time_training(dev, name=MODEL, time_sites=True, reps=(5, 10)):
@@ -1154,21 +1185,26 @@ FROSTNET_KERNELS = {"frost_block_int8": "frost_block_kernel",
 
 
 def profile_forward(pred, x, kernels):
-    """One profiled forward: device ms and launches of each of ``kernels``
-    (name -> a substring of its CUDA kernel's name) and of the torch ops
-    (and the torch ops' largest kernels), and the device's idle share."""
+    """One profiled call ``pred(x)``: device ms and launches of each of
+    ``kernels`` (name -> a substring of its CUDA kernels' names, or a test
+    of the name) and of the torch ops (and the torch ops' largest kernels),
+    and the device's idle share. Annotations (an optimizer's step) span
+    kernels and are left out."""
     pred(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pred(x)
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith("Optimizer.")]
     if not events:
         raise RuntimeError("torch.profiler recorded no device activity")
     split = {k: [0.0, 0] for k in list(kernels) + ["torch ops"]}
     by_name = {}
     for e in events:
-        key = next((k for k, sub in kernels.items() if sub in e.name), "torch ops")
+        key = next((k for k, sub in kernels.items()
+                    if (sub(e.name) if callable(sub) else sub in e.name)), "torch ops")
         ms = e.time_range.elapsed_us() / 1e3
         split[key][0] += ms
         split[key][1] += 1
@@ -3159,6 +3195,538 @@ def det_phase(dev):
     return rep, launches, mm
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: GAN training (pix2pix and CycleGAN QAT at 256x256)
+# ---------------------------------------------------------------------------
+GAN_PIX2PIX_REFERENCE = os.path.join(TESTDATA, "gan_pix2pix_train_reference.npz")
+GAN_CYCLEGAN_REFERENCE = os.path.join(TESTDATA, "gan_cyclegan_train_reference.npz")
+PHASE19_DIR = os.path.join(ROOT, "build", "phase19")
+# the training references' configuration: the full-width nets at 256x256,
+# batch 1, float32, QAdam (b1 0.5, the GradBoost noise off) and Adam at lr 2e-4
+GAN_TRAIN = dict(netG=GAN, ngf=64, ndf=64, size=GAN_IMAGE, batch=1, seed=0, lr=2e-4, beta1=0.5)
+GAN_SITES = 58  # per-tensor sites of one resnet_9blocks QAT forward
+PIX2PIX_LOSSES = ("loss_D", "loss_G", "loss_G_GAN", "loss_G_L1")
+CYCLEGAN_LOSSES = ("loss_G", "cyc_A", "cyc_B", "loss_D_A", "loss_D_B")
+GAN_SAMPLE = 8  # the references keep every 8th row and column of an output
+# Bands of phase 19's training checks against the committed JAX references
+# (TF32 off). Measured, the port on the CPU (1 and 4 threads) / on the card
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §5), worst of pix2pix and CycleGAN:
+# FP32 iteration losses 3.9e-5 / 1.5e-6 relative, BN statistics after it
+# 9.0e-6 / 1.4e-6 of each tensor's largest, CycleGAN's fakes 2.4e-5 / 1.2e-5
+# absolute: only the float sums' order differs. QAT iterations: losses
+# 0.81% / 0.51%, observers 0.25% / 0.19% of their range in the median and
+# 10.2% / 9.1% at worst, BN means 9.7e-4 of a std and variances 1.4e-3 in the
+# median, the QAT_FROZEN output 0.103 / 0.092 at most and 0.021 / 0.021 in
+# the mean after tanh: the observers snap to each forward's extremes, and one
+# an ulp apart moves a grid and the layers after it (Queue C).
+GAN_FP32_LOSS_REL = 2e-4
+GAN_FP32_BN_REL = 1e-4        # max |d stat| / max |stat| after the FP32 iteration, worst
+GAN_FAKE_ABS = 1e-4           # the FP32 iteration's fakes (CycleGAN), after tanh
+GAN_QAT_LOSS_REL = 0.05
+GAN_OBS_MEDIAN, GAN_OBS_WORST = 0.01, 0.3
+GAN_BN_MEAN_MEDIAN, GAN_BN_VAR_MEDIAN = 0.01, 0.01
+GAN_FROZEN_ABS, GAN_FROZEN_MEAN_ABS = 0.3, 0.06
+
+
+def gan_train_nets(kind: str):
+    """The nets of a training reference: pix2pix's (G, D), D conditional with
+    BN; CycleGAN's (G_A, G_B, D_A, D_B), the Ds without norm."""
+    from frostnet_tpu_torch.gan import define_d, define_g
+
+    g = GAN_TRAIN
+    if kind == "pix2pix":
+        return define_g(ngf=g["ngf"], netG=g["netG"]), define_d(g["ndf"], norm="batch",
+                                                                input_nc=6)
+    return (define_g(ngf=g["ngf"], netG=g["netG"]), define_g(ngf=g["ngf"], netG=g["netG"]),
+            define_d(g["ndf"], norm="none"), define_d(g["ndf"], norm="none"))
+
+
+def gan_train_batches(n: int, batch: int = 1):
+    """The first ``n`` batches of ``SyntheticPairs(256, ..., seed 0)``."""
+    from frostnet_tpu_torch.gan import SyntheticPairs
+
+    return list(SyntheticPairs(GAN_TRAIN["size"], n * batch, batch, GAN_TRAIN["seed"]))
+
+
+def gan_optimizers():
+    """(generator, discriminator) optimizer factories of the references."""
+    g = GAN_TRAIN
+    return (get_optimizer("QAdam", g["lr"], b1=g["beta1"], noise_decay=1.0),
+            get_optimizer("Adam", g["lr"], b1=g["beta1"]))
+
+
+def _prefixed(prefix: str, model, keep=("batch_stats/", "quant/")):
+    """A copy of ``model``'s BN statistics and observers, keyed as the
+    training references key them."""
+    return {f"{prefix}/{k}": v.detach().cpu().numpy().copy() for k, v in
+            model_variables(model).items() if k.startswith(keep)}
+
+
+def gan_band_report(ref, losses, fp32_state, final_state, names, what, frozen=None):
+    """Phase 19's bands against a committed JAX training reference: the
+    FP32 iteration's losses and BN statistics, the QAT iterations' losses,
+    every observer and BN statistic after the last, and (pix2pix) the
+    QAT_FROZEN output. Returns the measured values."""
+    rep = {}
+    rel = {k: [abs(a / float(b) - 1) for a, b in zip(losses[k], ref[k])] for k in names}
+    rep["loss_rel"] = rel
+    log(f"[gan-train] {what} losses {losses}; relative to JAX {rel}")
+    band_check(f"{what} FP32 iteration losses, worst relative to JAX",
+               max(r[0] for r in rel.values()), GAN_FP32_LOSS_REL)
+    band_check(f"{what} QAT iteration losses, worst relative to JAX",
+               max(max(r[1:]) for r in rel.values()), GAN_QAT_LOSS_REL)
+    fp = [float(np.max(np.abs(fp32_state[k] - ref[k])) / np.max(np.abs(ref[k])))
+          for k in ref.files if k.startswith("fp32/")]
+    rep["fp32_bn_rel_worst"] = max(fp)
+    band_check(f"{what} BN statistics after the FP32 iteration, worst relative to JAX",
+               max(fp), GAN_FP32_BN_REL)
+    obs, bn_mean, bn_var = [], [], []
+    for k in ref.files:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(ref[hi] - ref[k]), 1e-6)
+            obs.append(max(abs(float(final_state[k] - ref[k])),
+                           abs(float(final_state[hi] - ref[hi]))) / span)
+        elif k.endswith("/mean") and not k.startswith("fp32/"):
+            bn_mean.append(float(np.max(np.abs(final_state[k] - ref[k])
+                                        / np.sqrt(ref[k[:-4] + "var"]))))
+        elif k.endswith("/var") and not k.startswith("fp32/"):
+            bn_var.append(float(np.max(np.abs(final_state[k] - ref[k]) / ref[k])))
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs)),
+                                 "count": len(obs)}
+    band_check(f"{what} observers, median |diff| / range", float(np.median(obs)), GAN_OBS_MEDIAN)
+    band_check(f"{what} observers, worst |diff| / range", float(max(obs)), GAN_OBS_WORST)
+    rep["bn"] = {"mean_over_std_median": float(np.median(bn_mean)),
+                 "var_rel_median": float(np.median(bn_var)), "count": len(bn_mean)}
+    band_check(f"{what} BN means, median |diff| / std", float(np.median(bn_mean)),
+               GAN_BN_MEAN_MEDIAN)
+    band_check(f"{what} BN variances, median |diff| / var", float(np.median(bn_var)),
+               GAN_BN_VAR_MEDIAN)
+    if frozen is not None:
+        diff = np.abs(frozen - ref["frozen_out_sampled"])
+        rep["frozen_abs"] = {"max": float(diff.max()), "mean": float(diff.mean())}
+        band_check(f"{what} QAT_FROZEN output, max |diff|", rep["frozen_abs"]["max"],
+                   GAN_FROZEN_ABS)
+        band_check(f"{what} QAT_FROZEN output, mean |diff|", rep["frozen_abs"]["mean"],
+                   GAN_FROZEN_MEAN_ABS)
+    return rep
+
+
+def pix2pix_against_reference(dev):
+    """Phase 19, part b (and ``tests/test_torch_gan_train_fixture.py`` on the
+    CPU): pix2pix from the GAN numpy init at seed 0 against the committed JAX
+    reference: one FP32 iteration (``d_step``, ``g_step``),
+    ``set_warmup(False)``, two QAT iterations and a QAT_FROZEN forward, in
+    the bands above; G's BN statistics and observers the same before and
+    after each ``d_step`` (hazard 1); on the card, the fake-quant launches of
+    each iteration (0, then two a site)."""
+    from frostnet_tpu_torch.gan.models import make_net_state, make_pix2pix_steps
+    from frostnet_tpu_torch.optim import set_warmup
+
+    ref = np.load(GAN_PIX2PIX_REFERENCE)
+    net_g, net_d = gan_train_nets("pix2pix")
+    trees = numpy_init((net_g, net_d), GAN_TRAIN["seed"], init="gan")
+    g_tx, d_tx = gan_optimizers()
+    g = make_net_state(net_g, g_tx, 0, dev, trees[0])
+    d = make_net_state(net_d, d_tx, 0, dev, trees[1])
+    sites = observers(net_g)
+    batches = gan_train_batches(4)
+    fq = ops.fake_quant_observe
+    losses, launches, fp32_state = {k: [] for k in PIX2PIX_LOSSES}, [], None
+    for k, mode in enumerate((FP32, QAT, QAT)):
+        if k == 1:
+            set_warmup(g.optimizer, False)
+        d_step, g_step = make_pix2pix_steps(mode)
+        before = fq.launches
+        kept = [b.clone() for b in net_g.buffers()]
+        m = d_step(g, d, batches[k])
+        if not all(torch.equal(a, b) for a, b in zip(kept, net_g.buffers())):
+            raise AssertionError("pix2pix d_step kept an update of G's BN statistics or "
+                                 "observers (hazard 1)")
+        m.update(g_step(g, d, batches[k]))
+        launches.append(fq.launches - before)
+        for key in PIX2PIX_LOSSES:
+            losses[key].append(float(m[key]))
+        if k == 0:
+            fp32_state = {f"fp32/{n}": v for n, v in {**_prefixed("G", net_g, ("batch_stats/",)),
+                                                       **_prefixed("D", net_d)}.items()}
+    net_g.eval()
+    with torch.no_grad():
+        out = net_g(torch.as_tensor(batches[3]["A"], device=dev), QAT_FROZEN)
+    frozen = out[0, ::GAN_SAMPLE, ::GAN_SAMPLE].cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if launches != [0, 2 * sites, 2 * sites]:
+            raise AssertionError(f"pix2pix iterations: fake_quant_observe launches {launches} "
+                                 f"!= [0, {2 * sites}, {2 * sites}]")
+    final = {**_prefixed("G", net_g), **_prefixed("D", net_d), **fp32_state}
+    rep = {"losses": losses, "launches_per_iteration": launches, "sites": sites}
+    rep.update(gan_band_report(ref, losses, fp32_state, final, PIX2PIX_LOSSES, "pix2pix",
+                               frozen))
+    return rep
+
+
+def cyclegan_against_reference(dev):
+    """Phase 19, part c: CycleGAN from the GAN numpy init at seed 0 against
+    the committed JAX reference: one FP32 and one QAT iteration (``g_step``,
+    two ``ImagePool.query`` calls, both ``d_step``s), in the bands above,
+    the FP32 iteration's fakes within ``GAN_FAKE_ABS``; the generators'
+    state after the last iteration is that of their second apply (hazard 4:
+    the reference's); on the card, the fake-quant launches of each
+    ``g_step`` (0, then six a site)."""
+    from frostnet_tpu_torch.gan import ImagePool
+    from frostnet_tpu_torch.gan.models import (make_cyclegan_steps, make_joint_optimizer,
+                                               make_net_state)
+    from frostnet_tpu_torch.optim import set_warmup
+
+    ref = np.load(GAN_CYCLEGAN_REFERENCE)
+    nets = gan_train_nets("cycle_gan")
+    trees = numpy_init(nets, GAN_TRAIN["seed"], init="gan")
+    g_tx, d_tx = gan_optimizers()
+    gA, gB = (make_net_state(n, None, 0, dev, t) for n, t in zip(nets[:2], trees[:2]))
+    dA, dB = (make_net_state(n, d_tx, 0, dev, t) for n, t in zip(nets[2:], trees[2:]))
+    joint = make_joint_optimizer(g_tx, nets[:2])
+    pool_a, pool_b = ImagePool(50, 0), ImagePool(50, 1)
+    sites = observers(nets[0])
+    fq = ops.fake_quant_observe
+    losses, launches, fp32_state, fakes = {k: [] for k in CYCLEGAN_LOSSES}, [], None, None
+    for k, (batch, mode) in enumerate(zip(gan_train_batches(2), (FP32, QAT))):
+        if k == 1:
+            set_warmup(joint, False)
+        g_step, d_step = make_cyclegan_steps(mode)
+        before = fq.launches
+        fake_a, fake_b, m = g_step(gA, gB, dA, dB, batch, joint)
+        launches.append(fq.launches - before)
+        fb, fa = fake_b.cpu().numpy(), fake_a.cpu().numpy()
+        m["loss_D_A"] = d_step(dA, batch["B"], pool_b.query(fb))
+        m["loss_D_B"] = d_step(dB, batch["A"], pool_a.query(fa))
+        for key in CYCLEGAN_LOSSES:
+            losses[key].append(float(m[key]))
+        if k == 0:
+            fp32_state = {f"fp32/{n}": v for n, v in {
+                **_prefixed("G_A", nets[0], ("batch_stats/",)),
+                **_prefixed("G_B", nets[1], ("batch_stats/",))}.items()}
+            fakes = (fa[0, ::GAN_SAMPLE, ::GAN_SAMPLE], fb[0, ::GAN_SAMPLE, ::GAN_SAMPLE])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if launches != [0, 6 * sites]:
+            raise AssertionError(f"CycleGAN g_step: fake_quant_observe launches {launches} != "
+                                 f"[0, {6 * sites}]")
+    fake_err = max(float(np.abs(fakes[0] - ref["fake_a_sampled"]).max()),
+                   float(np.abs(fakes[1] - ref["fake_b_sampled"]).max()))
+    band_check("CycleGAN FP32 iteration fakes, max |diff|", fake_err, GAN_FAKE_ABS)
+    final = {**_prefixed("G_A", nets[0]), **_prefixed("G_B", nets[1]), **fp32_state}
+    rep = {"losses": losses, "launches_per_g_step": launches, "sites": sites,
+           "fake_abs": fake_err}
+    rep.update(gan_band_report(ref, losses, fp32_state, final, CYCLEGAN_LOSSES, "CycleGAN"))
+    return rep
+
+
+def check_gan_fake_quant(dev):
+    """Phase 19, part a: the fake-quant kernel against its plain version, bit
+    for bit, at every per-tensor site of a ``resnet_9blocks`` QAT forward at
+    256x256 (the GAN numpy init, train mode), batch 1 and 4, float32: y, the
+    STE mask, the new observers and the qparams, then the QAT_FROZEN pass;
+    the STE gradient of the largest site. Returns (checks, max error, the
+    batch-1 sites for timing)."""
+    net = gan_train_nets("pix2pix")[0]
+    from_jax_variables(net, numpy_init(net, 0, init="gan")).to(dev)
+    err, checked, keep = 0.0, 0, None
+    for batch in (1, 4):
+        x = torch.as_tensor(gan_train_batches(1, batch)[0]["A"], device=dev)
+        sites = capture_sites(net, x, QAT)
+        if len(sites) != GAN_SITES:
+            raise AssertionError(f"GAN: {len(sites)} per-tensor sites in a QAT forward, "
+                                 f"expected {GAN_SITES}")
+        for i, (xs, mn, mx, spec) in enumerate(sites):
+            err = max(err, check_site(f"GAN batch {batch} site {i} {tuple(xs.shape)}", xs, mn,
+                                      mx, spec))
+            checked += 1
+        keep = keep or sites
+    xs, mn, mx, spec = max(sites, key=lambda s: s[0].numel())
+    obs = Observer().to(dev)
+    obs.min_val.copy_(mn)
+    obs.max_val.copy_(mx)
+    xg = xs.clone().requires_grad_(True)
+    g = torch.randn(xs.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    ObservedFakeQuant.apply(xg, obs, spec, True).backward(g)
+    _, pmask, _, _, _ = fake_quant_observe_plain(xs, ObserverState(mn, mx), spec, True)
+    if not torch.equal(xg.grad, torch.where(pmask, g, torch.zeros((), device=dev))):
+        raise AssertionError("GAN: fake_quant_observe STE gradient != where(plain mask, g, 0)")
+    torch.cuda.synchronize()
+    return checked, err, tuple(xs.shape), keep
+
+
+GAN_TRAINER_CFG = dict(model="pix2pix", netG=GAN, dataset="synthetic", crop_size=GAN_IMAGE,
+                       batch_size=1, steps_per_epoch=2, fp_epochs=1, save_epoch_freq=1,
+                       device="cuda")
+
+
+def gan_trainer_path(dev):
+    """Phase 19, part d: ``gan.train.main`` (pix2pix, synthetic, 256x256,
+    batch 1, 2 steps an epoch, one FP32 epoch and one QAT epoch), its
+    ``--continue_train`` to a second QAT epoch against an uninterrupted run
+    of two (losses bit for bit), ``gan.test.main --checkpoint latest_G
+    --export_int8`` (the gallery and the artifact), ``serve.main --workload
+    gan`` on that artifact against the in-process ``freeze`` of the restored
+    generator (bit for bit; 20 conv and 3 matmul launches a forward), and
+    ``eval_cityscapes.score_pairs`` on the tester's outputs with the port's
+    ``mobilenetv3_RE_small`` (the committed calibration), checked against
+    ``fast_hist`` on the host. Returns (report, launches of the path)."""
+    from frostnet_tpu_torch.gan import eval_cityscapes, test as gan_test, train as gan_train
+    from frostnet_tpu_torch.gan.models import make_net_state
+    from frostnet_tpu_torch.gan.networks import define_g
+    from frostnet_tpu_torch.segmentation import get_seg_model
+    from frostnet_tpu_torch.utils.checkpoint import restore_model_variables
+
+    rep = {}
+    shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    split, whole = os.path.join(PHASE19_DIR, "split"), os.path.join(PHASE19_DIR, "whole")
+    # the runs compared bit for bit take cuDNN's and torch's deterministic
+    # algorithms (the resize's index_select backward adds with atomics otherwise)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, first = gan_train.main(gan_train.GANConfig(**GAN_TRAINER_CFG, epochs=1,
+                                                         save_dir=split))
+        _, _, resumed = gan_train.main(gan_train.GANConfig(**GAN_TRAINER_CFG, epochs=2,
+                                                           save_dir=split, continue_train=True))
+        rep["train_s"] = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        _, _, straight = gan_train.main(gan_train.GANConfig(**GAN_TRAINER_CFG, epochs=2,
+                                                            save_dir=whole))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = [h["losses"] for h in first["history"] + resumed["history"]]
+    want = [h["losses"] for h in straight["history"]]
+    if got != want or [h["tag"] for h in resumed["history"]] != ["qat"]:
+        raise AssertionError(f"pix2pix resume: losses {got} != uninterrupted {want}")
+    for h in straight["history"]:
+        if not all(np.isfinite(v).all() for v in h["losses"].values()):
+            raise AssertionError(f"pix2pix trainer: {h['tag']} epoch {h['epoch']} {h['losses']}")
+    rep["history"] = [{k: h[k] for k in ("tag", "epoch", "losses", "images_per_sec", "step_ms")}
+                      for h in straight["history"]]
+    log(f"[gan-train] gan.train.main pix2pix: epochs {[(h['tag'], h['last']) for h in straight['history']]}; "
+        f"the resume to a second QAT epoch == the uninterrupted run, bit for bit")
+    ckpt = os.path.join(split, "latest_G")
+    art = os.path.join(PHASE19_DIR, "netG_int8.npz")
+    results = os.path.join(PHASE19_DIR, "results")
+    ops.reset_launch_counts()
+    out = gan_test.main(gan_test.build_parser().parse_args(
+        ["--checkpoint", ckpt, "--netG", GAN, "--num_test", "2", "--results_dir", results,
+         "--export_int8", art]))
+    torch.cuda.synchronize()
+    tester = ops.launch_counts()
+    pngs = sorted(os.listdir(os.path.join(results, "web", "images")))
+    if not os.path.exists(out["gallery"]) or len(pngs) != 8:
+        raise AssertionError(f"gan.test.main: gallery {out['gallery']}, images {pngs}")
+    if tester["int8_conv"] != 2 * 20 or tester["int8_matmul_requant"] != 2 * 3:
+        raise AssertionError(f"gan.test.main launches {tester} (two INT8 forwards)")
+    rep["tester"] = {"delta": out["delta"], "artifact_bytes": out["artifact_bytes"],
+                     "launches": tester}
+    log(f"[gan-train] gan.test.main: qat/int8 delta {out['delta']}, artifact "
+        f"{out['artifact_bytes']} bytes, gallery {len(pngs)} PNGs, launches {tester}")
+    served = os.path.join(PHASE19_DIR, "served.npy")
+    serve.main(serve.build_parser().parse_args(
+        ["--workload", "gan", "--artifact", art, "--batch_size", "2", "--iters", "3",
+         "--save_logits", served]))
+    net = define_g(netG=GAN)
+    restore_model_variables(ckpt, make_net_state(net, None, 0, dev))
+    fn = freeze(net, dev, GAN_IMAGE)
+    x = np.random.RandomState(0).randn(2, GAN_IMAGE, GAN_IMAGE, 3).astype(np.float32)
+    ops.reset_launch_counts()
+    want = fn(x)
+    torch.cuda.synchronize()
+    per_forward = ops.launch_counts()
+    if not np.array_equal(np.load(served), want.cpu().numpy()):
+        raise AssertionError("serve.main --workload gan on the trained artifact != the "
+                             "in-process freeze of the restored generator")
+    if per_forward != GAN_LAUNCHES:
+        raise AssertionError(f"trained generator: launches per forward {per_forward}")
+    rep["served_launches_per_forward"] = per_forward
+    log(f"[gan-train] serve.main --workload gan on the trained artifact == in-process freeze, "
+        f"bit for bit; launches a forward {per_forward}")
+    seg = get_seg_model("mobilenetv3_RE_small", num_classes=SEG_CLASSES)
+    from_jax_variables(seg, unflatten_variables(seg_variables("mobilenetv3_RE_small")))
+    seg.to(dev).eval()
+    predict = eval_cityscapes.make_seg_predict_fn(seg, QAT_FROZEN, (0.485, 0.456, 0.406),
+                                                  (0.229, 0.224, 0.225))
+    rng = np.random.RandomState(19)
+    pairs = [((o[0] + 1) / 2, rng.randint(0, SEG_CLASSES, (GAN_IMAGE, GAN_IMAGE)))
+             for o in out["int8"]]
+    scores = eval_cityscapes.score_pairs(predict, pairs, SEG_CLASSES)
+    hist = sum(eval_cityscapes.fast_hist(lab.flatten(), predict(img).flatten(), SEG_CLASSES)
+               for img, lab in pairs)
+    if not np.array_equal(scores["hist"], hist) or hist.sum() != 2 * GAN_IMAGE ** 2:
+        raise AssertionError("eval_cityscapes.score_pairs != fast_hist on the host")
+    rep["fcn_scores"] = {k: scores[k] for k in ("frames", "mean_pixel_acc", "mean_class_acc",
+                                                "mean_class_iou")}
+    log(f"[gan-train] eval_cityscapes.score_pairs on the tester's 2 INT8 outputs "
+        f"(mobilenetv3_RE_small, QAT_FROZEN): {rep['fcn_scores']}; == fast_hist on the host")
+    return rep, launches
+
+
+def _pix2pix_iteration(dev, mode, batch, g=None, d=None):
+    """(run one iteration, states) of pix2pix at ``batch`` from the GAN init."""
+    from frostnet_tpu_torch.gan.models import make_net_state, make_pix2pix_steps
+    from frostnet_tpu_torch.optim import set_warmup
+
+    if g is None:
+        net_g, net_d = gan_train_nets("pix2pix")
+        trees = numpy_init((net_g, net_d), 0, init="gan")
+        g_tx, d_tx = (get_optimizer("QAdam", GAN_TRAIN["lr"], b1=GAN_TRAIN["beta1"]),
+                      get_optimizer("Adam", GAN_TRAIN["lr"], b1=GAN_TRAIN["beta1"]))
+        g = make_net_state(net_g, g_tx, 0, dev, trees[0])
+        d = make_net_state(net_d, d_tx, 0, dev, trees[1])
+    if mode is QAT:
+        set_warmup(g.optimizer, False)  # the GradBoost noise on
+    d_step, g_step = make_pix2pix_steps(mode)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in gan_train_batches(1, batch)[0].items()}
+
+    def run():
+        d_step(g, d, b)
+        g_step(g, d, b)
+
+    return run, g, d
+
+
+# name fragments of cuDNN's convolution kernels (forward, data and weight
+# gradients, its layout transforms, and the cuFFT and complex cuBLAS gemv
+# kernels of its FFT algorithms: the iteration has no other matmul or FFT);
+# cuDNN's BN kernels stay with the torch ops
+CUDNN_CONV = ("cudnn", "xmma", "cutlass", "implicit", "convolve", "conv2d", "wgrad", "dgrad",
+              "fprop", "fft", "gemv")
+CUDNN_BN = ("bn_", "batch_norm", "batchnorm")
+GAN_TRAIN_KERNELS = {
+    "fake_quant_observe": "fq_",
+    "cuDNN convs": lambda name: (any(f in name.lower() for f in CUDNN_CONV)
+                                 and not any(f in name.lower() for f in CUDNN_BN))}
+
+
+def time_gan_training(dev, sites):
+    """Phase 19, part e: float32 (TF32 off) pix2pix FP32 and QAT iterations
+    at batch 1 and 8 and the CycleGAN QAT iteration at batch 1 (the GradBoost
+    noise on), ms and images/s, peak memory; the fake-quant kernel at the
+    batch-1 forward's sites beside its bound, plain version and library
+    call (CUDA graph and wall time); one profiled pix2pix QAT iteration at
+    batch 1."""
+    from frostnet_tpu_torch.gan import ImagePool
+    from frostnet_tpu_torch.gan.models import (make_cyclegan_steps, make_joint_optimizer,
+                                               make_net_state)
+    from frostnet_tpu_torch.optim import set_warmup
+
+    rec = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in (1, 8):
+        run, g, d = _pix2pix_iteration(dev, FP32, batch)
+        rec[f"pix2pix_fp32_bs{batch}_ms"] = ms = time_ms(run, reps=5, warmup=1)
+        rec[f"pix2pix_fp32_bs{batch}_images_per_sec"] = batch / ms * 1e3
+        run, _, _ = _pix2pix_iteration(dev, QAT, batch, g, d)
+        rec[f"pix2pix_qat_bs{batch}_ms"] = ms = time_ms(run, reps=5, warmup=1)
+        rec[f"pix2pix_qat_bs{batch}_images_per_sec"] = batch / ms * 1e3
+        log(f"[time] pix2pix iteration at batch {batch} (float32, TF32 off): FP32 "
+            f"{rec[f'pix2pix_fp32_bs{batch}_ms']:.2f} ms, "
+            f"{rec[f'pix2pix_fp32_bs{batch}_images_per_sec']:.2f} images/s; QAT "
+            f"{rec[f'pix2pix_qat_bs{batch}_ms']:.2f} ms, "
+            f"{rec[f'pix2pix_qat_bs{batch}_images_per_sec']:.2f} images/s")
+        if batch == 1:
+            rec["profile"] = profile_forward(lambda _: run(), None, GAN_TRAIN_KERNELS)
+            log_profile("pix2pix QAT iteration at batch 1", rec["profile"])
+        del run, g, d
+    nets = gan_train_nets("cycle_gan")
+    trees = numpy_init(nets, 0, init="gan")
+    gA, gB = (make_net_state(n, None, 0, dev, t) for n, t in zip(nets[:2], trees[:2]))
+    dA, dB = (make_net_state(n, get_optimizer("Adam", 2e-4, b1=0.5), 0, dev, t)
+              for n, t in zip(nets[2:], trees[2:]))
+    joint = make_joint_optimizer(get_optimizer("QAdam", 2e-4, b1=0.5), nets[:2])
+    set_warmup(joint, False)
+    g_step, d_step = make_cyclegan_steps(QAT)
+    pool_a, pool_b = ImagePool(50, 0), ImagePool(50, 1)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in gan_train_batches(1)[0].items()}
+
+    def cycle():
+        fake_a, fake_b, _ = g_step(gA, gB, dA, dB, b, joint)
+        d_step(dA, b["B"], pool_b.query(fake_b.cpu().numpy()))
+        d_step(dB, b["A"], pool_a.query(fake_a.cpu().numpy()))
+
+    rec["cyclegan_qat_bs1_ms"] = ms = time_ms(cycle, reps=3, warmup=1)
+    rec["cyclegan_qat_bs1_images_per_sec"] = 1e3 / ms
+    rec["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[time] CycleGAN QAT iteration at batch 1: {ms:.2f} ms, {1e3 / ms:.2f} images/s; "
+        f"peak memory over the timed GAN iterations {rec['max_memory_allocated_gib']:.2f} GiB")
+    del gA, gB, dA, dB, joint, nets
+    torch.cuda.empty_cache()
+    rec["fake_quant"] = time_gan_sites(sites)
+    return rec
+
+
+def time_gan_sites(sites):
+    """The fake-quant kernel at the sites of one QAT forward, without the
+    profiler (late in this process it records nothing): device time by a
+    replayed CUDA graph of all the sites, wall time of back-to-back calls,
+    the bound; the plain version and ``torch.fused_moving_avg_obs_fake_quant``
+    (float32 copies, the yardstick only), wall. The observer states are
+    copies."""
+    states = [(mn.clone(), mx.clone()) for _, mn, mx, _ in sites]
+
+    def kernel():
+        for (x, _, _, spec), (mn, mx) in zip(sites, states):
+            fake_quant_observe(x, mn, mx, spec)
+
+    def plain():
+        for x, mn, mx, spec in sites:
+            fake_quant_observe_plain(x, ObserverState(mn, mx), spec)
+
+    library = fq_library_call(sites)
+    nbytes = sum(fq_cost(x)[0] for x, _, _, _ in sites)
+    nops = sum(fq_cost(x)[1] for x, _, _, _ in sites)
+    bound_ms, bound_by = bound(nbytes, nops, PEAK_F32_OPS_PER_S)
+    out = {"sites": len(sites), "graph_ms": graph_ms(kernel, reps=3),
+           "wall_ms": time_ms(kernel, reps=5), "plain_ms": time_ms(plain, reps=1, warmup=1),
+           "library_wall_ms": time_ms(library, reps=5), "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    out["bound_share"] = bound_ms / out["graph_ms"]
+    log(f"[time] fake_quant_observe at the {len(sites)} sites of a batch-1 generator QAT "
+        f"forward: {out['graph_ms']:.4f} ms by CUDA graph ({100 * out['bound_share']:.1f}% of the "
+        f"{bound_ms:.4f} ms bound), {out['wall_ms']:.4f} wall; plain {out['plain_ms']:.3f}; "
+        f"torch.fused_moving_avg_obs_fake_quant {out['library_wall_ms']:.4f} wall")
+    return out
+
+
+def gan_train_phase(dev):
+    """Phase 19: GAN training on the card (the fake-quant kernel at the
+    generator's QAT sites, pix2pix and CycleGAN against the committed JAX
+    references, the trainer -> tester -> server -> scorer path, times).
+    Returns (report, launches of each path)."""
+    rep, launches = {}, {}
+    os.makedirs(PHASE19_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    checked, rep["fake_quant_max_abs_err"], largest, sites = check_gan_fake_quant(dev)
+    log(f"[gan-train] fake_quant_observe == plain at {checked} site checks (the {GAN_SITES} "
+        f"sites of a resnet_9blocks QAT forward at {GAN_IMAGE}x{GAN_IMAGE}, batch 1 and 4, "
+        f"float32; QAT and QAT_FROZEN passes), STE gradient at {largest}")
+    ops.reset_launch_counts()
+    rep["pix2pix_reference"] = pix2pix_against_reference(dev)
+    launches["pix2pix_reference"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    rep["cyclegan_reference"] = cyclegan_against_reference(dev)
+    launches["cyclegan_reference"] = ops.launch_counts()
+    torch.cuda.empty_cache()
+    rep["trainer"], launches["trainer"] = gan_trainer_path(dev)
+    for path in ("pix2pix_reference", "cyclegan_reference", "trainer"):
+        if launches[path]["fake_quant_observe"] == 0:
+            raise AssertionError(f"phase 19's {path} path launched no fake_quant_observe")
+    launches["tester_and_server"] = rep["trainer"]["tester"]["launches"]
+    torch.cuda.empty_cache()
+    rep["timing"] = time_gan_training(dev, sites)
+    del sites
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3436,6 +4004,14 @@ def main(argv=None):
     max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
                                         report["det"]["fake_quant_max_abs_err"])
 
+    # 19. GAN training: the fake-quant kernel at the generator's QAT sites,
+    # pix2pix and CycleGAN against the JAX references, the trainer, tester,
+    # server and scorer, timings
+    torch.cuda.empty_cache()
+    report["gan_train"], gan_train_counts = gan_train_phase(dev)
+    max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
+                                        report["gan_train"]["fake_quant_max_abs_err"])
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -3473,7 +4049,8 @@ def main(argv=None):
         entry["trainer_launches"] = trainer_counts[entry["name"]]
         for key, path_counts in (("mobilenet_launches", mb_counts),
                                  ("resnet_launches", rn_counts), ("seg_launches", seg_counts),
-                                 ("det_launches", det_counts)):
+                                 ("det_launches", det_counts),
+                                 ("gan_train_launches", gan_train_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

@@ -7,7 +7,7 @@ The same model serves every phase; the phase is a value:
   * ``QAT_FROZEN`` - fake-quant forward, observers frozen.
   * ``INT8``       - true integer inference (torch.quantization.convert).
 
-The serving port runs ``INT8`` only; the other phases arrive with training.
+Every phase runs in the port.
 """
 from __future__ import annotations
 

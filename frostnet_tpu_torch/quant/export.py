@@ -219,7 +219,9 @@ def from_jax_variables(model, tree):
     Every variable must be present with its shape, and every leaf of the
     tree must land in one. Returns the model. A tuple of models takes a
     tuple of trees, one each: a detector's ``(feat, head)`` from the JAX
-    package's ``(feat_vars, head_vars)``.
+    package's ``(feat_vars, head_vars)``, pix2pix's ``(G, D)``, CycleGAN's
+    ``(G_A, G_B, D_A, D_B)`` (a float discriminator's tree has no
+    ``quant``, and none without BN a ``batch_stats``).
     """
     if isinstance(model, (tuple, list)):
         if len(model) != len(tree):
@@ -268,24 +270,29 @@ def unflatten_variables(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
-def numpy_init(model, seed: int = 0):
+def numpy_init(model, seed: int = 0, init: str = "kaiming"):
     """A fresh ``{params, batch_stats, quant}`` tree for ``model``, from numpy
     (a tuple of trees for a tuple of models, drawn from one generator in
-    turn).
+    turn: a GAN's ``(G, D)`` or ``(G_A, G_B, D_A, D_B)``).
 
     The JAX package's initial values, drawn with ``np.random.RandomState(seed)``
     in sorted key order: conv kernels kaiming-normal with fan-out
     (``frostnet_tpu/nn/conv.py`` ``variance_scaling(2, "fan_out", "normal")``:
     std ``sqrt(2 / (kh * kw * out))``, float32), BN scales and running
     variances 1, biases and running means 0, observers at (+inf, -inf).
+    ``init="gan"`` draws the GAN networks' init instead
+    (``frostnet_tpu/gan/networks.py:28-37``): kernels ``N(0, 0.02)`` and BN
+    scales ``1 + 0.02 N``, each a standard normal draw in key order.
     """
+    if init not in ("kaiming", "gan"):
+        raise ValueError(f"init must be kaiming|gan, got {init!r}")
     rng = np.random.RandomState(seed)
     if isinstance(model, (tuple, list)):
-        return tuple(_numpy_init(m, rng) for m in model)
-    return _numpy_init(model, rng)
+        return tuple(_numpy_init(m, rng, init) for m in model)
+    return _numpy_init(model, rng, init)
 
 
-def _numpy_init(model: nn.Module, rng: np.random.RandomState) -> Dict[str, Any]:
+def _numpy_init(model: nn.Module, rng: np.random.RandomState, init: str) -> Dict[str, Any]:
     flat: Dict[str, np.ndarray] = {}
     for key, t in sorted(model_variables(model).items()):
         shape = tuple(t.shape)
@@ -295,8 +302,10 @@ def _numpy_init(model: nn.Module, rng: np.random.RandomState) -> Dict[str, Any]:
         elif leaf.endswith(".max_val"):
             flat[key] = np.full(shape, -np.inf, np.float32)
         elif leaf == "kernel":
-            std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))
+            std = 0.02 if init == "gan" else np.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))
             flat[key] = (rng.standard_normal(shape) * std).astype(np.float32)
+        elif leaf == "scale" and init == "gan" and key.startswith("params/"):
+            flat[key] = (1.0 + 0.02 * rng.standard_normal(shape)).astype(np.float32)
         elif leaf in ("scale", "var"):
             flat[key] = np.ones(shape, np.float32)
         else:

@@ -85,15 +85,17 @@ class TrainState:
         return self
 
 
-def create_train_state(model: torch.nn.Module, tx: Callable, seed: int = 0, device="cuda",
-                       variables: Optional[dict] = None, ema_decay: float = 0.0) -> TrainState:
+def create_train_state(model: torch.nn.Module, tx: Optional[Callable], seed: int = 0,
+                       device="cuda", variables: Optional[dict] = None,
+                       ema_decay: float = 0.0) -> TrainState:
     """Fill ``model`` with ``variables`` (a JAX-keyed tree; by default
     ``numpy_init(model, seed)``), move it to ``device`` and build the
-    optimizer from the factory ``tx`` (``optim.get_optimizer``)."""
+    optimizer from the factory ``tx`` (``optim.get_optimizer``; None for a
+    model another state's optimizer steps, as a CycleGAN generator)."""
     device = resolve_device(device)
     from_jax_variables(model, variables if variables is not None else numpy_init(model, seed))
     model.to(device)
-    optimizer = tx(model.parameters())
+    optimizer = tx(model.parameters()) if tx is not None else None
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     ema = ({n: p.detach().clone() for n, p in model.named_parameters()}

@@ -1,6 +1,6 @@
 """Losses (``frostnet_tpu/utils/losses.py``): the weighted, ignore-aware
-cross-entropy, the segmentation trainer's ``bce`` branch and the SSD
-localization loss (``smooth_l1``)."""
+cross-entropy, the segmentation trainer's ``bce`` branch, the SSD
+localization loss (``smooth_l1``) and the GAN's ``l1``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -61,3 +61,18 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> to
     else:
         quad = half * d * d / beta
     return torch.where(d < beta, quad, d - 0.5 * beta)
+
+
+def mean_f32(x: torch.Tensor) -> torch.Tensor:
+    """The mean of all of ``x`` as the jitted JAX graph takes it, the sum
+    times ``f32(1/n)``. The sum is taken in float64 and rounded once: XLA's
+    CPU reduction adds in a vectorized order that depends on the shape, so
+    no one float32 order reproduces it; the result is within a few ulps."""
+    inv = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(x.numel()))
+    return x.sum(dtype=torch.float64).to(torch.float32) * inv.to(x.device)
+
+
+def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``mean(|pred - target|)`` (``frostnet_tpu/utils/losses.py:66``), the
+    pix2pix L1 term and CycleGAN's cycle and identity losses."""
+    return mean_f32(torch.abs(pred - target))

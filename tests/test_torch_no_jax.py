@@ -38,6 +38,10 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.segmentation.evaluate, "
             "frostnet_tpu_torch.detection, frostnet_tpu_torch.detection.train, "
             "frostnet_tpu_torch.detection.qeval, frostnet_tpu_torch.detection.evaluate, "
+            "frostnet_tpu_torch.gan.train, frostnet_tpu_torch.gan.test, "
+            "frostnet_tpu_torch.gan.eval_cityscapes, frostnet_tpu_torch.gan.models, "
+            "frostnet_tpu_torch.gan.data, frostnet_tpu_torch.gan.image_pool, "
+            "frostnet_tpu_torch.gan.visualizer, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
@@ -109,6 +113,17 @@ def test_entry_points_default_to_cuda():
         det_qeval.main(det_qeval.build_parser().parse_args([]))
     with pytest.raises(RuntimeError, match="CUDA"):
         DetPredictor(artifact="det")
+    # the GAN trainer's, tester's and scorer's
+    from frostnet_tpu_torch.gan import eval_cityscapes, test as gan_test, train as gan_train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan_train.main(gan_train.GANConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan_train.cli(["--model", "cycle_gan"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gan_test.main(gan_test.build_parser().parse_args([]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eval_cityscapes.main(eval_cityscapes.build_parser().parse_args(
+            ["--result_dir", "r", "--label_dir", "l", "--scorer_checkpoint", "c"]))
 
 
 def test_chip_smoke_refuses_without_a_gpu():
