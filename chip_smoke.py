@@ -240,7 +240,29 @@ Phases (each raises on failure, and any failure exits non-zero):
      pix2pix FP32 and QAT iterations at batch 1 and 8, the CycleGAN QAT
      iteration at batch 1 (ms, images/s, peak memory), the fake-quant kernel
      at the batch-1 sites, and one profiled pix2pix QAT iteration (the
-     fake-quant kernel, cuDNN's convs, the other torch ops, idle share).
+     fake-quant kernel, cuDNN's convs, the other torch ops, idle share);
+ 20. the rest of the zoo (``zoo_phase``), from the committed JAX fixtures
+     (``testdata/zoo_*``, ``tests/test_torch_zoo_fixture.py``): (a)
+     ``qvgg16_bn``, ``qshufflenet_v2_x1_0`` and ``qalexnet`` served at
+     224x224, batch 8, from the port's export: every layer's codes equal
+     the JAX digests, the logits within one step of the last ``QDense``'s
+     grid, one forward's launches as the routes say, ``serve.main
+     --workload cls`` on each artifact equal to the predictor, the dense
+     conv and the matmul against their plain versions at every call; (b)
+     the dense conv at each of VGG16's shapes timed (bound, plain,
+     ``torch._int_mm``); (c) ``espnetv2`` (s 2.0) and ``espnet`` (p 2, q 8)
+     at 768x768, batch 2: every module's codes equal the digests, the
+     logits and argmax in phase 17's bands, the launches, the ``grouped``
+     route's time beside the forward's, a profile; (d) the dense conv
+     bit-exact to its plain version at the odd channel counts 3 -> 64 (VGG),
+     3 -> 3 (ESPNetv2's reinforcement), 38 -> 19 (ESPNet's decoder) and
+     39 -> 20, aligned and not, and timed; (e) one QAT step of each
+     classifier and of ``espnetv2_s_2_0`` (with a QAT_FROZEN forward), one
+     FP32 step of each float-only baseline; (f) ESPNetv2's and ESPNet's
+     FP32 and QAT steps against ``testdata/zoo_<model>_train_reference.npz``
+     in phase 8's bands; (g) ``segmentation.train.main`` and ``evaluate.main`` on
+     ``espnetv2 --width_scale 2.0`` at 768x768. Each path's launches are
+     counted from 0.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -257,8 +279,12 @@ served forwards, each model's training, the trainer path),
 launches on phase 17's paths (the two served forwards, the training check
 against the reference, the trainer path), and ``det_launches``, the same for
 phase 18 (the two served forwards, the training check, the timed steps, the
-trainer path), and ``gan_train_launches``, the same for phase 19 (the two
-training checks, the trainer path, the tester and server).
+trainer path), ``gan_train_launches``, the same for phase 19 (the two
+training checks, the trainer path, the tester and server), and
+``zoo_launches``, the same for phase 20 (each served forward, each training
+step, the two training checks, the ESPNetv2 trainer path). Phase 20 alone, after
+the build: ``python3 -c "import torch, chip_smoke as c;
+c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -3727,6 +3753,501 @@ def gan_train_phase(dev):
     return rep, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the rest of the zoo (VGG, ShuffleNetV2, AlexNet, ESPNetv2, ESPNet,
+# the ESPNetv2 classifier, the float-only baselines)
+# ---------------------------------------------------------------------------
+
+PHASE20_DIR = os.path.join(ROOT, "build", "phase20")
+ZOO_CLS = ("qvgg16_bn", "qshufflenet_v2_x1_0", "qalexnet")
+# the segmentation fixtures (tests/test_torch_zoo_fixture.py): 19 classes, 768x768
+ZOO_SEG = {"espnetv2": {"s": 2.0}, "espnet": {"p": 2, "q": 8}}
+ZOO_SEG_BATCH = 2
+ZOO_FLOAT = (("densenet121", 224), ("squeezenet1_1", 224), ("mnasnet1_0", 224),
+             ("inception_v3", 299))
+ZOO_SEG_TRAINER_CFG = dict(model="espnetv2", width_scale=2.0, dataset="synthetic",
+                           crop_size=SEG_CROP, batch_size=4, steps_per_epoch=1, fp_epochs=1,
+                           epochs=1, seed=0)
+# the dense conv kernel's shapes whose channel counts are not multiples of 4:
+# (what, conv, B, H, W, Cin, Cout); the others come from the served forwards
+ODD_CONV_RANDOM = (("espnet decoder conv, 20 classes", 2, 384, 384, 39, 20),)
+
+
+def zoo_model(name: str):
+    """A fixture's port model (the segmentation ones with 19 classes)."""
+    from frostnet_tpu_torch.segmentation import get_seg_model
+
+    if name in ZOO_SEG:
+        return get_seg_model(name, num_classes=SEG_CLASSES, **ZOO_SEG[name])
+    return create_model(name)
+
+
+def zoo_variables(name: str) -> dict:
+    """``numpy_init(model, 0)`` with the committed calibration on top
+    (``tests/test_torch_zoo_fixture.py`` makes it), flat."""
+    flat = flatten_variables(numpy_init(zoo_model(name), 0))
+    with np.load(os.path.join(TESTDATA, f"zoo_{name}_calibration.npz")) as cal:
+        for k in cal.files:
+            if k not in flat or flat[k].shape != cal[k].shape:
+                raise AssertionError(f"{name} calibration: {k} does not fit the model")
+            flat[k] = cal[k]
+    return flat
+
+
+def zoo_artifact(name: str, path: str) -> str:
+    export_int8(from_jax_variables(zoo_model(name), unflatten_variables(zoo_variables(name))),
+                path)
+    return path
+
+
+def zoo_predictor(name: str, device, artifact_dir=None) -> Int8Predictor:
+    """``Int8Predictor`` over a classification fixture, served from the
+    port's own ``export_int8`` of it."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = artifact_dir or tmp
+        os.makedirs(root, exist_ok=True)
+        artifact = zoo_artifact(name, os.path.join(root, f"zoo_{name}_int8.npz"))
+        return Int8Predictor(name, artifact=artifact, image_size=IMAGE, device=device)
+
+
+def module_codes(model, fn, images):
+    """(output, {module path: codes}) of one call: the QTensor output of
+    every module, by its path (``/``-joined, the JAX module paths). The
+    hooks only keep references."""
+    codes, hooks = {}, []
+    for name, mod in model.named_modules():
+        if name:
+            hooks.append(mod.register_forward_hook(
+                lambda m, args, out, key="/".join(name.split(".")): codes.__setitem__(key, out.q)
+                if isinstance(out, QTensor) else None))
+    try:
+        out = fn(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, codes
+
+
+def check_digests(what, codes, ref):
+    """Every layer of the reference, per image, equal to its digest."""
+    layers = [k[len("sha256/"):] for k in ref.files if k.startswith("sha256/")]
+    bad = []
+    for layer in layers:
+        got = codes.get(layer)
+        if got is None or tuple(got.shape[1:]) != tuple(ref[f"shape/{layer}"][1:]):
+            bad.append(f"{layer} (shape {None if got is None else tuple(got.shape)})")
+            continue
+        want = list(ref[f"sha256/{layer}"])
+        digests = code_digests(got)
+        if digests != want[:len(digests)]:
+            bad.append(f"{layer} (images {[i for i, (g, w) in enumerate(zip(digests, want)) if g != w]})")
+    if bad:
+        raise AssertionError(f"{what}: codes differ from the JAX reference at {len(bad)} layers: "
+                             + ", ".join(bad[:8]))
+    return layers
+
+
+def route_counts(model):
+    """The kernel launches of one INT8 forward, from the convs' routes."""
+    convs = [m for m in model.modules() if isinstance(m, QConvBNAct) and hasattr(m, "_route")]
+    return {"int8_matmul_requant": sum(m._route in ("matmul", "im2col") for m in convs),
+            "frost_block_int8": 0, "fake_quant_observe": 0,
+            "int8_conv": sum(m._route == "dense3x3" for m in convs)}
+
+
+def serve_zoo_classifiers(dev):
+    """Phase 20, part a: each classification fixture served at batch 8
+    through ``Int8Predictor`` from the port's export: every layer's codes
+    against the JAX digests, the logits within one step of the last
+    ``QDense``'s output grid, one forward's launches as its routes say;
+    ``serve.main --workload cls`` on the artifact equal to the predictor bit
+    for bit; the dense conv and the matmul kernels against their plain
+    versions at every call of the forward."""
+    images = np.random.RandomState(0).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    x = torch.as_tensor(images, device=dev)
+    out, err, launches, odd = {}, {"int8_conv": 0, "int8_matmul_requant": 0}, {}, []
+    for name in ZOO_CLS:
+        ref = np.load(os.path.join(TESTDATA, f"zoo_{name}_reference.npz"))
+        pred = zoo_predictor(name, dev, PHASE20_DIR)
+        expect = route_counts(pred.model)
+        ops.reset_launch_counts()
+        logits, codes = layer_codes(pred, images)
+        torch.cuda.synchronize()
+        launches[f"serving {name}"] = counts = ops.launch_counts()
+        if counts != expect:
+            raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
+        layers = check_digests(name, codes, ref)
+        got = logits.cpu().numpy()
+        want = ref["logits"][:got.shape[0]]
+        last = [m for m in pred.model.modules() if type(m).__name__ == "QDense"][-1]
+        step = float(last._out_t[0])
+        diff = float(np.abs(got - want).max())
+        if got.shape != want.shape or not np.isfinite(got).all() or diff > step * 1.0001:
+            raise AssertionError(f"{name}: logits {diff} from JAX's (grid step {step})")
+        saved = os.path.join(PHASE20_DIR, f"{name}_logits.npy")
+        rep = serve.main(serve.build_parser().parse_args(
+            ["--workload", "cls", "--model", name, "--artifact",
+             os.path.join(PHASE20_DIR, f"zoo_{name}_int8.npz"), "--iters", "5", "--batch_size",
+             str(BATCH), "--save_logits", saved]))
+        # serve.main's first request batch is these images (RandomState(0))
+        if not np.array_equal(np.load(saved), got):
+            raise AssertionError(f"{name}: serve.main logits != the predictor's")
+        convs = [(c, m, inp.q) for c, m, inp in capture(pred.model, x)
+                 if getattr(m, "_route", None) == "dense3x3"]
+        e, n_conv = check_conv_calls(name, convs, dev)
+        err["int8_conv"] = max(err["int8_conv"], e)
+        odd += [(f"{name} {c}", m._op, q) for c, m, q in convs if m.in_features % 4]
+        e, shapes = check_mobilenet_matmuls(name, pred, x, dev)
+        err["int8_matmul_requant"] = max(err["int8_matmul_requant"], e)
+        out[name] = {"launches": counts, "layers": len(layers), "logits_max_diff": diff,
+                     "logits_step": step, "logits_equal": bool(np.array_equal(got, want)),
+                     "conv_checks": n_conv, "matmul_shapes": shapes,
+                     "serve_main": {k: rep[k] for k in ("latency_ms", "request_images_per_sec",
+                                                        "pipeline_images_per_sec")}}
+        log(f"[zoo] {name} served at batch {BATCH}: launches per forward {counts}; codes == JAX "
+            f"reference at {len(layers)} layers x {BATCH} images; logits {diff:.3g} from JAX's "
+            f"(grid step {step:.4g}, equal: {out[name]['logits_equal']}); serve.main == "
+            f"predictor; int8_conv == plain at {n_conv} checks, matmul == plain at "
+            f"{len(shapes)} shapes (aligned and unaligned rows)")
+        if name == "qvgg16_bn":
+            out[name]["conv_rows"] = time_vgg_convs(pred, x)
+        del pred
+        torch.cuda.empty_cache()
+    return out, err, launches, odd
+
+
+def time_vgg_convs(pred, x):
+    """Phase 20, part b: the dense conv kernel at each distinct conv shape
+    of qvgg16_bn at batch 8, beside its bound, its plain version and
+    ``torch._int_mm`` on the im2col operand."""
+    rows, seen = [], set()
+    for name, mod, inp in capture(pred.model, x):
+        q = inp.q
+        if mod._route != "dense3x3" or tuple(q.shape) in seen:
+            continue
+        seen.add(tuple(q.shape))
+        rows.append(conv_row(f"qvgg16_bn {name}", mod._op, q))
+    return rows
+
+
+def conv_row(what, op, q):
+    """One timing row of the dense conv at ``q``; ``torch._int_mm`` on the
+    im2col operand, its weight rows padded with zeros to a multiple of 8
+    where Cout is not one (``_int_mm`` refuses such an N)."""
+    a = matmul_operand_conv(op, q)
+    wt = torch.nn.functional.pad(op.weight().permute(0, 2, 3, 1).reshape(op.cout, -1),
+                                 (0, a.shape[1] - 9 * op.cin, 0, -op.cout % 8))
+    lib = int_mm_ms(a, wt, reps=10)
+    del a
+    b, h, w, cin = q.shape
+    row = kernel_row(f"{what} {b}x{h}x{w}x{cin}->{op.cout}", lambda: conv3x3_s1_int8(q, op),
+                     lambda: conv3x3_s1_int8_plain(q, op), conv3x3_cost(tuple(q.shape), op.cout),
+                     lib, reps=20, plain_reps=1)
+    row["path"] = "zoo"
+    log(f"[time] int8_conv {row['shape']}: {row_text(row)}")
+    return row
+
+
+def matmul_operand_conv(op, q):
+    """The im2col operand of a dense 3x3 conv ('same' padding with the zero
+    point, rows padded to 16 bytes): what ``torch._int_mm`` would multiply."""
+    p = torch.nn.functional.pad(q, (0, 0, 1, 1, 1, 1), value=op.zp_in)
+    h, w = q.shape[1], q.shape[2]
+    cols = [p[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)]
+    pad = -(9 * q.shape[3]) % 16
+    if pad:
+        cols.append(q.new_zeros(q.shape[0], h, w, pad))
+    return torch.cat(cols, dim=-1).reshape(-1, 9 * q.shape[3] + pad)
+
+
+def serve_zoo_segs(dev):
+    """Phase 20, part c: each segmentation fixture at 768x768 (batch 2),
+    from the port's export, read back and frozen: every module's codes
+    against the JAX digests, the sampled logits and the argmax in phase 17's
+    bands, one forward's launches as its routes say; the ``grouped`` route's
+    time (ESPNetv2's grouped 1x1s, float64 torch convs) beside the
+    forward's."""
+    from frostnet_tpu_torch.quant import load_int8
+
+    images = seg_images(0, ZOO_SEG_BATCH)
+    out, launches, odd, served = {}, {}, [], {}
+    for name in ZOO_SEG:
+        ref = np.load(os.path.join(TESTDATA, f"zoo_{name}_reference.npz"))
+        artifact = zoo_artifact(name, os.path.join(PHASE20_DIR, f"zoo_{name}_int8.npz"))
+        model = from_jax_variables(zoo_model(name), load_int8(artifact))
+        fn = freeze(model, dev)
+        expect = route_counts(model)
+        ops.reset_launch_counts()
+        logits, codes = module_codes(model, fn, images)
+        torch.cuda.synchronize()
+        launches[f"serving {name}"] = counts = ops.launch_counts()
+        if counts != expect:
+            raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
+        layers = check_digests(name, codes, ref)
+        rec = {"launches": counts, "layers": len(layers),
+               **seg_logits_check(name, logits, ref)}
+        x = torch.as_tensor(images, device=dev)
+        rec["forward_ms"] = time_ms(lambda: fn(x), reps=5, warmup=1)
+        grouped = [(c, m, inp) for c, m, inp in capture(model, x) if getattr(m, "_route", None) == "grouped"]
+        rec["grouped_ms"] = sum(time_ms(lambda m=m, inp=inp: m(inp, mode=INT8), reps=3,
+                                        warmup=1) for _, m, inp in grouped)
+        rec["grouped_convs"] = len(grouped)
+        odd += [(f"{name} {c}", m._op, inp.q) for c, m, inp in capture(model, x)
+                if getattr(m, "_route", None) == "dense3x3"
+                and (m.in_features % 4 or m.features % 4)]
+        try:
+            rec["profile"] = profile_forward(fn, x, {"int8_matmul_requant": "matmul",
+                                                     "int8_conv": "conv3x3_s1_int8"})
+            log_profile(f"{name} INT8 forward at {SEG_CROP}x{SEG_CROP}, batch {ZOO_SEG_BATCH}",
+                        rec["profile"])
+        except RuntimeError as e:
+            log(f"[zoo] {name}: no profile ({e})")
+            rec["profile"] = None
+        out[name] = rec
+        served[name] = (model, fn)
+        log(f"[zoo] {name} served at {SEG_CROP}x{SEG_CROP}, batch {ZOO_SEG_BATCH}: launches per "
+            f"forward {counts}; codes == JAX reference at {len(layers)} module outputs x "
+            f"{ZOO_SEG_BATCH} images; sampled logits / argmax per image: "
+            + ", ".join(f"{r['logits_max_diff']:.3g} / {r['argmax_mismatch_share']:.3g}"
+                        for r in rec["images"])
+            + f"; forward {rec['forward_ms']:.3f} ms, of which the {len(grouped)} grouped convs "
+            f"(float64 torch) {rec['grouped_ms']:.3f} ms")
+    return out, launches, odd, served
+
+
+def check_odd_convs(odd, dev):
+    """Phase 20, part d: the dense conv kernel, bit-exact to its plain
+    version, at the served forwards' convs whose channel counts are not
+    multiples of 4 (3 -> 64, 3 -> 3, 38 -> 19) and at 39 -> 20 (random
+    codes), each also with its input one byte into its storage; then timed
+    beside its bound, its plain version and ``torch._int_mm``."""
+    err, rows, shapes = 0, [], set()
+    g = torch.Generator().manual_seed(7)
+    cases = list(odd)
+    for what, b, h, w, cin, cout in ODD_CONV_RANDOM:
+        x = torch.randint(0, 256, (b, h, w, cin), generator=g, dtype=torch.uint8).to(dev)
+        qw = torch.randint(-127, 128, (3, 3, cin, cout), generator=g, dtype=torch.int8)
+        op = conv3x3_operands(qw, torch.tensor(4e-5), torch.randn(cout, generator=g) * 0.1, 97,
+                              0.05, 11, True, 0, 255, dev)
+        cases.append((what, op, x))
+    for what, op, x in cases:
+        want = conv3x3_s1_int8_plain(x, op)
+        err = max(err, check_equal(f"int8_conv {what}", conv3x3_s1_int8(x, op), want))
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+        shifted = buf[1:].view(x.shape)
+        shifted.copy_(x)
+        err = max(err, check_equal(f"int8_conv {what} (unaligned)", conv3x3_s1_int8(shifted, op),
+                                   want))
+        key = (tuple(x.shape), op.cout)
+        if key not in shapes:
+            shapes.add(key)
+            rows.append(conv_row(what, op, x))
+        del buf, shifted, want
+    torch.cuda.synchronize()
+    want = {(3, 64), (3, 3), (38, 19), (39, 20)}
+    got = {(s[0][3], s[1]) for s in shapes}
+    if not want <= got:
+        raise AssertionError(f"odd conv shapes {sorted(got)} miss {sorted(want - got)}")
+    return err, rows
+
+
+def train_zoo_classifiers(dev):
+    """Phase 20, part e: one QAT step of each classification fixture's model
+    (224x224, batch 8, from ``numpy_init``), of ``espnetv2_s_2_0`` with a
+    QAT_FROZEN eval forward, and one FP32 step of each float-only baseline:
+    finite losses, the fake-quant launches one a site (none for the float
+    models)."""
+    rep, launches = {}, {}
+    for name in ZOO_CLS + ("espnetv2_s_2_0",):
+        model = create_model(name, num_classes=CLASSES)
+        n_sites = observers(model)
+        state = create_train_state(model, get_optimizer("QSGD", 1e-3), seed=0, device=dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(0).items()}
+        state.start_qat()
+        ops.reset_launch_counts()
+        m = make_train_step(QAT, num_classes=CLASSES)(state, batch)
+        rec = {"qat_loss": float(m["loss"])}
+        if name.startswith("espnetv2"):
+            ev = make_eval_step(QAT_FROZEN, CLASSES)(state, batch)
+            rec["qat_frozen_loss"] = float(ev["loss"])
+        torch.cuda.synchronize()
+        launches[f"qat step {name}"] = counts = ops.launch_counts()
+        steps = 2 if name.startswith("espnetv2") else 1
+        # the ESPNetv2 classifier's level5_0 observes its zeros reinforcement too
+        if counts["fake_quant_observe"] != steps * n_sites or \
+                not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"{name}: QAT step {rec}, launches {counts} (sites {n_sites})")
+        rep[name] = {**rec, "sites": n_sites, "launches": counts}
+        del state, model
+        torch.cuda.empty_cache()
+    for name, size in ZOO_FLOAT:
+        model = create_model(name, num_classes=CLASSES)
+        state = create_train_state(model, get_optimizer("SGD", 1e-2), seed=0, device=dev)
+        rng = np.random.RandomState(3)
+        batch = {"image": torch.as_tensor(rng.randint(0, 256, (BATCH, size, size, 3))
+                                          .astype(np.uint8), device=dev),
+                 "label": torch.as_tensor(rng.randint(0, CLASSES, BATCH), device=dev)}
+        ops.reset_launch_counts()
+        m = make_train_step(FP32, num_classes=CLASSES)(state, batch)
+        torch.cuda.synchronize()
+        launches[f"fp32 step {name}"] = counts = ops.launch_counts()
+        if any(counts.values()) or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"{name}: FP32 step loss {float(m['loss'])}, launches {counts}")
+        rep[name] = {"fp32_loss": float(m["loss"]), "launches": counts}
+        del state, model
+        torch.cuda.empty_cache()
+    log(f"[zoo] QAT steps at {IMAGE}x{IMAGE}, batch {BATCH}: "
+        + ", ".join(f"{n} loss {r.get('qat_loss', r.get('fp32_loss')):.4f} "
+                    f"({r['launches']['fake_quant_observe']} fake-quant launches)"
+                    for n, r in rep.items()))
+    return rep, launches
+
+
+def train_seg_against_zoo_reference(name, dev):
+    """Phase 20, part f: a segmentation fixture's train step (ESPNet,
+    ESPNetv2 at ``s`` 2.0) against its committed JAX reference at 768x768,
+    batch 2 (float32, TF32 off): one FP32 step, ``start_qat``, one QAT step;
+    the losses, every observer and BN in phase 8's bands; the fake-quant
+    launches per step (0, then one a site)."""
+    from frostnet_tpu_torch.segmentation import train as seg_train
+    from frostnet_tpu_torch.segmentation.data import CITYSCAPES_CLASS_WEIGHTS
+
+    ref = np.load(os.path.join(TESTDATA, f"zoo_{name}_train_reference.npz"))
+    meta = json.loads(bytes(ref["__meta__"]).decode())
+    model = zoo_model(meta["model"])
+    n_sites = observers(model)
+    tx = get_optimizer("QSGD", meta["lr"], weight_decay=grouped_weight_decay(meta["wd"]),
+                       noise_decay=1.0)
+    state = create_train_state(model, tx, seed=meta["seed"], device=dev)
+    losses, per_step = [], []
+    ops.reset_launch_counts()
+    for k, mode in enumerate((FP32, QAT)):
+        if k == 1:
+            state.start_qat()
+        before = ops.fake_quant_observe.launches
+        m = seg_train.make_seg_train_step(mode, CITYSCAPES_CLASS_WEIGHTS, 255, SEG_CLASSES)(
+            state, seg_train_batch(k, meta["crop"], meta["batch"]))
+        losses.append(float(m["loss"]))
+        per_step.append(ops.fake_quant_observe.launches - before)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    if per_step != [0, n_sites]:
+        raise AssertionError(f"{name} steps: fake_quant_observe launches {per_step} != "
+                             f"[0, {n_sites}]")
+    rel = [abs(a - float(b)) / float(b) for a, b in zip(losses, ref["loss"])]
+    band_check(f"{name} FP32 step loss, relative to JAX", rel[0], FP32_LOSS_REL)
+    band_check(f"{name} QAT step loss, relative to JAX", rel[1], QAT_LOSS_REL)
+    mine = {k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()}
+    obs = []
+    for k in ref.files:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(ref[hi] - ref[k]), 1e-6)
+            obs.append(max(abs(float(mine[k] - ref[k])), abs(float(mine[hi] - ref[hi]))) / span)
+    if len(obs) != n_sites:
+        raise AssertionError(f"{len(obs)} observers in the reference, {n_sites} in the model")
+    band_check(f"{name} observers, median |diff| / range", float(np.median(obs)), OBS_MEDIAN)
+    band_check(f"{name} observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+    bn_mean = [float(np.max(np.abs(mine[k] - ref[k]) / np.sqrt(ref[k[:-4] + "var"])))
+               for k in ref.files if k.endswith("/mean")]
+    band_check(f"{name} BN means, median |diff| / std", float(np.median(bn_mean)), BN_MEAN_MEDIAN)
+    rep = {"losses": losses, "loss_rel": rel, "launches_per_step": per_step,
+           "observer_rel_range": {"median": float(np.median(obs)), "worst": float(max(obs))},
+           "bn_mean_over_std_median": float(np.median(bn_mean))}
+    log(f"[zoo] {name} train steps at {meta['crop']}x{meta['crop']}, batch {meta['batch']} "
+        f"against the JAX reference: losses {losses} (relative {rel}); observers "
+        f"{rep['observer_rel_range']} of their range; BN means {rep['bn_mean_over_std_median']:.3g}"
+        f" of a std (median); fake_quant_observe launches per step {per_step}")
+    del state, model
+    torch.cuda.empty_cache()
+    return rep, launches
+
+
+def zoo_seg_trainer_path(dev):
+    """Phase 20, part g: ``segmentation.train.main`` on ``espnetv2
+    --width_scale 2.0`` at 768x768 (batch 4, one FP32 and one QAT epoch of
+    one step), then ``evaluate.main --export_int8`` on ``best/``: finite
+    losses and mIoUs, each step's launches as the model's sites and routes
+    say."""
+    from frostnet_tpu_torch.segmentation import evaluate as seg_eval
+    from frostnet_tpu_torch.segmentation import get_seg_model, train as seg_train
+
+    cfg = ZOO_SEG_TRAINER_CFG
+    root = os.path.join(PHASE20_DIR, "trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(root, "run")
+    probe = get_seg_model(cfg["model"], s=cfg["width_scale"], num_classes=SEG_CLASSES)
+    n_sites = observers(probe)
+    probe.prepare_int8("cpu")
+    n_int8 = route_counts(probe)
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    expect = {("train", FP32): zero,
+              ("train", QAT): {**zero, "fake_quant_observe": n_sites},
+              ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
+              ("eval", INT8): {**zero, "int8_matmul_requant": n_int8["int8_matmul_requant"],
+                               "int8_conv": n_int8["int8_conv"]}}
+    names = ("make_seg_train_step", "make_seg_eval_step")
+    rep = {}
+    with StepCounter(seg_train, *names) as counter:
+        _, res = seg_train.main(seg_train.SegConfig(save_dir=save_dir, device=dev.type, **cfg))
+    rep["train_steps"] = check_step_launches(counter.rows, "espnetv2 train run", expect)
+    for h in res["history"]:
+        if not np.isfinite(h["loss"]):
+            raise AssertionError(f"espnetv2 trainer: {h['tag']} loss {h['loss']}")
+    rep["epochs"] = [{"tag": h["tag"], "loss": h["loss"], "images_per_sec": h["images_per_sec"]}
+                     for h in res["history"]]
+    artifact = os.path.join(root, "espnetv2_int8.npz")
+    with StepCounter(seg_train, *names) as counter:
+        ev = seg_eval.main(seg_eval.build_parser().parse_args(
+            ["--model", cfg["model"], "--width_scale", str(cfg["width_scale"]), "--crop_size",
+             str(cfg["crop_size"]), "--batch_size", str(cfg["batch_size"]), "--device", dev.type,
+             "--checkpoint", os.path.join(save_dir, "best"), "--export_int8", artifact]))
+    rep["evaluate_steps"] = check_step_launches(counter.rows, "espnetv2 evaluate", expect)
+    if not (np.isfinite(ev["qat"]) and np.isfinite(ev["int8"])):
+        raise AssertionError(f"espnetv2 evaluate: mIoU {ev['qat']} {ev['int8']}")
+    rep["trainer_miou"] = {k: res[k]["miou"] for k in ("qat", "int8")}
+    rep["evaluate_miou"] = {"qat": ev["qat"], "int8": ev["int8"],
+                            "export_bytes": ev["export_bytes"]}
+    log(f"[zoo] espnetv2 --width_scale 2.0 trainer at {cfg['crop_size']}x{cfg['crop_size']}: "
+        f"steps {rep['train_steps']} (fake_quant_observe {n_sites} per QAT step; INT8 forward "
+        f"{n_int8}); epochs {rep['epochs']}; mIoU QAT sim {rep['trainer_miou']['qat']:.4f}, INT8 "
+        f"{rep['trainer_miou']['int8']:.4f}; evaluate.main on best/: {rep['evaluate_miou']}")
+    return rep
+
+
+def zoo_phase(dev):
+    """Phase 20: the rest of the zoo on the card. Returns (report, launches
+    of each path, conv rows, max errors)."""
+    os.makedirs(PHASE20_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep, launches = {}, {}
+    rep["classifiers"], err, paths, odd = serve_zoo_classifiers(dev)
+    launches.update(paths)
+    rep["segmentation"], paths, seg_odd, served = serve_zoo_segs(dev)
+    launches.update(paths)
+    del served
+    torch.cuda.empty_cache()
+    e, odd_rows = check_odd_convs(odd + seg_odd, dev)
+    err["int8_conv"] = max(err["int8_conv"], e)
+    rep["odd_convs"] = [r["shape"] for r in odd_rows]
+    rep["training"], paths = train_zoo_classifiers(dev)
+    launches.update(paths)
+    for name in ZOO_SEG:
+        rep[f"{name}_train"], launches[f"{name} train check"] = \
+            train_seg_against_zoo_reference(name, dev)
+    ops.reset_launch_counts()
+    rep["trainer"] = zoo_seg_trainer_path(dev)
+    launches["espnetv2 trainer"] = ops.launch_counts()
+    for k in ("fake_quant_observe", "int8_matmul_requant", "int8_conv"):
+        if sum(c[k] for c in launches.values()) == 0:
+            raise AssertionError(f"phase 20 launched no {k}")
+    seen = {r["shape"].split(" ")[-1] for r in odd_rows}
+    conv_rows = odd_rows + [r for r in rep["classifiers"]["qvgg16_bn"].pop("conv_rows")
+                            if r["shape"].split(" ")[-1] not in seen]
+    return rep, launches, conv_rows, err
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4012,6 +4533,16 @@ def main(argv=None):
     max_err["fake_quant_observe"] = max(max_err["fake_quant_observe"],
                                         report["gan_train"]["fake_quant_max_abs_err"])
 
+    # 20. the rest of the zoo: VGG, ShuffleNetV2, AlexNet, ESPNetv2 and ESPNet
+    # served against the JAX digests, the dense conv at its odd channel
+    # counts, the QAT and FP32 steps, ESPNet's against the JAX reference,
+    # the ESPNetv2 trainer and evaluator
+    torch.cuda.empty_cache()
+    report["zoo"], zoo_counts, zoo_conv_rows, zoo_err = zoo_phase(dev)
+    timing["int8_conv"] += zoo_conv_rows
+    for k, v in zoo_err.items():
+        max_err[k] = max(max_err[k], v)
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -4050,7 +4581,8 @@ def main(argv=None):
         for key, path_counts in (("mobilenet_launches", mb_counts),
                                  ("resnet_launches", rn_counts), ("seg_launches", seg_counts),
                                  ("det_launches", det_counts),
-                                 ("gan_train_launches", gan_train_counts)):
+                                 ("gan_train_launches", gan_train_counts),
+                                 ("zoo_launches", zoo_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

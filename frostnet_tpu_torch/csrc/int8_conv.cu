@@ -46,6 +46,16 @@ constexpr int kHaloPix = (kTH + 2) * kHaloW;
 constexpr int kSlice = kHaloPix * 16;           // one 16-channel slice of the halo, bytes
 constexpr int kHaloBytes = 2 * kSlice;          // a multiple of 128 (TMA destinations)
 constexpr int kThreads = 128 * kTH;
+// how the halo's rows are staged: 16-byte or 4-byte cp.async where Cin and
+// x allow it, else byte loads (any Cin, e.g. an RGB image's 3 channels)
+constexpr int kX16 = 2, kX4 = 1, kXBytes = 0;
+
+__device__ __forceinline__ void st_shared_v4x(uint32_t dst, uint32_t a, uint32_t b, uint32_t c,
+                                              uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return kHaloBytes + 9 * kKC * bn; }
 __host__ __device__ constexpr int smem_bytes(int bn) {
@@ -58,7 +68,7 @@ conv3x3_s1_int8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__
                        const int32_t* __restrict__ zterm, const float* __restrict__ scale,
                        const float* __restrict__ bias, uint8_t* __restrict__ out, int H,
                        int W, int Cin, int Cout, int tiles_w, uint32_t zp_word,
-                       int x_vec16, int out_vec16, int relu, float out_mult, float out_zp,
+                       int x_mode, int out_vec16, int relu, float out_mult, float out_zp,
                        float qmin, float qmax) {
   extern __shared__ __align__(128) uint8_t smem_raw[];
   constexpr int kStage = stage_bytes(BN);
@@ -88,12 +98,18 @@ conv3x3_s1_int8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__
         st_shared_v4(dst, zp_word);
       } else if (c < Cin) {
         const uint8_t* src = xb + ((size_t)h * W + w) * Cin + c;
-        if (x_vec16) {
+        if (x_mode == kX16) {
           cp_async16(dst, src);
-        } else {
+        } else if (x_mode == kX4) {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
             if (c + 4 * q < Cin) cp_async4(dst + 4 * q, src + 4 * q);
+        } else {  // rows not 4-byte aligned: byte loads, packed into words
+          uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            if (c + j < Cin) v[j >> 2] |= (uint32_t)__ldg(src + j) << (8 * (j & 3));
+          st_shared_v4x(dst, v[0], v[1], v[2], v[3]);
         }
       }
     }
@@ -151,7 +167,7 @@ conv3x3_s1_int8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__
 template <int BN>
 cudaError_t launch(int B, int H, int W, const uint8_t* x, const int8_t* wt, const int32_t* zt,
                    const float* sp, const float* bp, uint8_t* op, int Cin, int Cout,
-                   uint32_t zp_word, int x_vec16, int out_vec16, int relu,
+                   uint32_t zp_word, int x_mode, int out_vec16, int relu,
                    float out_mult, float out_zp, float qmin, float qmax, cudaStream_t st) {
   constexpr int kSmem = smem_bytes(BN);
   static const cudaError_t attr = allow_smem(conv3x3_s1_int8_kernel<BN>, kSmem);
@@ -159,7 +175,7 @@ cudaError_t launch(int B, int H, int W, const uint8_t* x, const int8_t* wt, cons
   const int tiles_w = (W + kTW - 1) / kTW;
   const dim3 grid(tiles_w * ((H + kTH - 1) / kTH), (Cout + BN - 1) / BN, B);
   conv3x3_s1_int8_kernel<BN><<<grid, kThreads, kSmem, st>>>(
-      x, wt, zt, sp, bp, op, H, W, Cin, Cout, tiles_w, zp_word, x_vec16, out_vec16, relu,
+      x, wt, zt, sp, bp, op, H, W, Cin, Cout, tiles_w, zp_word, x_mode, out_vec16, relu,
       out_mult, out_zp, qmin, qmax);
   return cudaGetLastError();
 }
@@ -172,10 +188,12 @@ extern "C" int frost_conv3x3_s1_int8(const void* x, const void* wt, const void* 
                                      int zp_in, int relu, float out_mult, float out_zp,
                                      float qmin, float qmax, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || Cout <= 0) return (int)cudaSuccess;
-  if (Cin % 4 != 0 || Cout % 4 != 0 || cin_pad % kKC != 0 || cin_pad < Cin ||
-      (size_t)x % 4 != 0 || (size_t)wt % 16 != 0)
+  if (Cin <= 0 || cin_pad % kKC != 0 || cin_pad < Cin || (size_t)wt % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const int x_vec16 = Cin % 16 == 0 && (size_t)x % 16 == 0;
+  // one branch per launch: the aligned shapes keep their cp.async staging
+  const int x_mode = Cin % 16 == 0 && (size_t)x % 16 == 0 ? kX16
+                     : Cin % 4 == 0 && (size_t)x % 4 == 0 ? kX4
+                                                          : kXBytes;
   const int out_vec16 = Cout % 16 == 0 && (size_t)out % 16 == 0;
   const uint32_t zp_word = 0x01010101u * (uint32_t)(zp_in & 0xff);
   auto* xp = static_cast<const uint8_t*>(x);
@@ -187,9 +205,9 @@ extern "C" int frost_conv3x3_s1_int8(const void* x, const void* wt, const void* 
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       Cout <= 64 ? launch<64>(B, H, W, xp, wp, zt, sp, bp, op, Cin, Cout, zp_word,
-                              x_vec16, out_vec16, relu, out_mult, out_zp, qmin, qmax, st)
+                              x_mode, out_vec16, relu, out_mult, out_zp, qmin, qmax, st)
                  : launch<128>(B, H, W, xp, wp, zt, sp, bp, op, Cin, Cout, zp_word,
-                               x_vec16, out_vec16, relu, out_mult, out_zp, qmin, qmax, st);
+                               x_mode, out_vec16, relu, out_mult, out_zp, qmin, qmax, st);
   return (int)err;
 }
 

@@ -3,17 +3,24 @@
 ``create_model(name, **kwargs)`` mirrors ``frostnet_tpu.models.create_model``
 with the JAX factories' defaults (``num_classes`` 1000, ``drop_rate`` 0.2);
 keyword arguments (``num_classes``, ``qconfig``, ``drop_rate``, ``dtype``,
-``width_mult``, ``fuse_int8``) go to the model. The port has the 30
-FrostNets, the quantized and float MobileNetV2/V3 and the quantized and
-float ResNets (ResNet-18/34/50/101/152, ResNeXt-101 32x8d); every other JAX
-name raises ``NotImplementedError`` naming its ROADMAP.md item.
+``width_mult``, ``fuse_int8``) go to the model. Every JAX name is here:
+the 30 FrostNets, the quantized and float MobileNetV2/V3, ResNets,
+ShuffleNetV2s, VGGs and AlexNets, the float-only baselines (DenseNet,
+SqueezeNet, MNASNet, Inception-v3), the CIFAR models and the ESPNetv2
+classifiers.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 from .frostnet import FROSTNET_SETTINGS, CascadePreExBottleneck, FrostNet, make_divisible
 from .mobilenetv2 import MobileNetV2, mobilenetv2_factories
 from .mobilenetv3 import MobileNetV3, mobilenetv3_factories
 from .resnet import BasicBlock, Bottleneck, ResNet, resnet_factories
+from .shufflenetv2 import ShuffleNetV2, shufflenetv2_factories
+from .vgg import VGG, AlexNet, vgg_factories
+from .fp_only import DenseNet, InceptionV3, MNASNet, SqueezeNet, fp_only_factories
+from .cifar import CifarAlexNet, cifar_factories
 
 _WIDTHS = {"0_35": 0.35, "0_5": 0.5, "0_75": 0.75, "1_0": 1.0, "1_25": 1.25}
 
@@ -33,35 +40,40 @@ def _frostnet_factories():
     return reg
 
 
+def _espnetv2(s: float):
+    """An ESPNetv2 ImageNet classifier (``segmentation/espnet.py``)."""
+    def make(**kwargs):
+        from ..segmentation.espnet import EESPNet
+
+        kwargs.setdefault("num_classes", 1000)
+        return EESPNet(s=s, **kwargs)
+    return make
+
+
 _REGISTRY = {**_frostnet_factories(), **mobilenetv2_factories(), **mobilenetv3_factories(),
-             **resnet_factories()}
-
-_ITEM7 = "ROADMAP.md, Queue A item 7"
-# the JAX names the port does not have yet, by family, with their ROADMAP item
-_NOT_PORTED = {
-    f"ShuffleNetV2 ({_ITEM7}, second)": tuple(
-        f"{q}shufflenet_v2_x{w}" for q in ("", "q") for w in ("0_5", "1_0", "1_5", "2_0")),
-    f"VGG and AlexNet ({_ITEM7}, third)": ("alexnet", "qalexnet") + tuple(
-        f"{q}vgg{d}{bn}" for q in ("", "q") for d in (11, 13, 16, 19) for bn in ("", "_bn")),
-    f"the float-only baselines of fp_only.py ({_ITEM7})": (
-        "densenet121", "densenet169", "densenet201", "squeezenet1_0", "squeezenet1_1",
-        "mnasnet0_5", "mnasnet1_0", "inception_v3"),
-    f"the CIFAR aliases of cifar.py ({_ITEM7})": (
-        "cifar_alexnet", "cifar_mobilenet_v2_ReLU", "cifar_mobilenet_v3_large_HS",
-        "cifar_mobilenet_v3_small_HS", "cifar_resnet18", "cifar_resnet50", "cifar_vgg16_bn"),
-    f"the ESPNetv2 classifier ({_ITEM7}, with segmentation, item 8)": tuple(
-        f"espnetv2_s_{s}" for s in ("0_5", "1_0", "1_5", "2_0")),
-}
-_PENDING = {name: family for family, names in _NOT_PORTED.items() for name in names}
+             **resnet_factories(), **shufflenetv2_factories(), **vgg_factories(),
+             **fp_only_factories()}
 
 
-def create_model(name: str, **kwargs):
+def create_model(name: str, image_size: Optional[int] = None, **kwargs):
+    """The model registered as ``name``; ``image_size`` (the trainer's,
+    evaluator's and server's) sizes the dense head of VGG and AlexNet, and
+    is ignored by the other models."""
     factory = _REGISTRY.get(name)
     if factory is None:
-        if name in _PENDING:
-            raise NotImplementedError(f"{name!r} is not ported yet: {_PENDING[name]}")
         raise ValueError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
+    if image_size is not None and name in _SIZED_NAMES:
+        kwargs.setdefault("image_size", image_size)
     return factory(**kwargs)
+
+
+_REGISTRY.update(cifar_factories(create_model))
+_REGISTRY.update({f"espnetv2_s_{str(s).replace('.', '_')}": _espnetv2(s)
+                  for s in (0.5, 1.0, 1.5, 2.0)})
+# the models whose dense head is sized from the input (no adaptive pool)
+_SIZED_NAMES = {name for name in _REGISTRY
+                if name.startswith(("vgg", "qvgg", "alexnet", "qalexnet", "cifar_alexnet",
+                                    "cifar_vgg"))}
 
 
 def list_models(filter_substr: str = "") -> list:
@@ -69,5 +81,6 @@ def list_models(filter_substr: str = "") -> list:
 
 
 __all__ = ["create_model", "list_models", "FrostNet", "CascadePreExBottleneck", "MobileNetV2",
-           "MobileNetV3", "ResNet", "BasicBlock", "Bottleneck", "FROSTNET_SETTINGS",
-           "make_divisible"]
+           "MobileNetV3", "ResNet", "BasicBlock", "Bottleneck", "ShuffleNetV2", "VGG", "AlexNet",
+           "CifarAlexNet", "DenseNet", "SqueezeNet", "MNASNet", "InceptionV3",
+           "FROSTNET_SETTINGS", "make_divisible"]

@@ -234,7 +234,20 @@ class QConvBNAct(nn.Module):
 
     def _batch_norm(self, y: torch.Tensor, train: bool) -> torch.Tensor:
         """BN over NHWC ``y`` in float32; in train mode it normalizes with the
-        batch statistics and steps the running ones once."""
+        batch statistics and steps the running ones once. One value per
+        channel (the ESPNetv2 classifier's reinforcement call on a 1x1 zeros
+        image), which ``F.batch_norm`` refuses in train mode, normalizes to
+        ``bias_bn`` and steps the statistics as JAX does: the mean toward
+        that value, the variance toward 0 (``n / max(n - 1, 1)`` is 1)."""
+        if train and y.numel() == y.shape[-1]:
+            y = y.to(torch.float32)
+            bmean = y.reshape(-1)
+            with torch.no_grad():
+                m = self.bn_momentum
+                self.mean.mul_(1 - m).add_(m * bmean.detach())
+                self.var.mul_(1 - m)
+            inv = torch.rsqrt(torch.full_like(bmean, self.bn_eps))
+            return ((y - bmean) * inv * self.scale + self.bias_bn).reshape(y.shape)
         y = F.batch_norm(y.to(torch.float32).permute(0, 3, 1, 2), self.mean, self.var,
                          self.scale, self.bias_bn, training=train,
                          momentum=self.bn_momentum, eps=self.bn_eps)

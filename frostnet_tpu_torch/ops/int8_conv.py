@@ -15,8 +15,9 @@ the ResNets' non-strided 3x3s::
 ``x`` is the (B, H, W, Cin) uint8 codes, unpadded and unshifted: the kernel
 pads with the zero point itself and adds ``zterm = -zp_in * sum(qw)``. The
 TPU kernel's VMEM gate (``usable``, ``pick_h_tile``) has no counterpart:
-the CUDA kernel takes any H and W and any Cin and Cout that are multiples of
-4, masking its edge tiles; a CUDA tensor it cannot take raises.
+the CUDA kernel takes any H, W, Cin and Cout, masking its edge tiles (rows
+of channels that are not 4-byte aligned, an RGB image's 3 among them, are
+staged by byte loads, unaligned output rows stored byte by byte).
 
 :func:`conv3x3_s1_int8` launches the kernel for CUDA tensors and runs
 :func:`conv3x3_s1_int8_plain` for CPU tensors only. What bounds the kernel
@@ -127,9 +128,6 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
         return conv3x3_s1_int8_plain(x, op)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if op.cin % 4 or op.cout % 4:
-        raise ValueError(f"the kernel takes Cin and Cout in multiples of 4, got "
-                         f"{op.cin} -> {op.cout}")
     x = x.contiguous()
     b, h, w, _ = x.shape
     out = torch.empty((b, h, w, op.cout), dtype=torch.uint8, device=x.device)

@@ -278,8 +278,11 @@ def numpy_init(model, seed: int = 0, init: str = "kaiming"):
     The JAX package's initial values, drawn with ``np.random.RandomState(seed)``
     in sorted key order: conv kernels kaiming-normal with fan-out
     (``frostnet_tpu/nn/conv.py`` ``variance_scaling(2, "fan_out", "normal")``:
-    std ``sqrt(2 / (kh * kw * out))``, float32), BN scales and running
-    variances 1, biases and running means 0, observers at (+inf, -inf).
+    std ``sqrt(2 / (kh * kw * out))``, float32), the dense classifiers of
+    the float-only baselines and the ESPNetv2 classifier
+    (``classifier_kernel``, ``fc_kernel``: (in, out)) LeCun-normal (std
+    ``sqrt(1 / in)``), BN scales and running variances 1, biases and running
+    means 0, observers at (+inf, -inf).
     ``init="gan"`` draws the GAN networks' init instead
     (``frostnet_tpu/gan/networks.py:28-37``): kernels ``N(0, 0.02)`` and BN
     scales ``1 + 0.02 N``, each a standard normal draw in key order.
@@ -304,6 +307,8 @@ def _numpy_init(model: nn.Module, rng: np.random.RandomState, init: str) -> Dict
         elif leaf == "kernel":
             std = 0.02 if init == "gan" else np.sqrt(2.0 / (shape[0] * shape[1] * shape[3]))
             flat[key] = (rng.standard_normal(shape) * std).astype(np.float32)
+        elif leaf.endswith("_kernel"):  # a dense (in, out) classifier: LeCun normal
+            flat[key] = (rng.standard_normal(shape) / np.sqrt(shape[0])).astype(np.float32)
         elif leaf == "scale" and init == "gan" and key.startswith("params/"):
             flat[key] = (1.0 + 0.02 * rng.standard_normal(shape)).astype(np.float32)
         elif leaf in ("scale", "var"):

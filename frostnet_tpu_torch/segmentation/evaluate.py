@@ -126,7 +126,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="default resolved per dataset (512 / 768; 96 synthetic)")
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--width_scale", type=float, default=None,
-                   help="espnet/espnetv2 channel scale (not ported yet)")
+                   help="espnetv2 channel scale (the trainer's --width_scale)")
     p.add_argument("--save_images", default=None)
     p.add_argument("--export_int8", default=None, metavar="PATH",
                    help="write the converted INT8 deployment artifact (.npz)")

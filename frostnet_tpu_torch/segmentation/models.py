@@ -14,7 +14,9 @@ names are the JAX package's, so ``from_jax_variables``, ``export_int8`` and
 ``mobilenetv2`` is ported in FP32, QAT and QAT_FROZEN; its INT8 freeze
 raises, as the JAX model's INT8 forward does (``MobileNetV2(features_only=
 True)`` returns dequantized features, so the head's first conv meets a
-float where INT8 needs a QTensor; ROADMAP.md, Queue C).
+float where INT8 needs a QTensor; ROADMAP.md, Queue C). ``espnetv2`` and
+``espnet`` are ``segmentation/espnet.py``'s (``s``, the ``--width_scale``
+of the CLIs, scales ESPNetv2).
 """
 from __future__ import annotations
 
@@ -30,8 +32,6 @@ from ..ops.resize import resize_bilinear
 from ..quant import QConfig, QNNPACK
 from .heads import LRASPPHead
 
-_ESPNET = ("not ported yet: ESPNet and ESPNetv2 (frostnet_tpu/segmentation/espnet.py) are "
-           "ROADMAP.md, Queue A item 8, first of what remains")
 V2_INT8 = ("mobilenetv2 has no INT8 forward: MobileNetV2(features_only=True) returns "
            "dequantized features, so the LR-ASPP head's first conv meets a float where INT8 "
            "needs a QTensor; the JAX model raises the same way (AssertionError 'INT8 mode "
@@ -134,22 +134,29 @@ def _v3(mode: str, relu_only: bool):
     return make
 
 
-def _espnet(name: str):
+def _espnet(cls_name: str):
+    """ESPNetv2 or ESPNet (``segmentation/espnet.py``): 20 classes by default;
+    ``dataset`` (the LR-ASPP pool geometry, which these heads do not have)
+    is dropped, as the JAX registry drops it."""
     def make(**kwargs):
-        raise NotImplementedError(f"{name!r} is {_ESPNET}")
+        from . import espnet
+
+        kwargs.setdefault("num_classes", 20)
+        kwargs.pop("dataset", None)
+        return getattr(espnet, cls_name)(**kwargs)
     return make
 
 
 SEG_MODELS = {f"mobilenetv3{suffix}_{m}": _v3(m, re)
               for m in ("large", "small") for re, suffix in ((False, ""), (True, "_RE"))}
 SEG_MODELS["mobilenetv2"] = lambda **kw: MobileNetV2Seg(**{"num_classes": 19, **kw})
-SEG_MODELS["espnetv2"] = _espnet("espnetv2")
-SEG_MODELS["espnet"] = _espnet("espnet")
+SEG_MODELS["espnetv2"] = _espnet("ESPNetv2Seg")
+SEG_MODELS["espnet"] = _espnet("ESPNetSeg")
 
 
 def get_seg_model(name: str, **kwargs):
     """The JAX registry's names (Semantic_Segmentation/train.py's model
-    choices); ``espnet`` and ``espnetv2`` raise ``NotImplementedError``."""
+    choices)."""
     try:
         factory = SEG_MODELS[name]
     except KeyError:

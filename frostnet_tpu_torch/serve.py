@@ -56,7 +56,7 @@ class Int8Predictor:
             raise ValueError("pass artifact= (an export_int8 .npz)")
         self.device = resolve_device(device)
         self.image_size = image_size
-        self.model = create_model(model_name, num_classes=num_classes,
+        self.model = create_model(model_name, num_classes=num_classes, image_size=image_size,
                                   qconfig=artifact_qconfig(artifact), fuse_int8=fuse_int8)
         from_jax_variables(self.model, load_int8(artifact))
         self._apply = freeze(self.model, self.device, image_size=image_size)

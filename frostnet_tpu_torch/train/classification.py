@@ -263,7 +263,7 @@ def main(cfg: ClassificationConfig):
     train_ds = _build_dataset(cfg, train=True)
     val_ds = _build_dataset(cfg, train=False)
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
-    model = create_model(cfg.model, num_classes=cfg.num_classes)
+    model = create_model(cfg.model, num_classes=cfg.num_classes, image_size=cfg.image_size)
     tx = _optimizer(cfg, _schedule(cfg, steps_per_epoch))
     state = create_train_state(model, tx, seed=cfg.seed, device=device, ema_decay=cfg.ema_decay)
 

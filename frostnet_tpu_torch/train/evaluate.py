@@ -43,7 +43,7 @@ def main(args):
     if getattr(args, "layer_report", 0):
         raise NotImplementedError("--layer_report needs quant/numeric_suite.py, which is not "
                                   "ported yet (ROADMAP.md, Queue A)")
-    model = create_model(args.model, num_classes=args.num_classes)
+    model = create_model(args.model, num_classes=args.num_classes, image_size=args.image_size)
     if args.dataset == "synthetic":
         ds = SyntheticClassification(args.num_classes, args.image_size, args.batch_size * 4,
                                      args.batch_size, 1)

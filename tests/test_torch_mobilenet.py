@@ -2,8 +2,8 @@
 
 * Registry: every JAX name of the MobileNetV2/V3 and ResNet families and
   the 30 FrostNets builds in the port with JAX's variables (names and shapes, from
-  ``jax.eval_shape`` of ``init``: no compile); every other JAX name raises
-  ``NotImplementedError`` naming its ROADMAP item.
+  ``jax.eval_shape`` of ``init``: no compile); every other JAX name builds
+  with the JAX parameter count.
 * Export and INT8 at small sizes (``qmobilenet_v2_ReLU6``, width 0.35, and
   ``qmobilenet_v3_small_ReLU``, width 0.5; 32x32, fbgemm), calibrated in
   the port as the full-width fixture is (BN shifts, BN statistics read back,
@@ -60,10 +60,11 @@ def _jax_shapes(name):
 
 
 def test_registry_names():
-    """The port's names are exactly the JAX names of the ported families
-    (56); the JAX registry has no other name of those families."""
-    assert list_models() == _ported_jax_names()
-    assert len(list_models()) == N_PORTED
+    """The port's names are exactly the JAX registry's (101), of them 56 of
+    the families this file holds (FrostNets, MobileNets, ResNets)."""
+    assert list_models() == sorted(jax_list_models())
+    assert len(list_models()) == 101
+    assert len(_ported_jax_names()) == N_PORTED
 
 
 @pytest.mark.parametrize("name", ["mobilenet_v2", "mobilenet_v2_ReLU6", "qmobilenet_v2",
@@ -100,7 +101,7 @@ def test_parameter_counts_of_every_ported_name():
     in the port (``test_variables_match_jax`` holds quantized and float
     names of one architecture to JAX's own variables)."""
     groups = {}
-    for name in list_models():
+    for name in _ported_jax_names():  # the other 45: test_other_jax_names_raise_not_implemented
         groups.setdefault(_architecture(name), []).append(name)
     assert len(groups) == 24
     for names in groups.values():
@@ -113,11 +114,23 @@ def test_parameter_counts_of_every_ported_name():
 
 
 def test_other_jax_names_raise_not_implemented():
-    others = sorted(set(jax_list_models()) - set(list_models()))
+    """The other 45 JAX names (ShuffleNetV2, VGG, AlexNet, the float-only
+    baselines, the CIFAR models, the ESPNetv2 classifiers), which raised
+    ``NotImplementedError`` before they were ported, now each build with the
+    JAX model's parameter count (at 1000 classes, 10 for the CIFAR names;
+    VGG and AlexNet at the 224x224 their head is built for, ``cifar_alexnet``
+    at 32x32, Inception-v3 at 299x299); an unknown name is a ``ValueError``.
+    ``tests/test_torch_zoo.py`` holds their variables name by name."""
+    from test_torch_zoo import head_size
+
+    others = sorted(set(jax_list_models()) - set(_ported_jax_names()))
     assert len(others) == len(jax_list_models()) - N_PORTED == 45
     for name in others:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item"):
-            create_model(name)
+        size = head_size(name)
+        shapes = jax.eval_shape(jax_create_model(name).init, jax.random.PRNGKey(0),
+                                jnp.zeros((1, size, size, 3), jnp.float32))["params"]
+        want = sum(int(np.prod(v.shape)) for v in jax.tree.leaves(shapes))
+        assert sum(p.numel() for p in create_model(name).parameters()) == want, name
     with pytest.raises(ValueError, match="unknown model"):
         create_model("mobilenet_v4")
 

@@ -35,7 +35,7 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.train.classification, frostnet_tpu_torch.train.evaluate, "
             "frostnet_tpu_torch.utils.checkpoint, frostnet_tpu_torch.utils.logging, "
             "frostnet_tpu_torch.segmentation, frostnet_tpu_torch.segmentation.train, "
-            "frostnet_tpu_torch.segmentation.evaluate, "
+            "frostnet_tpu_torch.segmentation.evaluate, frostnet_tpu_torch.segmentation.espnet, "
             "frostnet_tpu_torch.detection, frostnet_tpu_torch.detection.train, "
             "frostnet_tpu_torch.detection.qeval, frostnet_tpu_torch.detection.evaluate, "
             "frostnet_tpu_torch.gan.train, frostnet_tpu_torch.gan.test, "

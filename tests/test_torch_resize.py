@@ -7,7 +7,8 @@ the pass's output side is a multiple of 64 and as separately rounded
 products and sum elsewhere (read from XLA's output); at the GAN's sizes
 (and at 32 -> 64) and at each resize of the segmentation models (the
 LR-ASPP head's c4 -> c1 and the float tail's to the input size, at the
-crops 768, 96 and 64, for MobileNetV3 and MobileNetV2) XLA's dot gives
+crops 768, 96 and 64, for MobileNetV3 and MobileNetV2; ESPNetv2's pyramid
+and decoder resizes and ESPNet's 2x ones at the crop 768) XLA's dot gives
 exactly that, and the other form would not. Tolerance: none.
 """
 import jax
@@ -51,7 +52,14 @@ SEG_RESIZES = [(48, 96, 128, 2, "separate"), (96, 768, 19, 1, "fma"),      # cro
                (6, 12, 128, 2, "separate"), (12, 96, 19, 2, "separate"),    # crop 96, V3
                (4, 8, 128, 2, "separate"), (8, 64, 19, 2, "fma"),           # crop 64, V3
                (48, 192, 128, 1, "fma"), (192, 768, 19, 1, "fma"),          # crop 768, V2
-               (6, 24, 128, 2, "separate"), (24, 96, 19, 2, "separate")]    # crop 96, V2
+               (6, 24, 128, 2, "separate"), (24, 96, 19, 2, "separate"),    # crop 96, V2
+               # crop 768: ESPNetv2 (s 2.0) PSP's four stages and proj_L4_C to
+               # l3's 96, its decoder's 96 -> 192 and 192 -> 384 and the tail's
+               # 384 -> 768; ESPNet's up2 96 -> 192 -> 384 and its tail's 384 -> 768
+               (48, 96, 256, 1, "separate"), (24, 96, 256, 1, "separate"),
+               (12, 96, 256, 1, "separate"), (6, 96, 256, 1, "separate"),
+               (96, 192, 19, 1, "fma"), (192, 384, 19, 1, "fma"), (384, 768, 19, 1, "fma"),
+               (96, 192, 20, 1, "fma"), (192, 384, 20, 1, "fma"), (384, 768, 20, 1, "fma")]
 
 
 def _other_form(x, n_out, form):

@@ -4,7 +4,7 @@
   JAX's variables (names and shapes, from ``jax.eval_shape`` of ``init``;
   the dilated MobileNetV3 has no ``cls_*`` modules, MobileNetV2 keeps its
   unused ``conv_head``); the dilated trunks' features have JAX's shapes;
-  ``espnet`` and ``espnetv2`` raise ``NotImplementedError``.
+  ``espnet`` and ``espnetv2`` build (``tests/test_torch_espnet.py``).
 * A JAX ``init`` (``PRNGKey``) loaded into the port gives the JAX FP32
   logits within ``SEG_LOGIT_BAND`` of their range.
 * INT8 and QAT of the four MobileNetV3 models: ``tests/test_torch_seg_int8.py``.
@@ -70,9 +70,10 @@ def test_variables_match_jax(name):
 
 def test_registry_and_refusals():
     assert sorted(SEG_MODELS) == sorted(JAX_SEG_MODELS)
-    for name in ("espnet", "espnetv2"):
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            get_seg_model(name)
+    for name in ("espnet", "espnetv2"):  # ported: 20 classes by default, dataset dropped
+        assert get_seg_model(name).num_classes == 20
+        assert get_seg_model(name, dataset="pascal", num_classes=21).num_classes == 21
+    assert get_seg_model("espnetv2", s=2.0).net.config[:5] == [32, 128, 256, 512, 1024]
     with pytest.raises(ValueError, match="unknown seg model"):
         get_seg_model("deeplabv3")
     assert get_seg_model("mobilenetv3_RE_small").num_classes == 19
