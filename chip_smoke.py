@@ -263,6 +263,31 @@ Phases (each raises on failure, and any failure exits non-zero):
      in phase 8's bands; (g) ``segmentation.train.main`` and ``evaluate.main`` on
      ``espnetv2 --width_scale 2.0`` at 768x768. Each path's launches are
      counted from 0.
+ 21. the rest of serving and the model tools (``tools_phase``), with TF32
+     off: (a) ``serve.main --workload seg`` on ``mobilenetv3_large`` at
+     512x1024 (the JAX server's default), batch 8, full width and depth,
+     over the port's export of the committed calibration
+     (``testdata/seg_mobilenetv3_large_calibration.npz``): images/s, p50 and
+     p95, the matmul launches a forward (one per 1x1 or im2col conv), the 8
+     class-map PNGs; then the same model's kernel path against its plain
+     path on the card (``plain_kernels``: the wrappers' plain versions):
+     every layer's codes, the logits and the class maps equal; (b) the
+     serialized program (``quant/serialize.py``, ``torch.export`` with the
+     kernels as ``torch.library`` ops) of the committed INT8 fixture, fused
+     and unfused, exported once on a symbolic batch and served by
+     ``serve.main --program`` at batch 8 and 128: the logits equal the
+     in-process ``Int8Predictor``'s bit for bit, the launches a forward 18
+     blocks + 3 matmuls and 52 matmuls, the pipelined ms a batch beside the
+     in-process model's; (c) ``FrostNet(output_stride=16|8)`` with
+     ``features_only`` from the fixture's variables at 224x224 (batch 8) and
+     512x512 (batch 2), INT8 with ``fuse_int8``: the four features equal
+     the plain path, the block kernel launched at the undilated blocks
+     only, the matmul at the stem and the dilated blocks' 1x1s; (d) the
+     numeric suite on the fixture at batch 8, INT8 against QAT_FROZEN (166
+     fake-quant and 52 matmul launches), its rows' paths and shapes equal
+     to the CPU run's, the worst 5 printed; (e) ``latency_check.main``
+     (fbgemm, batch 1) for ``qmobilenet_v2_ReLU`` and
+     ``frostnet_quant_large_1_0``: FP32, QAT_FROZEN and INT8 ms a batch.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -282,15 +307,19 @@ phase 18 (the two served forwards, the training check, the timed steps, the
 trainer path), ``gan_train_launches``, the same for phase 19 (the two
 training checks, the trainer path, the tester and server), and
 ``zoo_launches``, the same for phase 20 (each served forward, each training
-step, the two training checks, the ESPNetv2 trainer path). Phase 20 alone, after
-the build: ``python3 -c "import torch, chip_smoke as c;
-c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``.
+step, the two training checks, the ESPNetv2 trainer path), and
+``tools_launches``, the same for phase 21 (the seg server, each program at
+each batch, each dilated forward, the numeric suite, each latency probe).
+Phase 20 alone, after the build: ``python3 -c "import torch, chip_smoke as c;
+c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``
+(``tools_phase`` for phase 21).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import os
@@ -4247,6 +4276,300 @@ def zoo_phase(dev):
                             if r["shape"].split(" ")[-1] not in seen]
     return rep, launches, conv_rows, err
 
+# ---------------------------------------------------------------------------
+# Phase 21: the rest of serving and the model tools
+# ---------------------------------------------------------------------------
+
+PHASE21_DIR = os.path.join(ROOT, "build", "phase21")
+SERVE_SEG = ("mobilenetv3_large", 512, 1024, 8)  # the JAX server's seg default, batch 8
+SERVE_ITERS = 3
+PROGRAM_BATCHES = (8, 128)
+DILATED = ((16, 224, BATCH), (8, 224, BATCH), (16, 512, 2), (8, 512, 2))  # stride, size, batch
+LATENCY_MODELS = ("qmobilenet_v2_ReLU", MODEL)
+
+
+class plain_kernels:
+    """Within the block, the INT8 graph's kernel calls go to their plain
+    versions: the comparison path, on the card as on the CPU (the modules
+    look the wrappers up by name when they run)."""
+
+    def __enter__(self):
+        import frostnet_tpu_torch.models.frostnet as frostnet_mod
+        import frostnet_tpu_torch.nn.conv as conv_mod
+
+        self.saved = [(conv_mod, "int8_matmul_requant", int8_matmul_requant_plain),
+                      (conv_mod, "conv3x3_s1_int8", conv3x3_s1_int8_plain),
+                      (frostnet_mod, "frost_block_int8", frost_block_int8_plain)]
+        self.saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in self.saved]
+        for mod, name, _, plain in self.saved:
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, kernel, _ in self.saved:
+            setattr(mod, name, kernel)
+
+
+def served_forwards(iters: int, extra: int = 0) -> int:
+    """Forwards of one ``serve.main`` run: the warm-up, ``iters`` timed
+    requests, ``iters`` pipelined ones, and ``extra`` (saved logits, the
+    predicted batches)."""
+    return 1 + 2 * iters + extra
+
+
+def per_forward(counts: dict, forwards: int, what: str) -> dict:
+    if any(v % forwards for v in counts.values()):
+        raise AssertionError(f"{what}: launches {counts} are not a multiple of {forwards} forwards")
+    return {k: v // forwards for k, v in counts.items()}
+
+
+def serve_seg_phase(dev):
+    """Phase 21a: ``serve.main --workload seg`` on ``mobilenetv3_large`` at
+    512x1024, batch 8, over the port's export of the committed calibration:
+    the report, the PNG count and the launches a forward; then the same
+    model's kernel path against its plain path on the card, every layer's
+    codes, the logits and the class maps."""
+    from frostnet_tpu_torch.segmentation import get_seg_model
+
+    name, h, w, b = SERVE_SEG
+    trained = from_jax_variables(get_seg_model(name, num_classes=SEG_CLASSES),
+                                 unflatten_variables(seg_variables(name)))
+    artifact = os.path.join(PHASE21_DIR, f"seg_{name}_int8.npz")
+    export_int8(trained, artifact)
+    maps = os.path.join(PHASE21_DIR, "seg_maps")
+    shutil.rmtree(maps, ignore_errors=True)
+    ops.reset_launch_counts()
+    rep = serve.main(serve.build_parser().parse_args(
+        ["--workload", "seg", "--artifact", artifact, "--num_classes", str(SEG_CLASSES),
+         "--batch_size", str(b), "--iters", str(SERVE_ITERS), "--output", maps,
+         "--predict_batches", "1"]))
+    torch.cuda.synchronize()
+    launches = per_forward(ops.launch_counts(), served_forwards(SERVE_ITERS, 1), "seg serving")
+    pngs = sorted(os.listdir(maps))
+    if pngs != [f"pred_{i:05d}.png" for i in range(b)]:
+        raise AssertionError(f"seg serving wrote {pngs}, not {b} class maps")
+    pred = serve.seg_predictor(name, artifact, SEG_CLASSES, h, dev)
+    n_mm = len(matmul_convs(pred.model))
+    if launches != {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+                    "int8_conv": 0}:
+        raise AssertionError(f"seg serving: launches a forward {launches}, {n_mm} matmuls expected")
+    x = torch.as_tensor(np.random.RandomState(21).randn(b, h, w, 3).astype(np.float32),
+                        device=dev)
+    logits, codes = seg_layer_codes(pred.model, pred, x)
+    with plain_kernels():
+        plain_logits, plain_codes = seg_layer_codes(pred.model, pred, x)
+    if set(codes) != set(plain_codes):
+        raise AssertionError("seg: the kernel and plain paths record other layers")
+    for layer, q in codes.items():
+        check_equal(f"seg {layer}", q, plain_codes[layer])
+    classes = logits.argmax(dim=-1)
+    if not torch.equal(classes, plain_logits.argmax(dim=-1)) or not torch.equal(logits,
+                                                                               plain_logits):
+        raise AssertionError("seg: class maps or logits of the kernel path != the plain path")
+    if logits.shape != (b, h, w, SEG_CLASSES) or len(torch.unique(classes)) < 2:
+        raise AssertionError(f"seg: logits {tuple(logits.shape)}, classes "
+                             f"{torch.unique(classes).tolist()}")
+    out = {"report": rep, "launches": launches, "layers": len(codes), "pngs": len(pngs),
+           "classes": len(torch.unique(classes))}
+    log(f"[tools] serve --workload seg {name} {h}x{w} batch {b}: "
+        f"{rep['request_images_per_sec']} images/s a request (p50 {rep['latency_ms']['p50']} ms, "
+        f"p95 {rep['latency_ms']['p95']} ms), {rep['pipeline_images_per_sec']} pipelined; "
+        f"{launches['int8_matmul_requant']} matmul launches a forward; {len(pngs)} PNGs; "
+        f"codes at {len(codes)} layers, logits and class maps == the plain path on the card")
+    return out, ops.launch_counts()
+
+
+def program_phase(dev):
+    """Phase 21b: the serialized program of the committed INT8 fixture, fused
+    and unfused: exported once on a symbolic batch, served by ``serve.main
+    --program`` at batch 8 and 128 (logits bit-equal to the in-process
+    ``Int8Predictor``, the same launches a forward); the program loaded in
+    this process and the in-process model timed with CUDA events, as phase 6
+    times serving. The block op's launch plans go with the dropped
+    programs."""
+    from frostnet_tpu_torch.ops import frost_block
+
+    out, launches = {}, {}
+    expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
+                     "int8_conv": 0},
+              False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
+                      "int8_conv": 0}}
+    for fuse in (True, False):
+        what = "fused" if fuse else "unfused"
+        pred = Int8Predictor(MODEL, artifact=ARTIFACT, image_size=IMAGE, fuse_int8=fuse,
+                             device=dev)
+        path = os.path.join(PHASE21_DIR, f"{MODEL}_{what}.pt2")
+        t0 = time.perf_counter()
+        nbytes = pred.export_program(path)
+        t1 = time.perf_counter()
+        prog = Int8Predictor(program=path, device=dev)
+        rec = {"export_s": t1 - t0, "load_s": time.perf_counter() - t1, "bytes": nbytes}
+        for b in PROGRAM_BATCHES:
+            saved = os.path.join(PHASE21_DIR, f"program_{what}_{b}.npy")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = serve.main(serve.build_parser().parse_args(
+                ["--program", path, "--image_size", str(IMAGE), "--batch_size", str(b),
+                 "--iters", str(SERVE_ITERS), "--save_logits", saved]))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            launches[f"program {what} bs{b}"] = counts
+            got = per_forward(counts, served_forwards(SERVE_ITERS, 1), f"program {what}")
+            if got != expect[fuse]:
+                raise AssertionError(f"program {what} batch {b}: launches a forward {got} != "
+                                     f"{expect[fuse]}")
+            x = torch.as_tensor(np.random.RandomState(0).randn(b, IMAGE, IMAGE, 3)
+                                .astype(np.float32), device=dev)
+            want = pred(x).cpu()
+            if not (torch.equal(torch.as_tensor(np.load(saved)), want)
+                    and torch.equal(prog(x).cpu(), want)):
+                raise AssertionError(f"program {what} batch {b}: logits != the in-process "
+                                     "predictor's")
+            reps = 10 if fuse else 3
+            rec[f"bs{b}"] = {"program_ms": time_ms(lambda: prog(x), reps, warmup=1),
+                             "in_process_ms": time_ms(lambda: pred(x), reps, warmup=1),
+                             "serve_main": rep, "serve_main_s": wall}
+            log(f"[tools] program {what} batch {b}: serve.main --program logits == in-process "
+                f"predictor, launches a forward {got} ({wall:.1f} s); "
+                f"{rec[f'bs{b}']['program_ms']:.3f} ms a batch (in-process "
+                f"{rec[f'bs{b}']['in_process_ms']:.3f}), CUDA events")
+        log(f"[tools] program {what}: {nbytes / 1e6:.2f} MB, exported in {rec['export_s']:.1f} s, "
+            f"loaded in {rec['load_s']:.1f} s")
+        out[what] = rec
+        plans = len(frost_block._PLANS)
+        del pred, prog
+        gc.collect()
+        if len(frost_block._PLANS) != 0:
+            raise AssertionError(f"program {what}: {len(frost_block._PLANS)} of {plans} block "
+                                 "launch plans outlived the programs")
+    return out, launches
+
+
+def dilated_phase(dev):
+    """Phase 21c: ``FrostNet(output_stride=16|8)`` with ``features_only`` from
+    the fixture's variables, INT8 with ``fuse_int8``: the four features
+    bit-equal to the plain path on the card; the block kernel only at the
+    undilated blocks, the matmul kernel at the stem and the dilated blocks'
+    1x1s."""
+    from frostnet_tpu_torch.quant import load_int8
+    from frostnet_tpu_torch.quant.export import artifact_qconfig
+
+    out, launches = {}, {}
+    variables = load_int8(ARTIFACT)
+    for os_, size, b in DILATED:
+        model = from_jax_variables(create_model(MODEL, output_stride=os_, fuse_int8=True,
+                                                qconfig=artifact_qconfig(ARTIFACT)), variables)
+        freeze(model, dev, image_size=size)
+        dilated = [blk for blk in model.blocks if blk.dilation > 1]
+        expect = {"frost_block_int8": len(model.block_specs(size)),
+                  "int8_matmul_requant": 1 + sum(blk.has_squeeze + blk.has_expand + 1
+                                                 for blk in dilated),
+                  "fake_quant_observe": 0, "int8_conv": 0}
+        x = torch.as_tensor(np.random.RandomState(os_ + size).randn(b, size, size, 3)
+                            .astype(np.float32), device=dev)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            feats = model(x, mode=INT8, features_only=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        launches[f"os{os_} {size}"] = counts
+        if counts != expect:
+            raise AssertionError(f"output_stride {os_} at {size}: launches {counts} != {expect}")
+        with plain_kernels(), torch.inference_mode():
+            plain = model(x, mode=INT8, features_only=True)
+        for i, (f, p) in enumerate(zip(feats, plain)):
+            if not torch.equal(f, p) or not torch.isfinite(f).all():
+                raise AssertionError(f"output_stride {os_} at {size}: feature {i} != plain path")
+        out[f"os{os_}_{size}"] = {"shapes": [tuple(f.shape) for f in feats], "launches": counts}
+        log(f"[tools] FrostNet output_stride {os_} at {size}, batch {b}: features "
+            f"{[tuple(f.shape[1:]) for f in feats]} == plain path; {counts['frost_block_int8']} "
+            f"undilated blocks on the block kernel, {counts['int8_matmul_requant']} matmuls "
+            f"(the stem and the {len(dilated)} dilated blocks' 1x1s)")
+        del model, feats, plain
+    return out, launches
+
+
+def numeric_suite_phase(dev):
+    """Phase 21d: ``compare_modes`` on the full-width fixture at batch 8, INT8
+    against QAT_FROZEN (the fake-quant kernel at its sites): the row set and
+    shapes equal to the port's CPU run; the worst 5 rows printed."""
+    from frostnet_tpu_torch.quant import load_int8
+    from frostnet_tpu_torch.quant.numeric_suite import compare_modes, format_report
+
+    x = np.random.RandomState(22).randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
+    # on the card, the model of a fused predictor that has served (its blocks'
+    # launch plans made): the suite compares an unfused copy of it
+    pred = Int8Predictor(MODEL, artifact=ARTIFACT, image_size=IMAGE, fuse_int8=True, device=dev)
+    served = pred(x)
+    ops.reset_launch_counts()
+    rows = {"card": compare_modes(pred.model, x)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["fake_quant_observe"] != N_SITES or counts["int8_matmul_requant"] != 52:
+        raise AssertionError(f"numeric suite launches {counts}: {N_SITES} fake-quant sites "
+                             "and 52 matmuls expected")
+    ops.reset_launch_counts()
+    if not torch.equal(pred(x), served) or ops.launch_counts()["frost_block_int8"] != 18:
+        raise AssertionError("numeric suite: the predictor no longer serves as before")
+    rows["cpu"] = compare_modes(from_jax_variables(create_model(MODEL), load_int8(ARTIFACT)), x)
+    shapes = {where: {r.path: r.shape for r in rs} for where, rs in rows.items()}
+    if shapes["card"] != shapes["cpu"]:
+        raise AssertionError("numeric suite: the card's rows != the CPU's")
+    worst = format_report(rows["card"], 5)
+    log(f"[tools] numeric suite, {MODEL} at {IMAGE}, batch {BATCH}: {len(rows['card'])} rows "
+        f"== the CPU run's paths and shapes; launches {counts}; worst 5:\n{worst}")
+    return ({"rows": len(rows["card"]), "worst": [dataclass_row(r) for r in rows["card"][:5]],
+             "cpu_worst": [dataclass_row(r) for r in rows["cpu"][:5]]}, counts)
+
+
+def dataclass_row(r) -> dict:
+    return {"path": r.path, "shape": list(r.shape), "sqnr_db": r.sqnr_db,
+            "max_quanta": r.max_quanta}
+
+
+def latency_phase(dev):
+    """Phase 21e: ``latency_check.main`` (fbgemm, batch 1) for the default
+    ``qmobilenet_v2_ReLU`` and for ``frostnet_quant_large_1_0``."""
+    from frostnet_tpu_torch.train import latency_check
+
+    out, launches = {}, {}
+    for name in LATENCY_MODELS:
+        ops.reset_launch_counts()
+        rep = latency_check.cli(["--model", name, "--iters", "20"])
+        launches[f"latency {name}"] = ops.launch_counts()
+        if (torch.device(rep["device"]).type != dev.type
+                or not all(rep[k] > 0 for k in ("fp_ms", "qat_ms", "int8_ms"))):
+            raise AssertionError(f"latency_check {name}: {rep}")
+        out[name] = rep
+        log(f"[tools] latency_check {name} (fbgemm, batch 1): FP32 {rep['fp_ms']:.3f}, QAT_FROZEN "
+            f"{rep['qat_ms']:.3f}, INT8 {rep['int8_ms']:.3f} ms a batch; size FP32 "
+            f"{rep['fp_size_mb']:.2f} MB, INT8 {rep['int8_size_mb']:.2f} MB")
+    return out, launches
+
+
+def tools_phase(dev):
+    """Phase 21: seg serving, the serialized programs, the dilated features,
+    the numeric suite and the latency probe. Returns (report, launches of
+    each path)."""
+    os.makedirs(PHASE21_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rep, launches, seconds = {}, {}, {}
+    for key, fn in (("seg_serving", serve_seg_phase), ("program", program_phase),
+                    ("dilated", dilated_phase), ("numeric_suite", numeric_suite_phase),
+                    ("latency", latency_phase)):
+        t0 = time.perf_counter()
+        rep[key], paths = fn(dev)
+        seconds[key] = time.perf_counter() - t0
+        launches.update({key.replace("_", " "): paths} if key in ("seg_serving", "numeric_suite")
+                        else paths)
+        torch.cuda.empty_cache()
+    rep["seconds"] = seconds
+    log(f"[tools] phase 21 in {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return rep, launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
@@ -4543,6 +4866,11 @@ def main(argv=None):
     for k, v in zoo_err.items():
         max_err[k] = max(max_err[k], v)
 
+    # 21. the rest of serving and the tools: seg serving, the serialized
+    # programs, the dilated FrostNet features, the numeric suite, latency_check
+    torch.cuda.empty_cache()
+    report["tools"], tools_counts = tools_phase(dev)
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -4582,7 +4910,8 @@ def main(argv=None):
                                  ("resnet_launches", rn_counts), ("seg_launches", seg_counts),
                                  ("det_launches", det_counts),
                                  ("gan_train_launches", gan_train_counts),
-                                 ("zoo_launches", zoo_counts)):
+                                 ("zoo_launches", zoo_counts),
+                                 ("tools_launches", tools_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

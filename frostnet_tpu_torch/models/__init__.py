@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .frostnet import FROSTNET_SETTINGS, CascadePreExBottleneck, FrostNet, make_divisible
+from .frostnet_features import FrostNetFeatures, load_torch_frostnet_checkpoint
 from .mobilenetv2 import MobileNetV2, mobilenetv2_factories
 from .mobilenetv3 import MobileNetV3, mobilenetv3_factories
 from .resnet import BasicBlock, Bottleneck, ResNet, resnet_factories
@@ -80,7 +81,8 @@ def list_models(filter_substr: str = "") -> list:
     return sorted(n for n in _REGISTRY if filter_substr in n)
 
 
-__all__ = ["create_model", "list_models", "FrostNet", "CascadePreExBottleneck", "MobileNetV2",
+__all__ = ["create_model", "list_models", "FrostNet", "FrostNetFeatures",
+           "load_torch_frostnet_checkpoint", "CascadePreExBottleneck", "MobileNetV2",
            "MobileNetV3", "ResNet", "BasicBlock", "Bottleneck", "ShuffleNetV2", "VGG", "AlexNet",
            "CifarAlexNet", "DenseNet", "SqueezeNet", "MNASNet", "InceptionV3",
            "FROSTNET_SETTINGS", "make_divisible"]

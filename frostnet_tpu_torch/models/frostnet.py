@@ -11,7 +11,14 @@ observers stepping or frozen), or INT8, the frozen integer graph that
 float32).
 
 ``fuse_int8=True`` runs each Frost block of the INT8 graph as one CUDA
-kernel (``ops/frost_block``), bit-identical to the unfused path. The float
+kernel (``ops/frost_block``), bit-identical to the unfused path.
+``output_stride`` 16 or 8 dilates the later stages for dense prediction
+(stage 4 by 2; stage 5 by 2, or by 4 at 8), and a dilated stage's blocks
+all take stride 1; ``forward(..., features_only=True)`` returns the stage
+outputs ``[x1, x2, x3, x5]``. The kernel takes undilated blocks only, so
+under ``fuse_int8`` a dilated model is mixed: its dilated blocks run the
+unfused route (the matmul kernel for the 1x1s, the dilated depthwise in
+torch ops), as the JAX model runs them unfused. The float
 FrostNets (``quantized=False``: no QuantStub, observers, QCat or QAdd; a
 concatenate and a plain residual add) run in float in every phase.
 """
@@ -86,16 +93,19 @@ class CascadePreExBottleneck(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
-                 strides: int = 1, expand_ratio: int = 6, reduce_factor: int = 4,
-                 block_type: str = "CAS", quantized: bool = True, qconfig: QConfig = QNNPACK,
-                 fuse_int8: bool = False, dtype: torch.dtype = torch.float32):
+                 strides: int = 1, dilation: int = 1, expand_ratio: int = 6,
+                 reduce_factor: int = 4, block_type: str = "CAS", quantized: bool = True,
+                 qconfig: QConfig = QNNPACK, fuse_int8: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if in_channels // reduce_factor < 8:
             block_type = "MB"
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.strides, self.expand_ratio = kernel_size, strides, expand_ratio
+        self.dilation = dilation
         self.qconfig, self.quantized = qconfig, quantized
-        self.fuse_int8 = fuse_int8 and quantized
+        # the fused kernel takes undilated blocks only (the JAX block's gate)
+        self.fuse_int8 = fuse_int8 and quantized and dilation == 1
         self.r_channels = make_divisible(in_channels // reduce_factor)
         self.has_expand = expand_ratio != 1
         self.has_squeeze = self.has_expand and block_type == "CAS"
@@ -110,8 +120,8 @@ class CascadePreExBottleneck(nn.Module):
         if self.has_expand:
             self.conv1 = QConvBNAct(n_channels, self.e, 1, act="relu", **kw)
         self.conv2 = QConvBNAct(self.e, self.e, kernel_size, strides=strides,
-                                padding=(kernel_size - 1) // 2, groups=self.e,
-                                act="relu", **kw)
+                                padding=dilation * (kernel_size - 1) // 2, dilation=dilation,
+                                groups=self.e, act="relu", **kw)
         self.reduce_conv = QConvBNAct(self.e, out_channels, 1, act=None, **kw)
         if self.residual and quantized:
             self.skip_add = QAdd(qconfig)
@@ -193,45 +203,62 @@ class FrostNet(nn.Module):
     Module names follow the JAX model: ``quant``, ``conv1``, ``layer{s}_{i}``,
     ``last_layer``, ``classifier``. Input: float NHWC images. Dropout before
     the classifier is active in train mode and draws from the ``generator``
-    passed to ``forward``.
+    passed to ``forward``. ``output_stride=32`` is the classification
+    trunk; 16 or 8 dilates the later stages. ``head=False`` builds the trunk
+    alone (no ``last_layer`` or ``classifier``: the variables of the JAX
+    model initialised with ``features_only=True``).
     """
 
     def __init__(self, num_classes: int = 1000, mode: str = "large",
                  width_mult: float = 1.0, quantized: bool = True, drop_rate: float = 0.2,
-                 qconfig: QConfig = QNNPACK, fuse_int8: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 output_stride: int = 32, qconfig: QConfig = QNNPACK,
+                 fuse_int8: bool = False, dtype: torch.dtype = torch.float32,
+                 head: bool = True):
         super().__init__()
         self.num_classes, self.fuse_int8 = num_classes, fuse_int8 and quantized
         self.drop_rate, self.dtype, self.quantized = drop_rate, dtype, quantized
+        self.output_stride, self.head = output_stride, head
         kw = dict(quantized=quantized, qconfig=qconfig, dtype=dtype)
         stem_c = make_divisible(int(32 * min(1.0, width_mult)))
         if quantized:
             self.quant = QuantStub(qconfig)
         self.conv1 = QConvBNAct(3, stem_c, 3, strides=2, padding=1, act="relu", **kw)
-        self.blocks = []
+        d4 = 2 if output_stride <= 16 else 1
+        d5 = (4 if output_stride <= 8 else 2) if output_stride <= 16 else 1
+        self.blocks, self.stage_ends = [], []
         c = stem_c
         for si, stage in enumerate(FROSTNET_SETTINGS[mode]):
+            dilation = {3: d4, 4: d5}.get(si, 1)
             for i, (k, ch, e, r, s) in enumerate(stage):
                 out_c = make_divisible(int(ch * width_mult))
-                blk = CascadePreExBottleneck(c, out_c, kernel_size=k, strides=s,
-                                             expand_ratio=e, reduce_factor=r,
-                                             fuse_int8=self.fuse_int8, **kw)
+                blk = CascadePreExBottleneck(c, out_c, kernel_size=k,
+                                             strides=s if dilation == 1 else 1,
+                                             dilation=dilation, expand_ratio=e,
+                                             reduce_factor=r, fuse_int8=self.fuse_int8, **kw)
                 self.add_module(f"layer{si + 1}_{i}", blk)
                 self.blocks.append(blk)
                 c = out_c
-        self.last_layer = QConvBNAct(c, 1280, 1, act="relu", **kw)
-        self.classifier = QConvBNAct(1280, num_classes, 1, use_bn=False, use_bias=True,
-                                     act=None, **kw)
+            self.stage_ends.append(len(self.blocks) - 1)
+        if head:
+            self.last_layer = QConvBNAct(c, 1280, 1, act="relu", **kw)
+            self.classifier = QConvBNAct(1280, num_classes, 1, use_bn=False, use_bias=True,
+                                         act=None, **kw)
 
-    def block_specs(self, image_size: int):
-        """``[(name, FrostBlockSpec)]`` of the 18 (or fewer) blocks at ``image_size``."""
+    def _block_sizes(self, image_size: int):
+        """``[(name, block, (h, w))]``: each block's input size at ``image_size``."""
         hw = ((image_size + 2 - 3) // 2 + 1,) * 2  # the stride-2 3x3 stem
-        specs = []
+        sizes = []
         for name, blk in self.named_children():
             if isinstance(blk, CascadePreExBottleneck):
-                specs.append((name, blk.spec(*hw)))
-                hw = specs[-1][1].out_hw
-        return specs
+                sizes.append((name, blk, hw))
+                hw = blk.spec(*hw).out_hw  # a dilated block keeps its size ('same', stride 1)
+        return sizes
+
+    def block_specs(self, image_size: int):
+        """``[(name, FrostBlockSpec)]`` of the undilated blocks at ``image_size``:
+        the 18 (or fewer) that the fused kernel can take."""
+        return [(name, blk.spec(*hw)) for name, blk, hw in self._block_sizes(image_size)
+                if blk.dilation == 1]
 
     def prepare_int8(self, device, image_size: int) -> None:
         """Freeze every module for ``image_size`` inputs on ``device`` (a
@@ -240,25 +267,32 @@ class FrostNet(nn.Module):
             return
         g = self.quant.prepare_int8(device)
         g = self.conv1.prepare_int8(g, device)
-        for blk, (_, spec) in zip(self.blocks, self.block_specs(image_size)):
-            g = blk.prepare_int8(g, device, (spec.h, spec.w))
-        g = self.last_layer.prepare_int8(g, device)
-        self.classifier.prepare_int8(g, device)
+        for _, blk, hw in self._block_sizes(image_size):
+            g = blk.prepare_int8(g, device, hw)
+        if self.head:
+            g = self.last_layer.prepare_int8(g, device)
+            self.classifier.prepare_int8(g, device)
 
     def forward(self, x: torch.Tensor, mode: QuantMode = FP32, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, S, S, 3) float images -> (B, num_classes) logits.
+                generator: Optional[torch.Generator] = None, features_only: bool = False):
+        """(B, S, S, 3) float images -> (B, num_classes) logits, or with
+        ``features_only`` the outputs of stages 1, 2, 3 and 5 (dequantized).
 
         In INT8 a quantized model runs frozen (``quant.freeze``) and returns
-        float32 logits; the float phases return them in the compute dtype.
+        float32; the float phases return the compute dtype.
         """
         if mode.int8 and self.quantized and not hasattr(self.quant, "_out"):
             raise RuntimeError("INT8 runs frozen only: call quant.freeze(model) first")
         if self.quantized:
             x = self.quant(x, mode)
         x = self.conv1(x, mode, train)
-        for blk in self.blocks:
+        feats = []
+        for i, blk in enumerate(self.blocks):
             x = blk(x, mode, train)
+            if i in self.stage_ends:
+                feats.append(x)
+        if features_only or not self.head:
+            return [dequant(f) for f in (feats[0], feats[1], feats[2], feats[4])]
         x = self.last_layer(x, mode, train)
         x = global_avg_pool(x, keepdims=True)
         if train and self.drop_rate > 0 and not mode.int8:

@@ -9,10 +9,15 @@ needs ``nvcc`` for ``sm_90a``. Nothing here runs at import time.
 Numerics flags: ``-fmad=false`` so nvcc contracts no multiply-add on its own
 (the kernels write ``__fmaf_rn`` where the reference fuses), and no fast-math
 (IEEE division and square root).
+
+The INT8 kernels are also ``torch.library`` ops, so that ``torch.export``
+traces them: :func:`traced` says when a wrapper must call its op, and
+:func:`fields` gives an operand set as the op takes it.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -20,7 +25,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -102,3 +109,19 @@ def check(err: int, error_string, what: str) -> None:
     if err != 0:
         msg = error_string(err)
         raise RuntimeError(f"{what}: CUDA error {err}: {msg.decode() if msg else '?'}")
+
+
+def traced(x: torch.Tensor) -> bool:
+    """Whether a wrapper called on ``x`` is being traced (``torch.export``,
+    whose inputs are fake tensors, or a dispatch mode such as the flop
+    counter): the wrapper then calls its ``torch.library`` op, which the
+    tracer records. Otherwise it launches its kernel directly, off the
+    dispatcher's per-call cost."""
+    return (type(x) is not torch.Tensor or torch._C._len_torch_dispatch_stack() > 0
+            or torch.compiler.is_compiling())
+
+
+def fields(operands) -> List:
+    """An operand dataclass's fields in their order: the op's arguments
+    after ``x``, which the op's implementations pass back to the class."""
+    return [getattr(operands, f.name) for f in dataclasses.fields(operands)]

@@ -16,16 +16,28 @@ counterpart: the CUDA kernel tiles the output spatially and splits the
 expanded width across a thread-block cluster, planned per batch size for the
 card's SM count (:func:`plan_launch`); it takes every block shape of the
 registered FrostNets, and a shape it cannot take raises.
+
+:func:`frost_block_int8` calls the ``torch.library`` op
+``frostnet::frost_block_int8`` where ``torch.export`` traces it
+(``quant/serialize.py``); called eagerly, it goes to the same launch without
+the dispatcher. The op takes the spec and the operands as lists of tensors,
+ints and floats, each named (:func:`op_args`). Its CUDA implementation plans
+the launch per batch size and packs the weights on the host at the first
+call at that batch, as the wrapper does, and keeps them by the reduce
+weight's tensor (a constant of the loaded program, the same object at every
+call), weakly: they go with the program. Its CPU implementation is
+:func:`frost_block_int8_plain`, for CPU tensors only.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import cuda_build
 from .int8_matmul import MatmulOperands, conv1x1_operands, int8_matmul_requant_plain
@@ -612,29 +624,94 @@ def prepare_launch(spec: FrostBlockSpec, p: FrostBlockParams, batch: int,
     return launch
 
 
+_MM_TENSORS = ("wt", "zterm", "scale", "bias")
+_MM_INTS = ("k", "out_zp", "relu", "qmin", "qmax")
+_MMS = ("rd", "sq", "ex")
+_INTS = (tuple(f.name for f in dataclasses.fields(FrostBlockSpec))
+         + ("x_zp", "cat_zp", "dw_in_zp", "dw_zp", "add_zp")
+         + tuple(f"{m}.{f}" for m in _MMS for f in _MM_INTS))
+_FLOATS = (("x_scale", "cat_sq_s", "cat_sq_mult", "cat_x_s", "cat_x_mult", "dw_mult", "rd_s",
+            "add_mult") + tuple(f"{m}.out_mult" for m in _MMS))
+
+
+def _tensor_names(has_squeeze: bool, has_expand: bool) -> Tuple[str, ...]:
+    """The names of the op's tensors: the reduce's matmul operands first,
+    the depthwise's, then the squeeze's and the expand's where the block
+    has them."""
+    mms = ["rd"] + [m for m, on in (("sq", has_squeeze), ("ex", has_expand)) if on]
+    names = tuple(f"{m}.{f}" for m in mms for f in _MM_TENSORS)
+    return names[:4] + ("dw_w", "dw_zt", "dw_scale", "dw_bias") + names[4:]
+
+
+def op_args(spec: FrostBlockSpec, p: FrostBlockParams
+            ) -> Tuple[List[torch.Tensor], List[int], List[float]]:
+    """(tensors, ints, floats): the spec and the operands as the op takes
+    them, in the order of :func:`_tensor_names`, ``_INTS`` and ``_FLOATS``
+    (an absent matmul's scalars are 0)."""
+    named = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    named.update((f.name, getattr(p, f.name)) for f in dataclasses.fields(p)
+                  if f.init and f.name not in _MMS)
+    for m in _MMS:
+        op = getattr(p, m)
+        named.update((f"{m}.{f.name}", getattr(op, f.name) if op is not None else 0)
+                     for f in dataclasses.fields(MatmulOperands))
+    return ([named[n] for n in _tensor_names(spec.has_squeeze, spec.has_expand)],
+            [int(named[n]) for n in _INTS], [float(named[n]) for n in _FLOATS])
+
+
+def _spec_of(ints) -> FrostBlockSpec:
+    named = dict(zip(_INTS, ints))
+    return FrostBlockSpec(**{f.name: named[f.name] for f in dataclasses.fields(FrostBlockSpec)})
+
+
+def from_op_args(tensors, ints, floats) -> Tuple[FrostBlockSpec, FrostBlockParams]:
+    """The inverse of :func:`op_args`."""
+    spec = _spec_of(ints)
+    named = {**dict(zip(_INTS, ints)), **dict(zip(_FLOATS, floats)),
+             **dict(zip(_tensor_names(spec.has_squeeze, spec.has_expand), tensors))}
+    mm = {m: MatmulOperands(**{f.name: named[f"{m}.{f.name}"]
+                               for f in dataclasses.fields(MatmulOperands)})
+          if f"{m}.wt" in named else None for m in _MMS}
+    p = FrostBlockParams(**mm, **{f.name: named[f.name] for f in dataclasses.fields(
+        FrostBlockParams) if f.init and f.name not in _MMS})
+    return spec, p
+
+
 def frost_block_int8(x: torch.Tensor, p: FrostBlockParams, spec: FrostBlockSpec) -> torch.Tensor:
     """Run one fused INT8 Frost block: (B, H, W, Cin) uint8 -> (B, Ho, Wo, Cout).
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel
-    (or raises). The first call at a batch size does host work before its
-    launch: it plans the launch, packs the weights where no earlier plan
-    packed them alike and copies them to the card (:func:`prepare_launch`,
-    kept in ``p.launches``). Make that call outside a CUDA graph's capture.
-    Each launch adds one to ``frost_block_int8.launches``.
+    (or raises); under ``torch.export`` the call is the op. The first call at
+    a batch size does host work before its launch: it plans the launch, packs
+    the weights where no earlier plan packed them alike and copies them to
+    the card (:func:`prepare_launch`, kept in ``p.launches``). Make that call
+    outside a CUDA graph's capture. Each launch adds one to
+    ``frost_block_int8.launches``.
     """
     if x.dtype != torch.uint8 or x.dim() != 4 or tuple(x.shape[1:]) != (spec.h, spec.w, spec.cin):
         raise ValueError(f"x must be (B, {spec.h}, {spec.w}, {spec.cin}) uint8, "
                          f"got {tuple(x.shape)} {x.dtype}")
     if x.device != p.rd.wt.device:
         raise ValueError(f"x on {x.device}, operands on {p.rd.wt.device}")
+    if cuda_build.traced(x):
+        return torch.ops.frostnet.frost_block_int8(x, *op_args(spec, p))
     if x.device.type == "cpu":
         return frost_block_int8_plain(x, p, spec)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    batch = x.shape[0]
-    launch = p.launches.get(batch)
+    launch = p.launches.get(x.shape[0])
     if launch is None:
-        launch = p.launches[batch] = prepare_launch(spec, p, batch, x.device)
+        launch = p.launches[x.shape[0]] = prepare_launch(spec, p, x.shape[0], x.device)
+    return _launch(x, spec, launch)
+
+
+frost_block_int8.launches = 0
+
+
+def _launch(x: torch.Tensor, spec: FrostBlockSpec, launch: Launch) -> torch.Tensor:
+    """Launch a planned kernel on the current stream; raises if the build or
+    the launch fails."""
+    batch = x.shape[0]
     x = x.contiguous()
     if x.data_ptr() % 16:  # the kernel reads the input in 8- and 16-byte words
         x = x.clone()
@@ -650,4 +727,54 @@ def frost_block_int8(x: torch.Tensor, p: FrostBlockParams, spec: FrostBlockSpec)
     return out
 
 
-frost_block_int8.launches = 0
+@dataclasses.dataclass
+class _Plans:
+    """What the op's CUDA implementation keeps of one block: its arguments'
+    scalars (to tell a block apart from another that shares its reduce
+    weight), its spec, its launches by batch size and their packed weights.
+    Nothing here refers to the op's tensors."""
+
+    ints: List[int]
+    floats: List[float]
+    spec: FrostBlockSpec
+    launches: Dict[int, Launch] = dataclasses.field(default_factory=dict)
+    packed: Dict[tuple, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+# reduce weight tensor -> _Plans; an entry goes with its tensor
+_PLANS = WeakIdKeyDictionary()
+
+
+def _op_cuda(x: torch.Tensor, tensors: List[torch.Tensor], ints: List[int],
+             floats: List[float]) -> torch.Tensor:
+    plans = _PLANS.get(tensors[0])
+    if plans is None or plans.ints != ints or plans.floats != floats:
+        plans = _PLANS[tensors[0]] = _Plans(list(ints), list(floats), _spec_of(ints))
+    launch = plans.launches.get(x.shape[0])
+    if launch is None:
+        p = from_op_args(tensors, ints, floats)[1]
+        p.packed = plans.packed
+        launch = plans.launches[x.shape[0]] = prepare_launch(plans.spec, p, x.shape[0], x.device)
+    return _launch(x, plans.spec, launch)
+
+
+def _op_cpu(x, tensors, ints, floats):
+    spec, p = from_op_args(tensors, ints, floats)
+    return frost_block_int8_plain(x, p, spec)
+
+
+def _op_fake(x, tensors, ints, floats):
+    spec = _spec_of(ints)
+    ho, wo = spec.out_hw
+    return x.new_empty((x.shape[0], ho, wo, spec.cout), dtype=torch.uint8)
+
+
+# The op, for torch.export. Registered on the dispatcher directly (not
+# ``torch.library.custom_op``, whose Python autograd layer runs at every
+# call): CUDA launches, CPU runs the plain version, the fake implementation
+# gives the output's shape.
+_LIB = torch.library.Library("frostnet", "FRAGMENT")
+_LIB.define("frost_block_int8(Tensor x, Tensor[] tensors, int[] ints, float[] floats) -> Tensor")
+_LIB.impl("frost_block_int8", _op_cpu, "CPU")
+_LIB.impl("frost_block_int8", _op_cuda, "CUDA")
+torch.library.register_fake("frostnet::frost_block_int8", _op_fake, lib=_LIB)

@@ -19,9 +19,13 @@ the CUDA kernel takes any H, W, Cin and Cout, masking its edge tiles (rows
 of channels that are not 4-byte aligned, an RGB image's 3 among them, are
 staged by byte loads, unaligned output rows stored byte by byte).
 
-:func:`conv3x3_s1_int8` launches the kernel for CUDA tensors and runs
-:func:`conv3x3_s1_int8_plain` for CPU tensors only. What bounds the kernel
-and how it is built is in the source note of the ``.cu`` file.
+:func:`conv3x3_s1_int8` calls the ``torch.library`` op
+``frostnet::conv3x3_s1_int8`` where ``torch.export`` traces it (the operands'
+fields by name): its CUDA implementation launches the kernel, its CPU
+implementation is :func:`conv3x3_s1_int8_plain`, for CPU tensors only.
+Called eagerly, the wrapper goes to the same launch without the dispatcher.
+What bounds the kernel and how it is built is in the source note of the
+``.cu`` file.
 """
 from __future__ import annotations
 
@@ -116,7 +120,8 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
     """(B, H, W, Cin) uint8 -> (B, H, W, Cout) uint8 through the CUDA kernel.
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel
-    (or raises). Each launch adds one to ``conv3x3_s1_int8.launches``.
+    (or raises); under ``torch.export`` the call is the op. Each launch adds
+    one to ``conv3x3_s1_int8.launches``.
     """
     if x.dim() != 4 or x.shape[3] != op.cin:
         raise ValueError(f"x must be (B, H, W, {op.cin}), got {tuple(x.shape)}")
@@ -124,10 +129,21 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
         raise TypeError(f"x must be uint8 codes, got {x.dtype}")
     if x.device != op.wt.device:
         raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
+    if cuda_build.traced(x):
+        return torch.ops.frostnet.conv3x3_s1_int8(x, *cuda_build.fields(op))
     if x.device.type == "cpu":
         return conv3x3_s1_int8_plain(x, op)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _launch(x, op)
+
+
+conv3x3_s1_int8.launches = 0
+
+
+def _launch(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
+    """Launch the kernel on the current stream (raises if the build or the
+    launch fails)."""
     x = x.contiguous()
     b, h, w, _ = x.shape
     out = torch.empty((b, h, w, op.cout), dtype=torch.uint8, device=x.device)
@@ -142,4 +158,18 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
     return out
 
 
-conv3x3_s1_int8.launches = 0
+# The op, for torch.export: the x and the operands' fields in their dataclass
+# order (a schema ``float`` is a double, which holds a float32 exactly).
+# Registered on the dispatcher directly (not ``torch.library.custom_op``, whose
+# Python autograd layer runs at every call): CUDA launches, CPU runs the plain
+# version, the fake implementation gives the output's shape.
+_LIB = torch.library.Library("frostnet", "FRAGMENT")
+_LIB.define("conv3x3_s1_int8(Tensor x, Tensor wt, int cin, int zp_in, Tensor zterm, "
+            "Tensor scale, Tensor bias, float out_mult, int out_zp, bool relu, int qmin, "
+            "int qmax) -> Tensor")
+_LIB.impl("conv3x3_s1_int8", lambda x, *f: conv3x3_s1_int8_plain(x, Conv3x3Operands(*f)), "CPU")
+_LIB.impl("conv3x3_s1_int8", lambda x, *f: _launch(x, Conv3x3Operands(*f)), "CUDA")
+torch.library.register_fake(
+    "frostnet::conv3x3_s1_int8",
+    lambda x, wt, *f: x.new_empty(tuple(x.shape[:3]) + (wt.shape[3],), dtype=torch.uint8),
+    lib=_LIB)

@@ -23,9 +23,15 @@ trunk, ``final_conv`` (K = 320, N = 1280 on the 19x19 map) and the extras'
 (``base1`` by im2col, K = 27, N = 64; its 1x1s, K up to 736). The float head
 launches none.
 
-:func:`int8_matmul_requant` launches the kernel for CUDA tensors and runs
-:func:`int8_matmul_requant_plain` for CPU tensors only. What bounds the
-kernel and how it is built is in the source note of the ``.cu`` file.
+:func:`int8_matmul_requant` calls the ``torch.library`` op
+``frostnet::int8_matmul_requant`` where ``torch.export`` traces it
+(``quant/serialize.py``): the op takes the operands' fields by name, its CUDA
+implementation launches the kernel, its CPU implementation is
+:func:`int8_matmul_requant_plain`, for CPU tensors only, and its fake
+implementation gives the output's shape. Called eagerly, the wrapper goes to
+the same launch (or the plain version) without the dispatcher, whose
+per-call cost is the host's on the serving path. What bounds the kernel and
+how it is built is in the source note of the ``.cu`` file.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ class MatmulOperands:
     @property
     def n(self) -> int:
         return self.wt.shape[0]
+
 
 
 def pack_operands(w: torch.Tensor, zterm: torch.Tensor, scale: torch.Tensor,
@@ -121,7 +128,8 @@ def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
     """(M, K') uint8/int8 -> (M, N) uint8 through the CUDA kernel.
 
     CPU tensors take the plain version; a CUDA tensor launches the kernel
-    (or raises). Each launch adds one to ``int8_matmul_requant.launches``.
+    (or raises); under ``torch.export`` the call is the op. Each launch adds
+    one to ``int8_matmul_requant.launches``.
     """
     if x.dim() != 2 or not op.k <= x.shape[1] <= op.wt.shape[1]:
         raise ValueError(f"x must be (M, K) with {op.k} <= K <= {op.wt.shape[1]}, "
@@ -130,10 +138,21 @@ def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
         raise TypeError(f"x must be uint8 or int8, got {x.dtype}")
     if x.device != op.wt.device:
         raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
+    if cuda_build.traced(x):
+        return torch.ops.frostnet.int8_matmul_requant(x, *cuda_build.fields(op))
     if x.device.type == "cpu":
         return int8_matmul_requant_plain(x, op)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    return _launch(x, op)
+
+
+int8_matmul_requant.launches = 0
+
+
+def _launch(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
+    """Launch the kernel on the current stream (raises if the build or the
+    launch fails)."""
     x = x.contiguous()
     m = x.shape[0]
     out = torch.empty((m, op.n), dtype=torch.uint8, device=x.device)
@@ -148,4 +167,17 @@ def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
     return out
 
 
-int8_matmul_requant.launches = 0
+# The op, for torch.export: the x and the operands' fields in their dataclass
+# order (a schema ``float`` is a double, which holds a float32 exactly).
+# Registered on the dispatcher directly (not ``torch.library.custom_op``, whose
+# Python autograd layer runs at every call): CUDA launches, CPU runs the plain
+# version, the fake implementation gives the output's shape.
+_LIB = torch.library.Library("frostnet", "FRAGMENT")
+_LIB.define("int8_matmul_requant(Tensor x, Tensor wt, int k, Tensor zterm, Tensor scale, "
+            "Tensor bias, float out_mult, int out_zp, bool relu, int qmin, int qmax) -> Tensor")
+_LIB.impl("int8_matmul_requant", lambda x, *f: int8_matmul_requant_plain(x, MatmulOperands(*f)),
+          "CPU")
+_LIB.impl("int8_matmul_requant", lambda x, *f: _launch(x, MatmulOperands(*f)), "CUDA")
+torch.library.register_fake(
+    "frostnet::int8_matmul_requant",
+    lambda x, wt, *f: x.new_empty((x.shape[0], wt.shape[0]), dtype=torch.uint8), lib=_LIB)

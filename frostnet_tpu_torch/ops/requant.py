@@ -34,9 +34,12 @@ they run on any device (every step is an IEEE-exact torch op).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
+
+from . import cuda_build
 
 _INF = float("inf")
 
@@ -66,7 +69,9 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """
     p = a.to(torch.float64) * b.to(torch.float64)
     s = p + c.to(torch.float64)
-    with torch.no_grad():
+    # (no grad-mode switch where grad is off already: torch.export splits a
+    # traced graph at each one)
+    with torch.no_grad() if torch.is_grad_enabled() else contextlib.nullcontext():
         bb = s - p
         err = (p - (s - bb)) + (c.to(torch.float64) - bb)
         even = (s.view(torch.int64) & 1) == 0
@@ -161,11 +166,18 @@ def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
     SSD extras' 32 -> 128) output channel ``oc`` reads input channel
     ``oc // m``, as the JAX package repeats each input channel ``m`` times
     (lax's group-major order).
+
+    Under ``torch.export`` the same integers come from one grouped float64
+    conv (:func:`conv_acc`): a node where the loop over taps makes about
+    five a tap, which the export and the program's load pay for.
     """
     d = dilation
     p = d * (kernel - 1) // 2
     b, h, w_sp, c = x.shape
     mult = w.shape[1] // c
+    if cuda_build.traced(x):
+        wc = w.to(torch.float64).t().reshape(c * mult, 1, kernel, kernel)
+        return conv_acc(x, wc, zp, stride, p, groups=c, dilation=d)
     xi = x.to(torch.int32) - zp
     xi = torch.nn.functional.pad(xi, (0, 0, p, p, p, p))
     ho = (h + 2 * p - d * (kernel - 1) - 1) // stride + 1
@@ -183,7 +195,7 @@ def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
 
 
 def conv_acc(x: torch.Tensor, w: torch.Tensor, zp: int, stride: int = 1, padding: int = 1,
-             groups: int = 1) -> torch.Tensor:
+             groups: int = 1, dilation: int = 1) -> torch.Tensor:
     """The int32 sum of a conv of uint8 NHWC codes around their zero point.
 
     ``w`` is the (Cout, Cin / groups, kh, kw) weight as float64. The JAX
@@ -198,5 +210,5 @@ def conv_acc(x: torch.Tensor, w: torch.Tensor, zp: int, stride: int = 1, padding
     the cast: such errors are far below 0.5 in float64.
     """
     xs = (x.to(torch.float64) - float(zp)).permute(0, 3, 1, 2).contiguous()
-    acc = torch.nn.functional.conv2d(xs, w, None, stride, padding, 1, groups)
+    acc = torch.nn.functional.conv2d(xs, w, None, stride, padding, dilation, groups)
     return torch.round(acc).permute(0, 2, 3, 1).to(torch.int32)

@@ -18,6 +18,7 @@ from .folding import bn_scale_factor, fold_bn
 from .qtensor import QParams, QTensor
 from .export import export_int8, from_jax_variables, load_int8, model_variables, numpy_init
 from .freeze import freeze
+from .serialize import export_serving, load_serving
 
 __all__ = [
     "QSpec", "QConfig", "QNNPACK", "FBGEMM", "QNNPACK_ACT", "QNNPACK_WEIGHT",
@@ -26,5 +27,5 @@ __all__ = [
     "calculate_qparams_folded", "calculate_qparams_traced",
     "quantize", "dequantize", "fake_quantize", "fold_bn", "bn_scale_factor",
     "QTensor", "QParams", "export_int8", "load_int8", "from_jax_variables", "model_variables",
-    "numpy_init", "freeze",
+    "numpy_init", "freeze", "export_serving", "load_serving",
 ]

@@ -1,35 +1,59 @@
-"""Batched INT8 serving on the GPU: the registry's classifiers and the GAN generator.
+"""Batched INT8 serving on the GPU for every quantized workload
+(``frostnet_tpu/serve.py``).
 
 Loads an INT8 artifact written by ``export_int8`` (the JAX package's or the
-port's: one layout), freezes the model once on the device, and serves
-batched predictions with latency reporting. ``--workload cls`` (the
-default) serves a classifier (a quantized FrostNet or MobileNet),
-``--workload gan`` the
-pix2pix/CycleGAN ResnetGenerator
-(``--model resnet_9blocks`` by default, 256x256 images), ``--workload det``
-a detector (``--model qssd`` by default, or ``qtdsod``; 300x300): the INT8
-feature net and the float head from ``BASE_feat.npz`` and ``BASE_head.npz``
-(``--artifact BASE``, as ``detection.qeval --export_int8`` writes them),
-then the softmax and ``detect`` (``conf_thresh`` 0.25, ``top_k`` 50) into
-JSON-lines detections (``--output``). The report has the
+port's: one layout), a trainer checkpoint (classification) or a serialized
+program (classification, ``quant/serialize.py``), freezes the model once on
+the device, and serves batched predictions with latency reporting.
+``--workload`` selects the model family:
+
+  * ``cls`` (the default): a quantized classifier's logits; top-k JSON lines
+    (``--output``). ``--artifact``, ``--checkpoint`` and ``--program`` are
+    the three sources, one at a time; ``--export_program`` also writes the
+    serialized program of the served model.
+  * ``seg``: a segmentation model (``mobilenetv3_large`` by default, built in
+    bfloat16 as the JAX server builds it) at ``--image_size`` 512 and twice
+    that wide unless ``--image_width`` says otherwise; per-pixel class maps,
+    written as Cityscapes-palette PNGs ``pred_*.png`` into the ``--output``
+    directory.
+  * ``det``: a detector (``qssd`` by default, or ``qtdsod``; 300x300): the
+    INT8 feature net and the float head from ``BASE_feat.npz`` and
+    ``BASE_head.npz`` (``--artifact BASE``, as ``detection.qeval
+    --export_int8`` writes them), then the softmax and ``detect``
+    (``conf_thresh`` 0.25, ``top_k`` 50) into JSON-lines detections.
+  * ``gan``: the pix2pix/CycleGAN ResnetGenerator (``resnet_9blocks`` by
+    default, 256x256); generated images as ``fake_*.png``.
+
+PNGs are written by ``gan/visualizer.py::write_png`` (zlib, no PIL).
+``--source folder`` reads the images under ``--data_dir`` (PIL, imported
+when asked for) with each workload's own preprocessing. The report has the
 keys of ``frostnet_tpu.serve``:
 
   * ``latency_ms`` and ``request_images_per_sec``: per request, with the
-    logits copied back to the host every batch (what a serving process
+    output copied back to the host every batch (what a serving process
     observes);
   * ``pipeline_images_per_sec``: batches enqueued back to back, one
     synchronisation at the end (a saturated server).
 
+The JAX server's ``--dp`` (a request batch sharded over chips) is not
+ported yet (ROADMAP.md, Queue A item 6.5).
+
 Run: python -m frostnet_tpu_torch.serve --model frostnet_quant_large_1_0 \\
        --artifact model_int8.npz --source synthetic --iters 20 [--fuse_int8]
-     python -m frostnet_tpu_torch.serve --workload gan --artifact netG_int8.npz
-     python -m frostnet_tpu_torch.serve --workload det --artifact runs/detection/ssd \
+     python -m frostnet_tpu_torch.serve --checkpoint runs/classification/best \\
+       --export_program model.pt2
+     python -m frostnet_tpu_torch.serve --program model.pt2 --batch_size 128
+     python -m frostnet_tpu_torch.serve --workload seg --artifact seg_int8.npz \\
+       --num_classes 19 --output maps/
+     python -m frostnet_tpu_torch.serve --workload gan --artifact netG_int8.npz --output fakes/
+     python -m frostnet_tpu_torch.serve --workload det --artifact runs/detection/ssd \\
        --output detections.jsonl
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Iterator, Optional
 
@@ -43,23 +67,52 @@ from .quant.export import artifact_qconfig
 from .quant.freeze import resolve_device
 
 _CLS_DEFAULT = "frostnet_quant_large_1_0"
-_DEFAULTS = {"cls": (_CLS_DEFAULT, 224), "gan": ("resnet_9blocks", 256), "det": ("qssd", None)}
+_DEFAULTS = {"cls": (_CLS_DEFAULT, 224), "seg": ("mobilenetv3_large", 512),
+             "gan": ("resnet_9blocks", 256), "det": ("qssd", None)}
 
 
 class Int8Predictor:
-    """Frozen-INT8 classifier over an ``export_int8`` artifact."""
+    """Frozen-INT8 classifier over an ``export_int8`` artifact, a trainer
+    checkpoint (restored, then frozen) or a serialized program (no model
+    code: ``quant.load_serving``). Exactly one of the three."""
 
     def __init__(self, model_name: str = _CLS_DEFAULT, num_classes: int = 1000,
-                 artifact: Optional[str] = None, image_size: int = 224,
+                 artifact: Optional[str] = None, checkpoint: Optional[str] = None,
+                 program: Optional[str] = None, image_size: int = 224,
                  fuse_int8: bool = False, device="cuda"):
-        if artifact is None:
-            raise ValueError("pass artifact= (an export_int8 .npz)")
+        if sum(x is not None for x in (artifact, checkpoint, program)) != 1:
+            raise ValueError("pass exactly one of artifact= / checkpoint= / program=")
         self.device = resolve_device(device)
         self.image_size = image_size
+        if program is not None:
+            from .quant import load_serving
+
+            self.model = None
+            self._apply = load_serving(program, self.device)
+            return
+        # a trainer checkpoint holds the registry's default qconfig, an
+        # artifact says its own
+        kw = {"qconfig": artifact_qconfig(artifact)} if artifact is not None else {}
         self.model = create_model(model_name, num_classes=num_classes, image_size=image_size,
-                                  qconfig=artifact_qconfig(artifact), fuse_int8=fuse_int8)
-        from_jax_variables(self.model, load_int8(artifact))
+                                  fuse_int8=fuse_int8, **kw)
+        if artifact is not None:
+            from_jax_variables(self.model, load_int8(artifact))
+        else:
+            from .train import create_train_state
+            from .utils.checkpoint import restore_model_variables
+
+            restore_model_variables(checkpoint,
+                                    create_train_state(self.model, None, device=self.device))
         self._apply = freeze(self.model, self.device, image_size=image_size)
+
+    def export_program(self, path: str, batch: Optional[int] = None) -> int:
+        """Write the served model's serialized program to ``path``; returns
+        the bytes written."""
+        from .quant import export_serving
+
+        if self.model is None:
+            raise ValueError("predictor was built from a program artifact; nothing to re-export")
+        return export_serving(self.model, path, image_size=self.image_size, batch=batch)
 
     def __call__(self, images) -> torch.Tensor:
         """(B, S, S, 3) float images -> (B, C) logits (a tensor on the device)."""
@@ -71,22 +124,48 @@ class Int8Predictor:
         return idx, np.take_along_axis(logits, idx, axis=-1)
 
 
-class GanPredictor:
-    """Frozen-INT8 ResnetGenerator over an ``export_int8`` artifact."""
+class FrozenPredictor:
+    """Frozen-INT8 serving of a non-classifier model (the segmentation model,
+    the GAN generator) over an ``export_int8`` artifact."""
+
+    def __init__(self, model, artifact: Optional[str], image_size: int, device="cuda"):
+        if artifact is None:
+            raise ValueError("pass artifact= (an export_int8 .npz)")
+        self.device = resolve_device(device)
+        self.image_size = image_size
+        self.model = model
+        from_jax_variables(self.model, load_int8(artifact))
+        self._apply = freeze(self.model, self.device, image_size=image_size)
+
+    def __call__(self, images) -> torch.Tensor:
+        """(B, H, W, 3) float images -> the model's float32 output on the device."""
+        return self._apply(images)
+
+
+class GanPredictor(FrozenPredictor):
+    """Frozen-INT8 ResnetGenerator: (B, S, S, 3) images in [-1, 1] -> (B, S,
+    S, 3) float32 in [-1, 1]."""
 
     def __init__(self, net_g: str = "resnet_9blocks", ngf: int = 64,
                  artifact: Optional[str] = None, image_size: int = 256, device="cuda"):
         if artifact is None:
             raise ValueError("pass artifact= (an export_int8 .npz)")
-        self.device = resolve_device(device)
-        self.image_size = image_size
-        self.model = define_g(ngf=ngf, netG=net_g, qconfig=artifact_qconfig(artifact))
-        from_jax_variables(self.model, load_int8(artifact))
-        self._apply = freeze(self.model, self.device, image_size=image_size)
+        super().__init__(define_g(ngf=ngf, netG=net_g, qconfig=artifact_qconfig(artifact)),
+                         artifact, image_size, device)
 
-    def __call__(self, images) -> torch.Tensor:
-        """(B, S, S, 3) images in [-1, 1] -> (B, S, S, 3) float32 in [-1, 1]."""
-        return self._apply(images)
+
+def seg_predictor(name: str, artifact: str, num_classes: int, image_size: int,
+                  device="cuda") -> FrozenPredictor:
+    """The JAX server's seg model (``frostnet_tpu/serve.py`` ``_build_seg``):
+    ``name`` from the seg registry, built in bfloat16 (the compute dtype of
+    the quant region's float phases; the INT8 graph and the float32 tail do
+    not read it), frozen over ``artifact``."""
+    from .segmentation.models import get_seg_model
+
+    device = resolve_device(device)
+    model = get_seg_model(name, num_classes=num_classes, qconfig=artifact_qconfig(artifact),
+                          dtype=torch.bfloat16)
+    return FrozenPredictor(model, artifact, image_size, device)
 
 
 class DetPredictor:
@@ -156,15 +235,103 @@ class DetPredictor:
                 f.write(json.dumps({"image": start + b, "detections": hits}) + "\n")
 
 
+def write_seg_maps(outdir: str, logits: torch.Tensor, start: int) -> None:
+    """Each image's argmax class map as a Cityscapes-palette PNG,
+    ``pred_{start + i:05d}.png``."""
+    from .gan.visualizer import write_png
+    from .segmentation.evaluate import colorize
+
+    os.makedirs(outdir, exist_ok=True)
+    pred = logits.argmax(dim=-1).to(torch.uint8).cpu().numpy()
+    for i in range(len(pred)):
+        write_png(os.path.join(outdir, f"pred_{start + i:05d}.png"), colorize(pred[i]))
+
+
+def write_fakes(outdir: str, images: torch.Tensor, start: int) -> None:
+    """Each generated image as ``fake_{start + i:05d}.png``."""
+    from .gan.visualizer import tensor2im, write_png
+
+    os.makedirs(outdir, exist_ok=True)
+    fake = images.cpu().numpy()
+    for i in range(len(fake)):
+        write_png(os.path.join(outdir, f"fake_{start + i:05d}.png"), tensor2im(fake[i]))
+
+
 def _host(out):
     return tuple(o.cpu() for o in out) if isinstance(out, tuple) else out.cpu()
 
 
-def _batches(args) -> Iterator[np.ndarray]:
-    rng = np.random.RandomState(0)
-    shape = (args.batch_size, args.image_size, args.image_size, 3)
+def _input_shape(args):
+    """(B, H, W, 3): square but for seg, whose width is ``--image_width``, by
+    default twice the height (Cityscapes' 2:1)."""
+    width = (args.image_width or 2 * args.image_size) if args.workload == "seg" else None
+    return (args.batch_size, args.image_size, width or args.image_size, 3)
+
+
+def _list_folder_images(root: str) -> list:
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    paths = []
+    for dirpath, _, files in os.walk(root):
+        paths.extend(os.path.join(dirpath, f) for f in files if f.lower().endswith(exts))
+    if not paths:
+        raise SystemExit(f"no images under {root}")
+    return sorted(paths)
+
+
+def _folder_batches(args) -> Iterator[tuple]:
+    """``--source folder`` for the seg, det and GAN workloads, each with its
+    own eval preprocessing, as the JAX server does: seg /255 then the
+    ImageNet mean and std, det RGB->BGR minus the SSD BGR means, GAN a
+    bicubic resize then [-1, 1]. The folder is cycled, so ``--iters`` never
+    runs short."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("--source folder decodes images with PIL (Pillow), which is not "
+                          "installed") from e
+    from .data.datasets import IMAGENET_MEAN, IMAGENET_STD
+    from .detection.data import MEANS
+
+    _, h, w, _ = _input_shape(args)
+    paths = _list_folder_images(args.data_dir)
+    resample = Image.BICUBIC if args.workload == "gan" else Image.BILINEAR
+    i = 0
     while True:
-        yield rng.randn(*shape).astype(np.float32)
+        imgs = []
+        for _ in range(args.batch_size):
+            img = Image.open(paths[i % len(paths)]).convert("RGB")
+            i += 1
+            arr = np.asarray(img.resize((w, h), resample), np.float32)
+            if args.workload == "seg":
+                arr = ((arr / 255.0 - np.asarray(IMAGENET_MEAN, np.float32))
+                       / np.asarray(IMAGENET_STD, np.float32))
+            elif args.workload == "det":
+                arr = arr[..., ::-1] - np.asarray(MEANS, np.float32)
+            else:
+                arr = arr / 255.0 * 2.0 - 1.0
+            imgs.append(arr)
+        yield np.stack(imgs), None
+
+
+def _requests(args) -> Iterator[tuple]:
+    """(images, labels or None) request batches from ``--source``."""
+    if args.source == "synthetic":
+        rng = np.random.RandomState(0)
+        while True:
+            yield rng.randn(*_input_shape(args)).astype(np.float32), None
+    elif args.workload != "cls":
+        yield from _folder_batches(args)
+    else:
+        from .data import FolderClassification
+
+        for batch in FolderClassification(args.data_dir, args.image_size, args.batch_size,
+                                          train=False):
+            yield batch["image"], batch["label"]
+
+
+def _batches(args) -> Iterator[np.ndarray]:
+    """The request images of ``--source``."""
+    return (x for x, _ in _requests(args))
 
 
 def _sync(device: torch.device) -> None:
@@ -172,35 +339,61 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(args):
-    model, size = _DEFAULTS[args.workload]
-    args.model = args.model or model
+def _predictor(args):
+    """The workload's predictor and its ``--output`` writer ``(path, images,
+    start)`` (None for cls: top-k lines)."""
+    if args.workload != "cls" and (args.program or args.export_program or args.checkpoint):
+        raise SystemExit("--program/--export_program/--checkpoint are classification-only; "
+                         "other workloads serve --export_int8 artifacts")
+    if args.workload != "cls" and not args.artifact:
+        raise SystemExit(f"--workload {args.workload} serves --export_int8 artifacts; pass "
+                         "--artifact (see the workload evaluator CLIs)")
+    if args.workload != "cls" and args.fuse_int8:
+        raise SystemExit("--fuse_int8 is classification-only")
     if args.workload == "det":
-        if args.fuse_int8 or args.save_logits:
+        if args.save_logits:
             raise SystemExit("--fuse_int8 and --save_logits are classification-only")
         pred = DetPredictor(args.model, artifact=args.artifact,
                             num_classes=args.num_classes if args.num_classes != 1000 else None,
                             dataset=args.dataset, image_size=args.image_size,
                             device=args.device)
         args.image_size = pred.image_size
-    elif args.workload == "gan":
+        return pred, pred.write_detections
+    if args.workload in ("gan", "seg"):
+        if args.workload == "gan":
+            pred = GanPredictor(args.model, ngf=args.ngf, artifact=args.artifact,
+                                image_size=args.image_size, device=args.device)
+            write = write_fakes
+        else:
+            pred = seg_predictor(args.model, args.artifact, args.num_classes, args.image_size,
+                                 device=args.device)
+            write = write_seg_maps
+        return pred, lambda path, x, start: write(path, pred(x), start)
+    if args.program and (args.fuse_int8 or args.export_program):
+        raise SystemExit("--fuse_int8 and --export_program need the model: a --program "
+                         "is served as it was exported")
+    pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
+                         checkpoint=args.checkpoint, program=args.program,
+                         image_size=args.image_size, fuse_int8=args.fuse_int8,
+                         device=args.device)
+    if args.export_program:
+        size = pred.export_program(args.export_program)
+        print(f"[serve] serving program -> {args.export_program} ({size / 1e6:.2f} MB)")
+    return pred, None
+
+
+def main(args):
+    model, size = _DEFAULTS[args.workload]
+    args.model = args.model or model
+    if args.workload != "det":
         args.image_size = args.image_size or size
-        if args.fuse_int8 or args.output:
-            raise SystemExit("--fuse_int8 and --output are classification-only; the GAN's "
-                             "PNG output is not ported yet")
-        pred = GanPredictor(args.model, ngf=args.ngf, artifact=args.artifact,
-                            image_size=args.image_size, device=args.device)
-    else:
-        args.image_size = args.image_size or size
-        pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
-                             image_size=args.image_size, fuse_int8=args.fuse_int8,
-                             device=args.device)
-    gen = _batches(args)
-    _host(pred(next(gen)))  # warm-up: builds the kernels on first use
+    pred, write = _predictor(args)
+    gen = _requests(args)
+    _host(pred(next(gen)[0]))  # warm-up: builds the kernels on first use
 
     lat = []
     for _ in range(args.iters):
-        x = next(gen)
+        x, _ = next(gen)
         t0 = time.perf_counter()
         _host(pred(x))
         lat.append(time.perf_counter() - t0)
@@ -209,13 +402,13 @@ def main(args):
     _sync(pred.device)
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        pred(next(gen))
+        pred(next(gen)[0])
     _sync(pred.device)
     pipeline_ips = args.batch_size * args.iters / (time.perf_counter() - t0)
 
     report = {
         "workload": args.workload,
-        "model": args.model,
+        "model": f"program:{args.program}" if args.program else args.model,
         "device": str(pred.device),
         "fuse_int8": bool(args.fuse_int8),
         "batch_size": args.batch_size,
@@ -232,17 +425,21 @@ def main(args):
         # the first request batch of the synthetic source, served once more
         np.save(args.save_logits, pred(next(_batches(args))).cpu().numpy())
         print(f"[serve] logits of the first request batch -> {args.save_logits}")
-    if args.output and args.workload == "det":
+    if args.output and write is not None:
         for i in range(args.predict_batches):
-            pred.write_detections(args.output, next(gen), i * args.batch_size)
-        print(f"[serve] detections -> {args.output}")
+            write(args.output, next(gen)[0], i * args.batch_size)
+        print(f"[serve] predictions -> {args.output}")
     elif args.output:
         with open(args.output, "w") as f:
             for _ in range(args.predict_batches):
-                idx, scores = pred.predict_topk(next(gen), k=args.topk)
+                x, labels = next(gen)
+                idx, scores = pred.predict_topk(x, k=args.topk)
                 for b in range(len(idx)):
-                    f.write(json.dumps({"topk": idx[b].tolist(),
-                                        "scores": [round(float(s), 4) for s in scores[b]]}) + "\n")
+                    rec = {"topk": idx[b].tolist(),
+                           "scores": [round(float(s), 4) for s in scores[b]]}
+                    if labels is not None:
+                        rec["label"] = int(labels[b])
+                    f.write(json.dumps(rec) + "\n")
         print(f"[serve] predictions -> {args.output}")
     return report
 
@@ -251,30 +448,42 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--workload", choices=tuple(_DEFAULTS), default="cls",
-                   help="cls: a quantized classifier; gan: the ResnetGenerator; det: a "
-                        "detector (BASE_feat.npz + BASE_head.npz)")
+                   help="cls: a quantized classifier; seg: a segmentation model; det: a "
+                        "detector (BASE_feat.npz + BASE_head.npz); gan: the ResnetGenerator")
     p.add_argument("--model", default=None,
-                   help=f"registry name (a quantized FrostNet or MobileNet), or the "
-                        f"generator (resnet_6blocks, resnet_9blocks), or the detector "
-                        f"(qssd, qtdsod); default {_CLS_DEFAULT} / resnet_9blocks / qssd")
-    p.add_argument("--artifact", required=True,
+                   help=f"cls: classifier registry name (default {_CLS_DEFAULT}); seg: seg "
+                        f"model name (mobilenetv3_large); det: qssd|qtdsod; gan: "
+                        f"resnet_9blocks|resnet_6blocks")
+    p.add_argument("--artifact", default=None,
                    help="export_int8 .npz (det: the BASE of BASE_feat.npz, BASE_head.npz)")
+    p.add_argument("--checkpoint", default=None, help="trainer checkpoint dir (cls)")
+    p.add_argument("--program", default=None,
+                   help="serialized serving program (quant.export_serving, .pt2; cls); runs "
+                        "without the model code")
+    p.add_argument("--export_program", default=None,
+                   help="also write the served model's serialized program here (cls)")
     p.add_argument("--num_classes", type=int, default=1000,
-                   help="det: defaults from the net config (21 voc / 201 coco)")
+                   help="seg: 19 for Cityscapes; det: defaults from the net config "
+                        "(21 voc / 201 coco)")
     p.add_argument("--dataset", choices=("voc", "coco"), default="voc",
                    help="det only: the anchor and class config the artifact was trained on")
-    p.add_argument("--ngf", type=int, default=64, help="generator width (gan)")
     p.add_argument("--image_size", type=int, default=None,
-                   help="default 224 / 256; det: fixed by the net config (300)")
+                   help="input size; defaults per workload (cls 224, seg 512 [the image "
+                        "HEIGHT, width defaults to 2x], gan 256, det fixed by the net "
+                        "config: 300)")
+    p.add_argument("--image_width", type=int, default=None,
+                   help="seg only: override the 2:1 Cityscapes aspect")
+    p.add_argument("--ngf", type=int, default=64, help="generator width (gan)")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--iters", type=int, default=30)
-    p.add_argument("--source", choices=("synthetic",), default="synthetic",
-                   help="request images; only synthetic is ported so far")
+    p.add_argument("--source", choices=("synthetic", "folder"), default="synthetic")
+    p.add_argument("--data_dir", default=None, help="--source folder: the images' root")
     p.add_argument("--fuse_int8", action="store_true",
                    help="run each Frost block as one fused CUDA kernel (FrostNet only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--output", default=None,
-                   help="write top-k (cls) or detections (det) jsonl here")
+                   help="cls: top-k jsonl; det: detections jsonl; seg, gan: a directory of "
+                        "PNGs")
     p.add_argument("--save_logits", default=None, metavar="PATH",
                    help="save the first request batch's output (.npy)")
     p.add_argument("--predict_batches", type=int, default=4)

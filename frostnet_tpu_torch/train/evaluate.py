@@ -4,8 +4,10 @@ Restores a trainer checkpoint's model variables (or, without one,
 calibrates with one QAT train step), optionally swaps the EMA weights in and
 recalibrates the BN statistics and observers on ``--calib_batches`` batches,
 then reports the dual accuracy, Accuracy(QAT sim) and Accuracy(INT8 frozen),
-the frozen INT8 model's size, and can write the INT8 artifact
-(``--export_int8``, the layout of the JAX package's ``export_int8``).
+the frozen INT8 model's size, can print the numeric suite's per-layer
+report (``--layer_report N``, ``quant/numeric_suite.py``) and can write the
+INT8 artifact (``--export_int8``, the layout of the JAX package's
+``export_int8``).
 
 Run: python -m frostnet_tpu_torch.train.evaluate --model frostnet_quant_small_0_35 \\
        --checkpoint runs/classification/best --dataset synthetic [--device cpu]
@@ -27,7 +29,7 @@ from ..quant.freeze import resolve_device
 from ..utils.checkpoint import restore_model_variables
 from ..utils.logging import MetricLogger
 from .classification import evaluate, flatten_reference_json
-from .state import create_train_state, make_train_step, recalibrate
+from .state import create_train_state, make_train_step, prep_image, recalibrate
 
 
 def int8_model_size_bytes(model) -> int:
@@ -40,9 +42,6 @@ def int8_model_size_bytes(model) -> int:
 def main(args):
     logger = MetricLogger(None, name="evaluate")
     device = resolve_device(getattr(args, "device", "cuda"))
-    if getattr(args, "layer_report", 0):
-        raise NotImplementedError("--layer_report needs quant/numeric_suite.py, which is not "
-                                  "ported yet (ROADMAP.md, Queue A)")
     model = create_model(args.model, num_classes=args.num_classes, image_size=args.image_size)
     if args.dataset == "synthetic":
         ds = SyntheticClassification(args.num_classes, args.image_size, args.batch_size * 4,
@@ -86,6 +85,14 @@ def main(args):
     size_mb = int8_model_size_bytes(state.model) / 1e6
     logger.info(f"INT8 model size: {size_mb:.2f} MB")
     out = {"qat": qat, "int8": int8, "int8_size_mb": size_mb, "state": state}
+    if args.layer_report:
+        # per-layer INT8 against QAT_FROZEN (the numeric suite): when the dual
+        # accuracies disagree, this names the layer responsible
+        from ..quant.numeric_suite import compare_modes, format_report
+        batch = next(iter(prefetch_to_device(iter(ds), device)))
+        out["layer_report"] = compare_modes(state.model, prep_image(batch["image"]))
+        logger.info("per-layer INT8 vs QAT_FROZEN (worst first):\n"
+                    + format_report(out["layer_report"], args.layer_report))
     if args.export_int8:
         nbytes = export_int8(state.model, args.export_int8)
         logger.info(f"INT8 artifact written: {args.export_int8} ({nbytes / 1e6:.2f} MB)")
@@ -129,7 +136,7 @@ def build_parser(argv=None) -> argparse.ArgumentParser:
     p.add_argument("--export_int8", default=None, metavar="PATH",
                    help="write the converted INT8 deployment artifact (.npz)")
     p.add_argument("--layer_report", type=int, default=0, metavar="N",
-                   help="the numeric-suite report (not ported yet: raises)")
+                   help="print the numeric suite's N worst layers (INT8 vs QAT_FROZEN)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     if cfg_args.config:
         known = {a.dest for a in p._actions}

@@ -15,6 +15,11 @@ replay of a CUDA graph of the launches (the root's own ``chip_smoke.time_ms``
 and ``graph_ms``), ``REPS`` calls each. Checks each block against its plain
 version first. Prints the card line, then one JSON line. ``chip_smoke.py``
 phase 6 takes its per-batch sums from :func:`time_blocks`.
+
+``--serving`` also times the committed INT8 fixture served through
+``Int8Predictor``, fused and unfused, at batch 8 and 128, as ``chip_smoke.py``
+phase 6 times it (``time_ms`` of whole forwards on device-resident input):
+the host's cost of the wrappers shows there.
 """
 from __future__ import annotations
 
@@ -47,11 +52,35 @@ def time_blocks(specs, batch, time_ms, graph_ms):
             "device_ms": sum(r["device_ms"] for r in rows)}
 
 
+def time_serving(root, time_ms):
+    """ms a batch of the fixture served fused and unfused at batch 8 and 128
+    (10 and 3 timed forwards after one), fused checked against unfused."""
+    import numpy as np
+
+    from frostnet_tpu_torch.serve import Int8Predictor
+
+    artifact = os.path.join(root, "frostnet_tpu_torch", "testdata",
+                            "frostnet_quant_large_1_0_int8.npz")
+    preds = {fuse: Int8Predictor("frostnet_quant_large_1_0", artifact=artifact, image_size=224,
+                                 fuse_int8=fuse, device="cuda") for fuse in (True, False)}
+    out = {}
+    for b in (8, 128):
+        x = torch.as_tensor(np.random.RandomState(1).randn(b, 224, 224, 3).astype(np.float32),
+                            device="cuda")
+        if not torch.equal(preds[True](x), preds[False](x)):
+            raise AssertionError(f"batch {b}: fused logits != unfused logits")
+        for fuse in (True, False):
+            out[f"bs{b}_{'fused' if fuse else 'unfused'}"] = time_ms(
+                lambda: preds[fuse](x), reps=10 if fuse else 3, warmup=1)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--serving", action="store_true")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -69,13 +98,18 @@ def main(argv=None):
                                                           chip_smoke.graph_ms)
         print(f"batch {batch}: wall {got['wall_ms']:.4f} ms, device {got['device_ms']:.4f} ms; "
               + " ".join(f"{r['block']} {r['device_ms']:.4f}" for r in got["blocks"]), flush=True)
+    if args.serving:
+        report["serving"] = time_serving(root, chip_smoke.time_ms)
+        print("serving: " + ", ".join(f"{k} {v:.4f} ms" for k, v in report["serving"].items()),
+              flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     print(card)
-    print(json.dumps({k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"]}
-                      for k, v in report["batches"].items()}))
+    print(json.dumps({**{k: {"wall_ms": v["wall_ms"], "device_ms": v["device_ms"]}
+                         for k, v in report["batches"].items()},
+                      "serving": report.get("serving")}))
     return 0
 
 

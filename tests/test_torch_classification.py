@@ -180,12 +180,13 @@ def test_evaluate_exports_an_artifact_that_round_trips(runs, tmp_path):
 def test_evaluate_without_a_checkpoint_calibrates_with_one_step():
     args = evaluate.build_parser([]).parse_args(
         ["--model", MODEL, "--num_classes", str(CLASSES), "--image_size", str(SIZE),
-         "--batch_size", "4", "--device", "cpu"])
+         "--batch_size", "4", "--layer_report", "3", "--device", "cpu"])
     out = evaluate.main(args)
     assert out["state"].step == 1 and np.isfinite(out["int8"]["loss"])
-    with pytest.raises(NotImplementedError, match="numeric_suite"):
-        evaluate.main(evaluate.build_parser([]).parse_args(
-            ["--model", MODEL, "--layer_report", "3", "--device", "cpu"]))
+    # the numeric suite's report on the first evaluation batch
+    rows = out["layer_report"]
+    assert {"<output>", "conv1", "layer1_0/conv2"} <= {r.path for r in rows}
+    assert rows == sorted(rows, key=lambda r: r.sqnr_db)
 
 
 def test_from_json_reads_the_reference_layout_as_jax_does(tmp_path):

@@ -537,3 +537,38 @@ def test_channel_multiplier_depthwise_matches_cpu(cuda_device):
         outs.append(conv(QTensor(x.to(dev), *grid.tensors(dev)), mode=INT8).q.cpu())
     assert conv._route == "depthwise" and torch.equal(outs[0], outs[1])
     assert outs[0].shape == (8, 10, 10, 128) and len(torch.unique(outs[0])) > 32
+
+
+def test_serving_program_launches_the_kernels(cuda_device, tmp_path):
+    """The fixture's program exported on the card (symbolic batch, the
+    kernels as ``torch.library`` ops), loaded back: the in-process logits
+    bit for bit at two batch sizes, 18 block and 3 matmul launches a
+    forward, none of the plain versions. The block op's launch plans go
+    with the program."""
+    import gc
+    import os
+
+    from frostnet_tpu_torch.ops import frost_block
+    from frostnet_tpu_torch.quant import load_serving
+    from frostnet_tpu_torch.serve import Int8Predictor
+
+    artifact = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "frostnet_tpu_torch", "testdata", "frostnet_quant_large_1_0_int8.npz")
+    pred = Int8Predictor(artifact=artifact, fuse_int8=True, device=cuda_device)
+    path = str(tmp_path / "program.pt2")
+    pred.export_program(path)
+    prog = load_serving(path, cuda_device)
+    for b in (3, 8):
+        x = torch.as_tensor(np.random.RandomState(b).randn(b, 224, 224, 3).astype(np.float32),
+                            device=cuda_device)
+        ops.reset_launch_counts()
+        got = prog(x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 18,
+                                       "fake_quant_observe": 0, "int8_conv": 0}
+        assert got.device.type == "cuda" and torch.equal(got, pred(x))
+    assert len(frost_block._PLANS) >= 18
+    plans = len(frost_block._PLANS)
+    del prog
+    gc.collect()
+    assert len(frost_block._PLANS) == plans - 18

@@ -42,6 +42,9 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.gan.eval_cityscapes, frostnet_tpu_torch.gan.models, "
             "frostnet_tpu_torch.gan.data, frostnet_tpu_torch.gan.image_pool, "
             "frostnet_tpu_torch.gan.visualizer, "
+            "frostnet_tpu_torch.models.frostnet_features, frostnet_tpu_torch.quant.numeric_suite, "
+            "frostnet_tpu_torch.quant.serialize, frostnet_tpu_torch.train.latency_check, "
+            "frostnet_tpu_torch.utils.flops, frostnet_tpu_torch.utils.profiling, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))
@@ -124,6 +127,20 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         eval_cityscapes.main(eval_cityscapes.build_parser().parse_args(
             ["--result_dir", "r", "--label_dir", "l", "--scorer_checkpoint", "c"]))
+    # the serving program, the numeric suite and the latency probe
+    from frostnet_tpu_torch.quant import numeric_suite, serialize
+    from frostnet_tpu_torch.serve import seg_predictor
+    from frostnet_tpu_torch.train import latency_check
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serialize.load_serving("program.pt2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Int8Predictor(program="program.pt2")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        seg_predictor("mobilenetv3_large", "seg_int8.npz", 19, 512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        numeric_suite.cli([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        latency_check.cli([])
 
 
 def test_chip_smoke_refuses_without_a_gpu():

@@ -1,5 +1,6 @@
 """PyTorch port, serving: ``frostnet_tpu_torch.serve`` on the CPU."""
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,8 +50,9 @@ def test_predictor_matches_jax_freeze(artifact):
 
 
 def test_serve_requires_an_artifact():
-    with pytest.raises(SystemExit):
-        serve.build_parser().parse_args(["--device", "cpu"])
+    # one of --artifact, --checkpoint and --program, as the JAX server asks
+    with pytest.raises(ValueError, match="exactly one of artifact= / checkpoint= / program="):
+        serve.main(serve.build_parser().parse_args(["--device", "cpu"]))
     with pytest.raises(ValueError):
         serve.Int8Predictor(NAME, device="cpu")
 
@@ -82,15 +84,17 @@ def test_serve_main_gan_reports(gan_artifact):
     assert out.shape == (2, SIZE, SIZE, 3) and float(out.abs().max()) <= 1.0
 
 
-def test_serve_gan_defaults_and_refusals(gan_artifact):
-    with pytest.raises(SystemExit):  # no artifact
-        serve.build_parser().parse_args(["--workload", "gan", "--device", "cpu"])
+def test_serve_gan_defaults_and_refusals(gan_artifact, tmp_path):
+    with pytest.raises(SystemExit, match="serves --export_int8 artifacts"):  # no artifact
+        serve.main(serve.build_parser().parse_args(["--workload", "gan", "--device", "cpu"]))
     with pytest.raises(ValueError):
         serve.GanPredictor(device="cpu")
-    with pytest.raises(SystemExit):  # PNG output is not ported
-        serve.main(serve.build_parser().parse_args(
-            ["--workload", "gan", "--artifact", gan_artifact, "--device", "cpu",
-             "--output", "out"]))
+    # the generated images as PNGs
+    serve.main(serve.build_parser().parse_args(
+        ["--workload", "gan", "--model", "resnet_6blocks", "--ngf", "8", "--artifact",
+         gan_artifact, "--image_size", str(SIZE), "--batch_size", "2", "--iters", "1",
+         "--device", "cpu", "--output", str(tmp_path / "out"), "--predict_batches", "2"]))
+    assert sorted(os.listdir(tmp_path / "out")) == [f"fake_{i:05d}.png" for i in range(4)]
     args = serve.build_parser().parse_args(["--workload", "gan", "--artifact", gan_artifact])
     assert args.model is None and args.image_size is None  # resnet_9blocks at 256 in main
     assert serve._DEFAULTS["gan"] == ("resnet_9blocks", 256)
