@@ -288,6 +288,30 @@ Phases (each raises on failure, and any failure exits non-zero):
      to the CPU run's, the worst 5 printed; (e) ``latency_check.main``
      (fbgemm, batch 1) for ``qmobilenet_v2_ReLU`` and
      ``frostnet_quant_large_1_0``: FP32, QAT_FROZEN and INT8 ms a batch.
+ 22. the native loaders and data parallelism (``dp_phase``): (a) the C++
+     loaders of ``native/``: where g++ finds no libjpeg and libpng (the
+     card's machine has neither), a line says so, and the build and
+     ``loader='native'`` raise with the compiler's message (no fallback);
+     where it finds them, the seg and det pools on PNGs written here (the
+     rank blocks at ``threads=1`` concatenate to the batch; images/s with
+     32 threads); (b) two ranks (``dp_rank``, one process each, gloo on
+     ``cuda:0``) run the FP32 step and two QAT steps of
+     ``frostnet_quant_large_1_0`` on a global batch of 128 with phase 8's
+     settings: their parameters, BN statistics and observers bit-identical,
+     within phase 8's bands of the one-process steps on the same batches,
+     and every fake-quant site of the first QAT step bit-exact to its plain
+     version (the data-parallel route at the activation sites, on the
+     all-reduced min and max; the one-launch kernel at the weight sites),
+     with each step's launches and host time (a correctness path); then
+     the data-parallel route's two kernels at a rank's activation sites
+     timed as a CUDA graph beside the one-launch kernel; (c) ``serve --dp
+     2`` with both replicas on ``cuda:0`` (``devices=``): fused FrostNet at
+     batch 8 (36 + 6 launches) and 7, the GAN at batch 2, bit-equal to one
+     replica; (d) ``torchrun --nproc_per_node 2 -m
+     frostnet_tpu_torch.train.classification`` with both ranks on this card
+     (gloo), a global batch of 64, one FP32 and one QAT epoch of 2 steps:
+     exit 0, the checkpoint and the log from rank 0 alone, the epochs'
+     images/s.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -309,10 +333,13 @@ training checks, the trainer path, the tester and server), and
 ``zoo_launches``, the same for phase 20 (each served forward, each training
 step, the two training checks, the ESPNetv2 trainer path), and
 ``tools_launches``, the same for phase 21 (the seg server, each program at
-each batch, each dilated forward, the numeric suite, each latency probe).
+each batch, each dilated forward, the numeric suite, each latency probe),
+and ``dp_launches``, the same for phase 22 (each step of a rank, with the
+fake-quant kernel's data-parallel route as ``fake_quant_dp_route``, and
+each ``serve --dp 2`` forward).
 Phase 20 alone, after the build: ``python3 -c "import torch, chip_smoke as c;
 c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``
-(``tools_phase`` for phase 21).
+(``tools_phase`` for phase 21, ``dp_phase`` for phase 22).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -351,6 +378,7 @@ from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
 from frostnet_tpu_torch.quant import (ObserverState, QParams, QTensor, export_int8, freeze,
                                       from_jax_variables, get_qconfig, model_variables, numpy_init)
 from frostnet_tpu_torch.quant.export import flatten_variables, unflatten_variables
+from frostnet_tpu_torch.quant.observer import global_batch_min_max
 from frostnet_tpu_torch.serve import GanPredictor, Int8Predictor
 from frostnet_tpu_torch import serve
 from frostnet_tpu_torch.train import (create_train_state, make_eval_step, make_train_step,
@@ -722,10 +750,10 @@ def capture_sites(model, images, mode):
 
     class Recorder:
         @staticmethod
-        def apply(x, obs, spec, observe):
+        def apply(x, obs, spec, observe, mesh=None):
             sites.append((x.detach().clone(), obs.min_val.detach().clone(),
                           obs.max_val.detach().clone(), spec))
-            return real.apply(x, obs, spec, observe)
+            return real.apply(x, obs, spec, observe, mesh)
 
     quant_ops.ObservedFakeQuant = Recorder
     try:
@@ -4571,6 +4599,493 @@ def tools_phase(dev):
     return rep, launches
 
 
+PHASE22_DIR = os.path.join(ROOT, "build", "phase22")
+DP_WORLD, DP_BATCH = 2, 128  # phase 22 (b): two ranks on one card, the global batch
+DP_STEPS = ("FP32", "QAT", "QAT")
+DP_TIMEOUT = 150  # seconds the ranks may take, their start included
+# launches of fused serving at batch 8 on two replicas: 18 blocks + 3 matmuls each
+DP_SERVE_LAUNCHES = {"frost_block_int8": 36, "int8_matmul_requant": 6, "fake_quant_observe": 0,
+                     "int8_conv": 0}
+
+
+def native_phase(dev):
+    """Phase 22 (a): the native loaders where g++ finds libjpeg and libpng;
+    where it does not, the build raises with the compiler's message and the
+    trainer asked for ``loader='native'`` raises it too (no fallback)."""
+    from frostnet_tpu_torch import native
+    from frostnet_tpu_torch.train import classification
+
+    rep = {}
+    try:
+        native.build()
+    except RuntimeError as e:
+        missing = [h for h in ("jpeglib.h", "png.h") if h in str(e)]
+        rep["built"], rep["missing"] = False, missing
+        log(f"[native] libjpeg and libpng are absent on this machine ({', '.join(missing) or 'the build failed'}): the native loaders cannot be built here; phase 22 (a) checks that they raise")
+        folder = os.path.join(PHASE22_DIR, "native_data", "imagenet", "train", "class0")
+        os.makedirs(folder, exist_ok=True)
+        cfg = classification.ClassificationConfig(
+            dataset="imagenet", loader="native", data_dir=os.path.join(PHASE22_DIR, "native_data"),
+            device=str(dev))
+        try:
+            classification._build_dataset(cfg, train=True)
+        except RuntimeError as e2:
+            if "build failed" not in str(e2):
+                raise
+        else:
+            raise AssertionError("loader='native' did not raise without libjpeg and libpng")
+        rep["trainer_raises"] = True
+        log("[native] classification._build_dataset(loader='native') raises the build error; "
+            "the images/s of the native loaders and of `classification.main --loader native` "
+            "are not measured on this machine")
+        return rep
+    rep["built"] = True
+    # libjpeg and libpng present: the seg and det pools on PNGs written
+    # without PIL (the classification pool reads JPEGs, which nothing here writes)
+    from frostnet_tpu_torch.gan.visualizer import write_png
+
+    root = os.path.join(PHASE22_DIR, "native")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(0)
+    imgs, masks = [], []
+    for i in range(8):
+        h, w = 512 + 32 * i, 1024 - 32 * i
+        imgs.append(os.path.join(root, f"img{i}.png"))
+        masks.append(os.path.join(root, f"mask{i}.png"))
+        coarse = rng.randint(0, 256, (h // 16, w // 16, 3)).astype(np.uint8)
+        write_png(imgs[-1], np.repeat(np.repeat(coarse, 16, 0), 16, 1))
+        mask = np.repeat(np.repeat(rng.randint(0, 19, (h // 16, w // 16)), 16, 0), 16, 1)
+        write_png(masks[-1], np.repeat(mask.astype(np.uint8)[..., None], 3, -1))
+    boxes = [np.asarray([[10, 20, 200, 300]], np.float32)] * len(imgs)
+    labels = [np.asarray([3], np.int32)] * len(imgs)
+
+    def make(kind, **kw):
+        if kind == "seg":
+            return native.NativeSegmentationLoader(imgs, masks, crop_size=(64, 64), batch_size=4,
+                                                   seed=1, **kw)
+        return native.NativeDetectionLoader(imgs, boxes, labels, batch_size=4, size=64, seed=1,
+                                            **kw)
+
+    for kind in ("seg", "det"):
+        whole = list(make(kind, threads=1))
+        parts = [list(make(kind, threads=1, rank=r, world=2)) for r in range(2)]
+        for b, w in enumerate(whole):
+            for k in w:
+                if not np.array_equal(np.concatenate([p[b][k] for p in parts]), w[k]):
+                    raise AssertionError(f"native {kind}: rank blocks != the batch ({k})")
+        loader = (native.NativeSegmentationLoader(imgs * 64, masks * 64, crop_size=(768, 768),
+                                                  batch_size=16, threads=32, seed=1)
+                  if kind == "seg" else
+                  native.NativeDetectionLoader(imgs * 64, boxes * 64, labels * 64, batch_size=256,
+                                               threads=32, seed=1))
+        t0, n = time.perf_counter(), 0
+        for batch in loader:
+            n += len(batch["image"])
+        rep[f"{kind}_images_per_sec"] = n / (time.perf_counter() - t0)
+        log(f"[native] {kind}: rank blocks == the batch at threads=1; "
+            f"{rep[f'{kind}_images_per_sec']:.1f} images/s (32 threads)")
+    return rep
+
+
+class _DPSiteCheck:
+    """Stands in for ``quant_ops.ObservedFakeQuant`` during a step: each
+    observing site runs as usual (its route: the data-parallel one at
+    activation sites, the one-launch kernel at the replicated weight sites),
+    then the same kernel call again on a copy of the old state (its launches
+    and its all-reduce left out of the counts) is held against the plain
+    version on the global min and max (activation sites) or on the local
+    batch: y, the mask, the new state and the qparams, bit for bit."""
+
+    real = ObservedFakeQuant
+    record: list = []
+
+    @classmethod
+    def apply(cls, x, obs, spec, observe, mesh=None):
+        old = ObserverState(obs.min_val.detach().clone(), obs.max_val.detach().clone())
+        y = cls.real.apply(x, obs, spec, observe, mesh)
+        counts = (fake_quant_observe.launches, fake_quant_observe.dp_launches)
+        kmin, kmax = old.min_val.clone(), old.max_val.clone()
+        xd = x.detach()
+        ky, kmask, kqp = fake_quant_observe(xd, kmin, kmax, spec, observe, mesh)
+        batch = None if mesh is None else global_batch_min_max(xd, mesh)
+        fake_quant_observe.launches, fake_quant_observe.dp_launches = counts
+        py, pmask, st, ps, pz = fake_quant_observe_plain(xd, old, spec, True, batch=batch)
+        for name, g, w in (("y", ky, py), ("y of the step", y.detach(), py),
+                           ("mask", kmask, pmask), ("min_val", kmin, st.min_val),
+                           ("max_val", kmax, st.max_val), ("scale", kqp[0], ps),
+                           ("zero_point", kqp[1], pz.to(torch.float32))):
+            if not torch.equal(g, w):
+                raise AssertionError(f"fake-quant site {len(cls.record)} {tuple(x.shape)} "
+                                     f"({'one-launch' if mesh is None else 'data-parallel'} "
+                                     f"route): {name} != plain version")
+        cls.record.append({"shape": list(x.shape), "route": "one_launch" if mesh is None else "dp",
+                           "max_abs_err": float((ky.float() - py.float()).abs().max())})
+        return y
+
+
+def dp_rank(rank: int, world: int, store: str, out: str, device: str = "cuda"):
+    """One rank of phase 22 (b), in its own process on ``cuda:0``: the
+    FrostNet FP32 step and two QAT steps on the global batches
+    ``train_batch(k, DP_BATCH)``, phase 8's settings (float32, TF32 off,
+    GradBoost noise off, drop_rate 0), this rank's block of rows, the state
+    replicated from rank 0 (rank 1 starts from another seed). The first QAT
+    step checks every fake-quant site against its plain version. Writes the
+    variables and metrics to ``out``-rank.npz and the launches, times and
+    site checks to ``out``-rank.json (the checking step's time includes
+    its checks)."""
+    from frostnet_tpu_torch.parallel import make_mesh, multihost, replicate, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(device, init_method=f"file://{store}", rank=rank, world_size=world)
+    dev = multihost.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh()
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    state = create_train_state(model, tx, seed=rank, device=dev)
+    replicate(state.model, mesh)
+    rec, info = {}, {"steps": [], "sites": []}
+    for k, name in enumerate(DP_STEPS):
+        mode = FP32 if name == "FP32" else QAT
+        if mode is QAT and DP_STEPS[k - 1] == "FP32":
+            state.start_qat()
+        batch = {n: torch.as_tensor(v).to(dev)
+                 for n, v in shard_batch(train_batch(k, DP_BATCH), mesh).items()}
+        step = make_train_step(mode, num_classes=CLASSES, mesh=mesh)
+        if k == 1:  # the first QAT step checks its sites
+            _DPSiteCheck.record = info["sites"]
+            quant_ops.ObservedFakeQuant = _DPSiteCheck
+        ops.reset_launch_counts()
+        fake_quant_observe.dp_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            m = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            quant_ops.ObservedFakeQuant = ObservedFakeQuant
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        counts["fake_quant_dp_route"] = fake_quant_observe.dp_launches
+        info["steps"].append({"step": name, "ms": ms, "launches": counts,
+                              **{n: float(v) for n, v in m.items()}})
+        rec.update({f"metrics/{k}/{n}": float(v) for n, v in m.items()})
+    rec.update({n: v.detach().cpu().numpy() for n, v in model_variables(state.model).items()})
+    np.savez(f"{out}-{rank}.npz", **rec)
+    info["device"] = str(dev)
+    with open(f"{out}-{rank}.json", "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+
+
+class _OneRankMesh:
+    """A one-replica stand-in for a data-parallel mesh (the all-reduce is
+    the identity): phase 22 times the data-parallel route's kernels with it,
+    without a collective, so that a CUDA graph can hold them."""
+
+    dp, rank, distributed = 1, 0, True
+
+    @staticmethod
+    def all_reduce(t, op=None):
+        return t
+
+
+def dp_route_timing(dev):
+    """The data-parallel fake-quant route (two launches a site) at the
+    activation sites of a rank's QAT forward (batch DP_BATCH / DP_WORLD),
+    against the plain version bit for bit, and its device time beside the
+    one-launch kernel's on the same sites, its bound and the plain time."""
+    from frostnet_tpu_torch.parallel import data_parallel
+
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    from_jax_variables(model, numpy_init(model, 0)).to(dev)
+    images = prep_image(torch.as_tensor(train_batch(1, DP_BATCH // DP_WORLD)["image"],
+                                        device=dev))
+    sites, real, mesh = [], quant_ops.ObservedFakeQuant, _OneRankMesh()
+
+    class Recorder:
+        @staticmethod
+        def apply(x, obs, spec, observe, mesh=None):
+            if mesh is not None:  # an activation site (weight sites observe no mesh)
+                sites.append((x.detach().clone(), obs.min_val.detach().clone(),
+                              obs.max_val.detach().clone(), spec))
+            return real.apply(x, obs, spec, observe, mesh)
+
+    quant_ops.ObservedFakeQuant = Recorder
+    try:
+        with torch.no_grad(), data_parallel(mesh):
+            model(images, mode=QAT, train=True)
+    finally:
+        quant_ops.ObservedFakeQuant = real
+    err = 0.0
+    for x, mn, mx, spec in sites:
+        kmin, kmax = mn.clone(), mx.clone()
+        y, mask, qp = fake_quant_observe(x, kmin, kmax, spec, mesh=mesh)
+        py, pmask, st, ps, pz = fake_quant_observe_plain(x, ObserverState(mn, mx), spec, True)
+        if not (torch.equal(y, py) and torch.equal(mask, pmask) and torch.equal(kmin, st.min_val)
+                and torch.equal(kmax, st.max_val) and torch.equal(qp[0], ps)
+                and torch.equal(qp[1], pz.to(torch.float32))):
+            raise AssertionError(f"data-parallel route != plain at {tuple(x.shape)}")
+        err = max(err, float((y - py).abs().max()))
+    states = [(mn.clone(), mx.clone()) for _, mn, mx, _ in sites]
+
+    def route(m):
+        def fn():
+            for (x, _, _, spec), (mn, mx) in zip(sites, states):
+                fake_quant_observe(x, mn, mx, spec, mesh=m)
+        return fn
+
+    before = fake_quant_observe.dp_launches
+    route(mesh)()
+    per_site = (fake_quant_observe.dp_launches - before) / len(sites)
+    nbytes = sum(fq_cost(x)[0] for x, _, _, _ in sites)
+    nops = sum(fq_cost(x)[1] for x, _, _, _ in sites)
+    bound_ms, bound_by = bound(nbytes, nops, PEAK_F32_OPS_PER_S)
+
+    def plain_all():
+        for x, mn, mx, spec in sites:
+            fake_quant_observe_plain(x, ObserverState(mn, mx), spec)
+
+    rep = {"sites": len(sites), "launches_per_site": per_site, "max_abs_err": err,
+           "graph_ms": graph_ms(route(mesh), 5), "one_launch_graph_ms": graph_ms(route(None), 5),
+           "wall_ms": time_ms(route(mesh), reps=5), "plain_ms": time_ms(plain_all, reps=2),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[dp] the data-parallel fake-quant route at the {len(sites)} activation sites of a "
+        f"rank's QAT forward (batch {DP_BATCH // DP_WORLD}): == plain; {per_site:g} launches a "
+        f"site; {rep['graph_ms']:.4f} ms device (CUDA graph, the collective left out) against "
+        f"{rep['one_launch_graph_ms']:.4f} ms for the one-launch kernel on the same sites; "
+        f"{rep['wall_ms']:.4f} ms wall; bound {bound_ms:.4f} ms ({bound_by}); plain "
+        f"{rep['plain_ms']:.3f} ms")
+    return rep
+
+
+def dp_step_phase(dev):
+    """Phase 22 (b): the one-process steps on the global batch, then two
+    ranks over gloo on this card (``dp_rank``), then their checks."""
+    os.makedirs(PHASE22_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store, out = os.path.join(PHASE22_DIR, "store"), os.path.join(PHASE22_DIR, "rank")
+    for f in os.listdir(PHASE22_DIR):
+        if f.startswith(("store", "rank")):
+            os.remove(os.path.join(PHASE22_DIR, f))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({r}, {DP_WORLD}, "
+                               f"{store!r}, {out!r}, {dev.type!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_WORLD)]
+    try:
+        # meanwhile, one process on the global batches
+        model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+        tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+        state = create_train_state(model, tx, seed=0, device=dev)
+        one, one_launches = {}, []
+        for k, name in enumerate(DP_STEPS):
+            mode = FP32 if name == "FP32" else QAT
+            if mode is QAT and DP_STEPS[k - 1] == "FP32":
+                state.start_qat()
+            before = fake_quant_observe.launches
+            m = make_train_step(mode, num_classes=CLASSES)(state, train_batch(k, DP_BATCH))
+            one_launches.append(fake_quant_observe.launches - before)
+            one.update({f"metrics/{k}/{n}": float(v) for n, v in m.items()})
+        one.update({n: v.detach().cpu().numpy() for n, v in model_variables(state.model).items()})
+        del state, model
+        torch.cuda.empty_cache()
+        logs = []
+        for p in procs:
+            text, _ = p.communicate(timeout=max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+            logs.append(text)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 22 rank failed:\n{text[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    if one_launches != [0, N_SITES, N_SITES]:
+        raise AssertionError(f"one-process fake_quant_observe launches {one_launches}")
+    ranks = [dict(np.load(f"{out}-{r}.npz")) for r in range(DP_WORLD)]
+    infos = []
+    for r in range(DP_WORLD):
+        with open(f"{out}-{r}.json") as f:
+            infos.append(json.load(f))
+    differ = [k for k in ranks[0] if not np.array_equal(ranks[0][k], ranks[1][k])]
+    if differ or sorted(ranks[0]) != sorted(ranks[1]):
+        raise AssertionError(f"the ranks differ at {differ[:8]} ({len(differ)} arrays)")
+    mine, rep = ranks[0], {"ranks_bit_identical": True, "rank_seconds": ranks_s,
+                           "backend": [ln for ln in logs[0].splitlines() if "[multihost]" in ln]}
+    rel = [abs(mine[f"metrics/{k}/loss"] - one[f"metrics/{k}/loss"]) / one[f"metrics/{k}/loss"]
+           for k in range(len(DP_STEPS))]
+    rep["loss"] = {"dp": [float(mine[f"metrics/{k}/loss"]) for k in range(len(DP_STEPS))],
+                   "one_process": [one[f"metrics/{k}/loss"] for k in range(len(DP_STEPS))],
+                   "rel": rel}
+    band_check("[dp] FP32 step loss, relative to one process", rel[0], FP32_LOSS_REL)
+    band_check("[dp] QAT losses, worst relative to one process", max(rel[1:]), QAT_LOSS_REL)
+    obs, bn_mean, bn_var = [], [], []
+    for k in one:
+        if k.endswith(".min_val"):
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(one[hi] - one[k]), 1e-6)
+            obs.append(max(abs(float(mine[k] - one[k])), abs(float(mine[hi] - one[hi]))) / span)
+        elif k.endswith("/mean"):
+            v = k[:-len("mean")] + "var"
+            bn_mean.append(float(np.max(np.abs(mine[k] - one[k]) / np.sqrt(one[v]))))
+            bn_var.append(float(np.max(np.abs(mine[v] - one[v]) / one[v])))
+    if len(obs) != N_SITES:
+        raise AssertionError(f"{len(obs)} observers after the steps, expected {N_SITES}")
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs))}
+    rep["bn"] = {"mean_over_std_median": float(np.median(bn_mean)),
+                 "var_rel_median": float(np.median(bn_var))}
+    band_check("[dp] observers, median |diff| / range", float(np.median(obs)), OBS_MEDIAN)
+    band_check("[dp] observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+    band_check("[dp] BN running means, median |diff| / std", float(np.median(bn_mean)),
+               BN_MEAN_MEDIAN)
+    band_check("[dp] BN running variances, median |diff| / var", float(np.median(bn_var)),
+               BN_VAR_MEDIAN)
+    for r, info in enumerate(infos):
+        sites = info["sites"]
+        dp_sites = sum(s["route"] == "dp" for s in sites)
+        if len(sites) != N_SITES or not dp_sites:
+            raise AssertionError(f"rank {r}: {len(sites)} fake-quant sites checked "
+                                 f"({dp_sites} on the data-parallel route), expected {N_SITES}")
+        for s in info["steps"][1:]:
+            c = s["launches"]
+            if c["fake_quant_observe"] + c["fake_quant_dp_route"] // 2 != N_SITES or \
+                    c["fake_quant_dp_route"] != 2 * dp_sites:
+                raise AssertionError(f"rank {r} {s['step']} launches {c}: expected "
+                                     f"{N_SITES - dp_sites} one-launch and {2 * dp_sites} "
+                                     f"data-parallel route launches")
+    steps = infos[0]["steps"]
+    rep["steps"] = steps
+    rep["sites"] = {"checked": N_SITES, "dp_route": sum(s["route"] == "dp"
+                                                         for s in infos[0]["sites"]),
+                    "max_abs_err": max(s["max_abs_err"] for s in infos[0]["sites"])}
+    log(f"[dp] {DP_WORLD} ranks over gloo on one card, global batch {DP_BATCH}: parameters, BN "
+        f"statistics and observers bit-identical between the ranks; losses "
+        f"{[round(v, 6) for v in rep['loss']['dp']]} against one process "
+        f"{[round(v, 6) for v in rep['loss']['one_process']]}; all {N_SITES} fake-quant "
+        f"sites of the first QAT step == plain ({rep['sites']['dp_route']} on the "
+        f"data-parallel route, on the all-reduced min and max); a rank's step "
+        f"{', '.join(f'{s['step']} {s['ms']:.1f} ms' for s in steps)} (a correctness path: "
+        f"~235 gloo collectives a step through the host); launches of a rank's QAT step "
+        f"{steps[1]['launches']}")
+    return rep, {f"dp {s['step'].lower()} step {i} (a rank)": s["launches"]
+                 for i, s in enumerate(steps)}
+
+
+def serve_dp_phase(dev):
+    """Phase 22 (c): ``serve --dp 2`` with both replicas on this card:
+    fused FrostNet at batch 8 and 7 (7 goes over its largest divisor that
+    fits, 1), the GAN at batch 2, each bit-equal to one replica."""
+    rep, launches = {}, {}
+    preds = {n: Int8Predictor(MODEL, artifact=ARTIFACT, image_size=IMAGE, fuse_int8=True,
+                              devices=[dev] * n) for n in (1, 2)}
+    for b in (8, 7):
+        x = np.random.RandomState(b).randn(b, IMAGE, IMAGE, 3).astype(np.float32)
+        want = preds[1](x)
+        ops.reset_launch_counts()
+        got = preds[2](x)
+        torch.cuda.synchronize()
+        launches[f"serve dp2 fused batch {b}"] = ops.launch_counts()
+        if not torch.equal(got, want):
+            raise AssertionError(f"serve dp 2, batch {b}: logits != dp 1")
+        rep[f"fused_bs{b}"] = {"dp1_ms": time_ms(lambda: preds[1](x), reps=10),
+                               "dp2_ms": time_ms(lambda: preds[2](x), reps=10)}
+    if launches["serve dp2 fused batch 8"] != DP_SERVE_LAUNCHES:
+        raise AssertionError(f"dp 2 at batch 8: launches {launches['serve dp2 fused batch 8']}")
+    del preds
+    torch.backends.cudnn.allow_tf32 = True  # as phase 12 serves the GAN
+    gans = {n: GanPredictor(GAN, artifact=GAN_ARTIFACT, image_size=GAN_IMAGE,
+                            devices=[dev] * n) for n in (1, 2)}
+    x = gan_images(0, 2)
+    want = gans[1](x)
+    ops.reset_launch_counts()
+    got = gans[2](x)
+    torch.cuda.synchronize()
+    launches["serve dp2 gan batch 2"] = ops.launch_counts()
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.equal(got, want):
+        raise AssertionError(f"serve dp 2, GAN batch 2: output != dp 1 (max abs diff "
+                             f"{float((got - want).abs().max())})")
+    log(f"[dp] serve --dp 2 on [cuda:0, cuda:0]: fused FrostNet at batch 8 and 7 and the GAN "
+        f"at batch 2 bit-equal to --dp 1; launches {launches}; fused batch 8 "
+        f"{rep['fused_bs8']['dp2_ms']:.3f} ms on two replicas against "
+        f"{rep['fused_bs8']['dp1_ms']:.3f} ms on one (one card: no gain expected)")
+    return rep, launches
+
+
+def dp_trainer_cli(dev):
+    """Phase 22 (d): the user's entry point, ``torchrun --nproc_per_node 2 -m
+    frostnet_tpu_torch.train.classification`` with both ranks on this card
+    (gloo): synthetic data, 224x224, a global batch of 64, 2 steps an epoch,
+    one FP32 and one QAT epoch, the evaluations; the checkpoint, its meta
+    and the metric log from rank 0 alone. Returns the epochs' images/s (the
+    log's, all ranks' images; a correctness path)."""
+    import re
+
+    save = os.path.join(PHASE22_DIR, "cli")
+    shutil.rmtree(save, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_WORLD), "-m", "frostnet_tpu_torch.train.classification", "--model", MODEL,
+           "--dataset", "synthetic", "--image_size", str(IMAGE), "--batch_size", "64",
+           "--steps_per_epoch", "2", "--fp_epochs", "1", "--epochs", "1", "--save_dir", save,
+           "--log_every", "1", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, GLOO_SOCKET_IFNAME="lo"),
+                          capture_output=True, text=True, timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun classification failed:\n{(proc.stdout + proc.stderr)[-6000:]}")
+    backend = [ln for ln in proc.stdout.splitlines() if "[multihost]" in ln]
+    rates = {tag: float(v) for tag, v in
+             re.findall(r"\[(fp_warmup|qat) 0\].*?'images_per_sec': ([0-9.]+)", proc.stdout)}
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        records = f.read().splitlines()
+    if not backend or "gloo" not in backend[0] or set(rates) != {"fp_warmup", "qat"} or \
+            "Accuracy(INT8 frozen)" not in proc.stdout:
+        raise AssertionError(f"torchrun classification: unexpected log\n{proc.stdout[-4000:]}")
+    for name in ("checkpoint", "best", "checkpoint_meta.json"):
+        if not os.path.exists(os.path.join(save, name)):
+            raise AssertionError(f"torchrun classification wrote no {name}")
+    if len(records) != 4 + 1:  # one line a step and the validation, rank 0 only
+        raise AssertionError(f"metrics.jsonl has {len(records)} records, expected 5 (rank 0)")
+    rep = {"seconds": seconds, "backend": backend[0], "images_per_sec": rates}
+    log(f"[dp] torchrun --nproc_per_node {DP_WORLD} classification.main on one card: "
+        f"{backend[0].strip()}; FP32 epoch {rates['fp_warmup']:.1f} images/s, QAT epoch "
+        f"{rates['qat']:.1f} (global batch 64, a correctness path); checkpoint and log from rank "
+        f"0 only; {seconds:.1f} s")
+    return rep
+
+
+def dp_phase(dev):
+    """Phase 22: (a) the native loaders, (b) the data-parallel step on two
+    ranks, the route of the fake-quant kernel under data parallelism, (c)
+    ``serve --dp 2``, (d) the trainer under ``torchrun``. Returns (report,
+    launches of each path)."""
+    rep, launches, seconds = {}, {}, {}
+    for key, fn in (("native", native_phase), ("dp_step", dp_step_phase),
+                    ("dp_route", dp_route_timing), ("serve_dp", serve_dp_phase),
+                    ("trainer_cli", dp_trainer_cli)):
+        t0 = time.perf_counter()
+        got = fn(dev)
+        seconds[key] = time.perf_counter() - t0
+        if isinstance(got, tuple):
+            rep[key], paths = got
+            launches.update(paths)
+        else:
+            rep[key] = got
+        torch.cuda.empty_cache()
+    rep["seconds"] = seconds
+    log(f"[dp] phase 22 in {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return rep, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -4871,6 +5386,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     report["tools"], tools_counts = tools_phase(dev)
 
+    # 22. the native loaders, data parallelism (two ranks on this card, the
+    # fake-quant kernel's data-parallel route) and serve --dp
+    torch.cuda.empty_cache()
+    report["dp"], dp_counts = dp_phase(dev)
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -4911,7 +5431,8 @@ def main(argv=None):
                                  ("det_launches", det_counts),
                                  ("gan_train_launches", gan_train_counts),
                                  ("zoo_launches", zoo_counts),
-                                 ("tools_launches", tools_counts)):
+                                 ("tools_launches", tools_counts),
+                                 ("dp_launches", dp_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

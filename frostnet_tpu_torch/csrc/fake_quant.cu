@@ -60,6 +60,24 @@
 // Sites up to ~26 MiB (132 x 208 KiB) read x from device memory once; larger
 // ones re-read what did not stay in L2. x that is not 16-byte aligned (a view)
 // and the ragged tail take a scalar path over the planned scalar ranges.
+//
+// The data-parallel route (ops/fake_quant.py::_observe_global): under a
+// mesh of several replicas the observer must see the global batch's min and
+// max, which no launch on one rank's rows can know. A site is then two
+// launches around one all-reduce:
+//   fq_min_max_kernel        this rank's min and max (a grid of CUDA blocks,
+//                            16-byte loads; each block stores its partial, and
+//                            the last block to arrive, by an atomic count,
+//                            reduces the partials in block order) into
+//                            stats = (-min, max, old min, old max): the old
+//                            state is copied before any launch can step it;
+//   all-reduce (MAX) of stats[0..1] on the host's stream (torch.distributed);
+//   fq_observe_reduced_kernel  every thread steps the state from stats with
+//                            the observer's FMA and derives the traced
+//                            qparams (the same arithmetic as finish above),
+//                            block 0 writes them, and the grid quantizes.
+// x is read twice, once a launch (the collective sits between them); the
+// route is bound by those bytes and, on one card, by the collective.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,20 +334,20 @@ __device__ __forceinline__ void grid_exchange(unsigned long long* slots, unsigne
 
 // The observer step on the batch's (mn, mx) and the traced qparams of the
 // new state (thread 0): out = (new min, new max, scale, zero point).
-__device__ __forceinline__ void finish(float mn, float mx, float m0, float M0, const Site& s,
-                                       float* out) {
+__device__ __forceinline__ void finish(float mn, float mx, float m0, float M0, int has_c,
+                                       float c, const Grid& g, float* out) {
   const bool uninit = isinf(m0);
   float nmin, nmax;
-  if (s.has_c) {
-    nmin = uninit ? mn : __fmaf_rn(s.c, __fsub_rn(mn, m0), m0);
-    nmax = uninit ? mx : __fmaf_rn(s.c, __fsub_rn(mx, M0), M0);
+  if (has_c) {
+    nmin = uninit ? mn : __fmaf_rn(c, __fsub_rn(mn, m0), m0);
+    nmax = uninit ? mx : __fmaf_rn(c, __fsub_rn(mx, M0), M0);
   } else {
     nmin = nan_min(uninit ? mn : m0, mn);
     nmax = nan_max(uninit ? mx : M0, mx);
   }
   out[0] = nmin;
   out[1] = nmax;
-  traced_qparams(nmin, nmax, s.g, &out[2], &out[3]);
+  traced_qparams(nmin, nmax, g, &out[2], &out[3]);
 }
 
 template <typename T, bool kCluster>
@@ -430,11 +448,11 @@ __global__ void __launch_bounds__(kCluster ? kClusterThreads : kThreads, 1)
         gmn = nan_min(gmn, part[r].x);
         gmx = nan_max(gmx, part[r].y);
       }
-      finish(gmn, gmx, old[0], old[1], s, fin);
+      finish(gmn, gmx, old[0], old[1], s.has_c, s.c, s.g, fin);
     }
   } else if (tid < 32) {
     grid_exchange(s.slots, s.gen, tag, mn, mx);
-    if (tid == 0) finish(mn, mx, old[0], old[1], s, fin);
+    if (tid == 0) finish(mn, mx, old[0], old[1], s.has_c, s.c, s.g, fin);
   }
   __syncthreads();
   if (b == 0 && tid == 0) {
@@ -486,6 +504,101 @@ fq_quantize_kernel(const T* __restrict__ x, T* __restrict__ y, uint8_t* __restri
   float s, z;
   traced_qparams(*state_min, *state_max, g, &s, &z);
   const float inv = __fdiv_rn(1.0f, s);
+  const long long tid = (long long)blockIdx.x * kQuantThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kQuantThreads;
+  long long done = 0;
+  if (aligned) {
+    const long long nv = n / V::kN;
+    const typename V::Load* xv = reinterpret_cast<const typename V::Load*>(x);
+    for (long long i = tid; i < nv; i += stride)
+      fq_vec<T, false>(xv[i], i, y, mask, inv, s, z, g);
+    done = nv * V::kN;
+  }
+  for (long long i = done + tid; i < n; i += stride) {
+    uint8_t m;
+    store(y + i, fq_one(to_f32(x[i]), inv, s, z, g, &m));
+    mask[i] = m;
+  }
+}
+
+// The data-parallel route's first launch: this rank's (-min, max) and the
+// old state into stats[0..3]. partials holds two floats a CUDA block, count
+// one uint32 (zero between launches: the last block resets it).
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+fq_min_max_kernel(const T* __restrict__ x, long long n, int aligned,
+                  const float* __restrict__ state_min, const float* __restrict__ state_max,
+                  float* __restrict__ stats, float* partials, unsigned int* count) {
+  using V = Vec<T>;
+  const long long tid = (long long)blockIdx.x * kQuantThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kQuantThreads;
+  float mn = INFINITY, mx = -INFINITY;
+  long long done = 0;
+  if (aligned) {
+    const long long nv = n / V::kN;
+    const typename V::Load* xv = reinterpret_cast<const typename V::Load*>(x);
+    for (long long i = tid; i < nv; i += stride) min_max<T>(xv[i], mn, mx);
+    done = nv * V::kN;
+  }
+  for (long long i = done + tid; i < n; i += stride) {
+    const float f = to_f32(x[i]);
+    mn = nan_min(mn, f);
+    mx = nan_max(mx, f);
+  }
+  block_min_max<kQuantThreads>(mn, mx);
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[2 * blockIdx.x] = mn;
+    partials[2 * blockIdx.x + 1] = mx;
+    __threadfence();
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last || threadIdx.x >= 32) return;
+  // the last CUDA block: every partial is visible (each was fenced before
+  // its block counted); warp 0 reduces them in block order
+  __threadfence();
+  const int lane = threadIdx.x;
+  mn = INFINITY;
+  mx = -INFINITY;
+  for (int b = lane; b < (int)gridDim.x; b += 32) {
+    mn = nan_min(mn, __ldcg(partials + 2 * b));
+    mx = nan_max(mx, __ldcg(partials + 2 * b + 1));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    mn = nan_min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  if (lane == 0) {
+    stats[0] = -mn;
+    stats[1] = mx;
+    stats[2] = *state_min;
+    stats[3] = *state_max;
+    *count = 0;
+  }
+}
+
+// The data-parallel route's second launch: the observer step on the global
+// (min, max) = (-stats[0], stats[1]) from the old state stats[2..3], the
+// traced qparams (each thread derives them; block 0 writes the new state
+// and the qparams), then the fake-quantization of x.
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
+fq_observe_reduced_kernel(const T* __restrict__ x, T* __restrict__ y, uint8_t* __restrict__ mask,
+                          long long n, int aligned, const float* __restrict__ stats,
+                          float* state_min, float* state_max, float* qparams, int has_c,
+                          float c, Grid g) {
+  using V = Vec<T>;
+  float fin[4];
+  finish(-stats[0], stats[1], stats[2], stats[3], has_c, c, g, fin);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *state_min = fin[0];
+    *state_max = fin[1];
+    qparams[0] = fin[2];
+    qparams[1] = fin[3];
+  }
+  const float s = fin[2], z = fin[3], inv = __fdiv_rn(1.0f, s);
   const long long tid = (long long)blockIdx.x * kQuantThreads + threadIdx.x;
   const long long stride = (long long)gridDim.x * kQuantThreads;
   long long done = 0;
@@ -625,6 +738,48 @@ int frost_fq_quantize(const void* x, void* y, uint8_t* mask, int is_bf16, long l
     fq_quantize_kernel<float><<<blocks, kQuantThreads, 0, stream>>>(
         static_cast<const float*>(x), static_cast<float*>(y), mask, n, aligned, state_min,
         state_max, g);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The data-parallel route, launch 1: stats[0..3] = (-min, max) of this
+// rank's x, then the old state. partials: 2 * max_blocks floats; count: one
+// uint32, zeroed once by the host.
+int frost_fq_min_max(const void* x, int is_bf16, long long n, int aligned,
+                     const float* state_min, const float* state_max, float* stats,
+                     float* partials, unsigned int* count, int max_blocks, cudaStream_t stream) {
+  if (n < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    const int blocks = blocks_for(n, 8, max_blocks);
+    fq_min_max_kernel<__nv_bfloat16><<<blocks, kQuantThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n, aligned, state_min, state_max, stats, partials,
+        count);
+  } else {
+    const int blocks = blocks_for(n, 4, max_blocks);
+    fq_min_max_kernel<float><<<blocks, kQuantThreads, 0, stream>>>(
+        static_cast<const float*>(x), n, aligned, state_min, state_max, stats, partials, count);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The data-parallel route, launch 2: the observer step on the reduced stats,
+// the new state and qparams written, y and the mask.
+int frost_fq_observe_reduced(const void* x, void* y, uint8_t* mask, int is_bf16, long long n,
+                             int aligned, const float* stats, float* state_min,
+                             float* state_max, float* qparams, float c, int has_c, float qmin,
+                             float qmax, float factor, float eps, float sym_zp, int symmetric,
+                             int max_blocks, cudaStream_t stream) {
+  const Grid g{qmin, qmax, factor, eps, sym_zp, symmetric};
+  if (is_bf16) {
+    const int blocks = blocks_for(n, 8, max_blocks);
+    fq_observe_reduced_kernel<__nv_bfloat16><<<blocks, kQuantThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), mask, n, aligned,
+        stats, state_min, state_max, qparams, has_c, c, g);
+  } else {
+    const int blocks = blocks_for(n, 4, max_blocks);
+    fq_observe_reduced_kernel<float><<<blocks, kQuantThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<float*>(y), mask, n, aligned, stats,
+        state_min, state_max, qparams, has_c, c, g);
   }
   return (int)cudaGetLastError();
 }

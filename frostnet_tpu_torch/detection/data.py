@@ -236,6 +236,12 @@ class VOCDetection:
                 np.asarray(boxes, np.float32).reshape(-1, 4),
                 np.asarray(labels, np.int32))
 
+    def annotations(self):
+        """All (paths, boxes, labels): the native loader's input (the XML
+        parsing stays here; decode and augmentation move to the C++ pool)."""
+        parsed = [self._parse(*pair) for pair in self.ids]
+        return ([p for p, _, _ in parsed], [b for _, b, _ in parsed],
+                [lb for _, _, lb in parsed])
 
     def _load(self, base, img_id, rng):
         Image = _pil_image()
@@ -326,6 +332,14 @@ class COCODetection:
 
     def __len__(self):
         return len(self.samples) // self.batch_size
+
+    def annotations(self):
+        """All (paths, boxes, labels) for the native loader."""
+        paths = [p for p, _ in self.samples]
+        boxes = [np.asarray([a[:4] for a in anns], np.float32).reshape(-1, 4)
+                 for _, anns in self.samples]
+        labels = [np.asarray([a[4] for a in anns], np.int32) for _, anns in self.samples]
+        return paths, boxes, labels
 
 
     def __iter__(self):

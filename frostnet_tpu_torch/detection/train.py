@@ -13,9 +13,11 @@ trunk; ``--quant false`` trains plain FP32 throughout; uint8 batches get the
 SSD BaseTransform on the device (``prep_det_image``).
 
 Differences from the JAX trainer: one device (its data-parallel mesh is
-ROADMAP.md, Queue A item 6.5), and ``--loader native`` raises where JAX
-falls back to the Python loader with a warning (the C++ loader is Queue A
-item 6.1). It runs on the card unless ``--device cpu`` is given.
+ROADMAP.md, Queue A item 6.5a), and ``--loader native`` (the C++ pool of
+``native/``: the annotations parsed here, decode and augmentation there,
+uint8 images) raises where g++, libjpeg or libpng are missing, where JAX
+falls back to the Python loader with a warning. It runs on the card unless
+``--device cpu`` is given.
 
 Run: python -m frostnet_tpu_torch.detection.train --net_type qssd --dataset synthetic \\
        --max_iter 4 --warmup_iters 2
@@ -47,10 +49,6 @@ from .losses import multibox_loss
 from .models import Detector, build_ssd, join_variables, load_torch_mobilenet_v2_checkpoint
 from .tdsod import build_tdsod
 
-NATIVE_LOADER = ("loader='native' (the C++ detection loader of frostnet_tpu/native) is not "
-                 "ported yet (ROADMAP.md, Queue A item 6.1); use loader='python'")
-
-
 @dataclasses.dataclass
 class DetConfig:
     net_type: str = "qssd"          # 'qssd' | 'qtdsod'
@@ -65,7 +63,7 @@ class DetConfig:
     gamma: float = 0.1
     optim: str = "QSGD"
     quant: bool = True              # false: plain FP32 end to end
-    loader: str = "python"          # "native" (the C++ pool) is not ported
+    loader: str = "python"          # "native": the C++ pool (native/)
     clip_by: float = 1e-3
     max_iter: Optional[int] = None      # default from the config
     warmup_iters: Optional[int] = None  # default two epochs
@@ -85,18 +83,26 @@ def select_config(net_type: str, dataset: str) -> dict:
 
 def build_detection_dataset(cfg: DetConfig, train: bool = True):
     """'voc' | 'coco' | 'synthetic' -> a batched detection dataset."""
-    if cfg.loader == "native":
-        raise NotImplementedError(NATIVE_LOADER)
     if cfg.dataset == "synthetic":
         return SyntheticDetection((cfg.num_classes or 21) - 1, 300, cfg.batch_size * 4,
                                   cfg.batch_size, cfg.seed)
     if cfg.dataset == "coco":
-        return COCODetection(cfg.data_root, split=cfg.coco_split, batch_size=cfg.batch_size,
-                             train=train, seed=cfg.seed)
-    if cfg.dataset == "voc":
-        return VOCDetection(cfg.data_root, batch_size=cfg.batch_size, train=train,
-                            seed=cfg.seed)
-    raise ValueError(f"unknown dataset {cfg.dataset!r} (voc|coco|synthetic)")
+        ds = COCODetection(cfg.data_root, split=cfg.coco_split, batch_size=cfg.batch_size,
+                           train=train, seed=cfg.seed)
+    elif cfg.dataset == "voc":
+        ds = VOCDetection(cfg.data_root, batch_size=cfg.batch_size, train=train, seed=cfg.seed)
+    else:
+        raise ValueError(f"unknown dataset {cfg.dataset!r} (voc|coco|synthetic)")
+    if cfg.loader != "native":
+        return ds
+    from ..native import NativeDetectionLoader
+
+    # the annotations are parsed here; decode and the SSD augmentation run
+    # in the C++ pool, and the uint8 batches get the BaseTransform on the
+    # device (prep_det_image)
+    paths, boxes, labels = ds.annotations()
+    return NativeDetectionLoader(paths, boxes, labels, batch_size=cfg.batch_size, train=train,
+                                 seed=cfg.seed)
 
 
 def build_net(net_type: str, num_classes: int, **kw):

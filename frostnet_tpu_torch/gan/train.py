@@ -15,7 +15,7 @@ resumes from them.
 Both packages start from ``numpy_init(nets, seed, init="gan")`` here, the
 GAN init drawn with numpy in key order. The trainer runs on one device, the
 card unless ``--device cpu`` is given: the JAX trainer's data-parallel mesh
-over every device that divides the batch is ROADMAP.md, Queue A item 6.5.
+over every device that divides the batch is ROADMAP.md, Queue A item 6.5a.
 Where the JAX trainer writes ``gan_meta.json`` only at ``save_epoch_freq``
 epochs, the port also writes it with the final save, so that a resume
 starts from the epoch the final checkpoint holds.

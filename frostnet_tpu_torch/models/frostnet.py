@@ -31,6 +31,7 @@ from torch import nn
 
 from ..nn import FP32, QAdd, QCat, QConvBNAct, QuantMode, QuantStub, dequant, global_avg_pool
 from ..ops.frost_block import FrostBlockSpec, build_params, frost_block_int8
+from ..parallel.mesh import active_mesh
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 
@@ -303,8 +304,16 @@ class FrostNet(nn.Module):
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate``, scale kept values
-    by ``1 / (1 - rate)``; the mask draws from ``generator``."""
+    by ``1 / (1 - rate)``; the mask draws from ``generator``. Under a
+    data-parallel mesh the mask is drawn for the global batch and this
+    rank's rows kept: the one-process step's mask."""
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    mesh = active_mesh()
+    if mesh is None:
+        mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
+    else:
+        rows = x.shape[0]
+        mask = torch.empty((rows * mesh.dp,) + tuple(x.shape[1:]), device=x.device).bernoulli_(
+            keep, generator=generator)[mesh.rank * rows:(mesh.rank + 1) * rows]
     return torch.where(mask.bool(), x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -193,7 +193,7 @@ class QDense(nn.Module):
             w = self._w
         elif self.quantized:
             w = observed_fake_quant(w, self.w_obs, wspec, mode,
-                                    -1 if wspec.per_channel else None)
+                                    -1 if wspec.per_channel else None, replicated=True)
         y = _exact_matmul(x, w)
         if self.use_bias:
             y = y + self.bias

@@ -59,6 +59,10 @@ epilogue computes ``quantize(clip(y, 0, 6))``; quantize is monotone, so that
 equals ``clamp(rint(y * f32(1/s)) + zp, max(qmin, zp), min(qmax, q6))`` with
 ``q6 = rint(f32(6) * f32(1/s)) + zp``, the epilogue's own arithmetic
 (:meth:`QConvBNAct.code_range`).
+
+Under a data-parallel mesh (``parallel.data_parallel``) the train-mode BN
+takes the global batch's statistics, as JAX's dp step does:
+:class:`GlobalBatchNorm`.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
 from ..ops.requant import (conv_acc, depthwise_acc, epilogue_constants, reciprocal,
                            requant_epilogue)
+from ..parallel.mesh import Mesh, active_mesh
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
 from .mode import FP32, QuantMode
@@ -95,6 +100,56 @@ def _full_f32(x: torch.Tensor, on: bool):
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN of NHWC float32 ``y`` over the global batch of a
+    data-parallel mesh (``frostnet_tpu/nn/conv.py:526-534``: the
+    single-device program on the global batch, which JAX's dp mesh runs):
+
+        bmean = sum(y) / N                  one all-reduce of the sums
+        bvar  = sum((y - bmean)^2) / N      a second one
+        out   = (y - bmean) * rsqrt(bvar + eps) * gamma + beta
+
+    with ``N`` the global count a channel, and the running statistics step
+    with the global ``N / (N - 1)``. The backward all-reduces its two sums a
+    channel (of ``g * gamma`` and of that times the normalized ``y``) in one
+    collective; the gradients of gamma and beta stay this rank's sums, to be
+    averaged with the rest of the gradient. The loss is this rank's mean,
+    so that average is the global batch's gradient.
+
+    torch's ``SyncBatchNorm`` takes another variance form and runs on CUDA
+    only; DDP's default BN computes per-replica statistics, another
+    function."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, beta, running_mean, running_var, momentum: float, eps: float,
+                mesh: Mesh):
+        c = y.shape[-1]
+        n = y.numel() // c * mesh.dp
+        total = torch.full((), float(n), dtype=torch.float32, device=y.device)
+        bmean = mesh.all_reduce(y.sum(dim=(0, 1, 2))) / total
+        d = y - bmean
+        bvar = mesh.all_reduce((d * d).sum(dim=(0, 1, 2))) / total
+        inv = torch.rsqrt(bvar + eps)
+        xhat = d * inv
+        m = momentum
+        running_mean.mul_(1 - m).add_(m * bmean)
+        running_var.mul_(1 - m).add_(m * (bvar * (n / max(n - 1, 1))))
+        ctx.save_for_backward(xhat, inv, gamma)
+        ctx.mesh, ctx.total = mesh, total
+        return xhat * gamma + beta
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, inv, gamma = ctx.saved_tensors
+        gx = g * gamma
+        sums = ctx.mesh.all_reduce(torch.stack([gx.sum(dim=(0, 1, 2)),
+                                                (gx * xhat).sum(dim=(0, 1, 2))]))
+        mean_g, mean_gx = (sums / ctx.total).unbind()
+        dy = inv * (gx - mean_g - xhat * mean_gx)
+        return (dy, (g * xhat).sum(dim=(0, 1, 2)), g.sum(dim=(0, 1, 2)), None, None, None,
+                None, None)
 
 
 class QConvBNAct(nn.Module):
@@ -238,7 +293,14 @@ class QConvBNAct(nn.Module):
         channel (the ESPNetv2 classifier's reinforcement call on a 1x1 zeros
         image), which ``F.batch_norm`` refuses in train mode, normalizes to
         ``bias_bn`` and steps the statistics as JAX does: the mean toward
-        that value, the variance toward 0 (``n / max(n - 1, 1)`` is 1)."""
+        that value, the variance toward 0 (``n / max(n - 1, 1)`` is 1).
+        Under a data-parallel mesh the statistics are the global batch's
+        (:class:`GlobalBatchNorm`)."""
+        mesh = active_mesh() if train else None
+        if mesh is not None:
+            return GlobalBatchNorm.apply(y.to(torch.float32), self.scale, self.bias_bn,
+                                         self.mean, self.var, self.bn_momentum, self.bn_eps,
+                                         mesh)
         if train and y.numel() == y.shape[-1]:
             y = y.to(torch.float32)
             bmean = y.reshape(-1)
@@ -260,7 +322,8 @@ class QConvBNAct(nn.Module):
         q_on = self.quantized and (mode.fake_quant or mode.observe)
         if q_on and self.use_bn and train:
             sf = bn_scale_factor(self.scale, self.var, self.bn_eps)
-            w_q = observed_fake_quant(self.kernel * sf, self.w_obs, wspec, mode, w_axis)
+            w_q = observed_fake_quant(self.kernel * sf, self.w_obs, wspec, mode, w_axis,
+                                      replicated=True)
             y = self._conv(x, w_q) / sf
             if bias is not None:
                 y = y + bias
@@ -268,10 +331,11 @@ class QConvBNAct(nn.Module):
         elif q_on and self.use_bn:
             wf, bf = fold_bn(self.kernel, bias, self.scale, self.bias_bn, self.mean, self.var,
                              self.bn_eps)
-            w_q = observed_fake_quant(wf, self.w_obs, wspec, mode, w_axis)
+            w_q = observed_fake_quant(wf, self.w_obs, wspec, mode, w_axis, replicated=True)
             y = self._conv(x, w_q) + bf
         elif q_on:  # quantized conv without BN (the classifier)
-            w_q = observed_fake_quant(self.kernel, self.w_obs, wspec, mode, w_axis)
+            w_q = observed_fake_quant(self.kernel, self.w_obs, wspec, mode, w_axis,
+                                      replicated=True)
             y = self._conv(x, w_q)
             if bias is not None:
                 y = y + bias

@@ -28,9 +28,10 @@ from torch import nn
 
 from ..ops.fake_quant import ObservedFakeQuant
 from ..ops.requant import qadd_codes, reciprocal, requant_codes
+from ..parallel.mesh import active_mesh
 from ..quant import (QConfig, QNNPACK, QSpec, calculate_qparams_folded,
                      calculate_qparams_traced, fake_quantize, update_observer)
-from ..quant.observer import ObserverState
+from ..quant.observer import ObserverState, global_batch_min_max
 from ..quant.qtensor import QParams, QTensor
 from .mode import FP32, QuantMode
 
@@ -60,19 +61,28 @@ def observed_qparams(obs: Observer, spec) -> QParams:
 
 
 def observed_fake_quant(x: torch.Tensor, obs: Observer, spec: QSpec, mode: QuantMode,
-                        channel_axis: Optional[int] = None) -> torch.Tensor:
+                        channel_axis: Optional[int] = None,
+                        replicated: bool = False) -> torch.Tensor:
     """Observe ``x`` (``mode.observe``) and fake-quantize it (``mode.fake_quant``).
 
     The JAX package's ``apply_observer``: the state steps first, in place and
     outside autograd, and the qparams come from the updated state. A
     per-tensor site runs the ``ops.fake_quant`` kernel on the GPU; a
     per-channel site (fbgemm weights) runs torch ops.
+
+    Under a data-parallel mesh (``parallel.data_parallel``) an observing
+    site takes the global batch's min and max, as JAX's observer sees the
+    global tensor: one all-reduce. ``replicated`` sites (the weights, the
+    same on every rank) skip it.
     """
+    mesh = active_mesh() if mode.observe and not replicated else None
     if channel_axis is None and mode.fake_quant:
-        return ObservedFakeQuant.apply(x, obs, spec, mode.observe)
+        return ObservedFakeQuant.apply(x, obs, spec, mode.observe, mesh)
     if mode.observe:
         with torch.no_grad():
-            st = update_observer(obs.live(), x.detach(), spec, channel_axis)
+            batch = None if mesh is None else global_batch_min_max(x.detach(), mesh,
+                                                                   channel_axis)
+            st = update_observer(obs.live(), x.detach(), spec, channel_axis, batch=batch)
             obs.min_val.copy_(st.min_val)
             obs.max_val.copy_(st.max_val)
     if mode.fake_quant:

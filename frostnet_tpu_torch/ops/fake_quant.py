@@ -27,6 +27,19 @@ share (keep the QAT step on one stream). The backward is
 :func:`fake_quant_observe_plain` is the same function in torch ops
 (``quant.observer`` and ``quant.fake_quant``); the wrapper runs it for CPU
 tensors only and launches the kernel (or raises) for CUDA tensors.
+
+The data-parallel route (``mesh=``, a mesh of several replicas): one launch
+sees only this rank's rows, so an observing site under data parallelism is
+two launches around one collective. ``frost_fq_min_max`` takes this rank's
+batch min and max (a grid of CUDA blocks, the last to finish reducing the
+partials in block order) and writes ``(-min, max)`` beside a copy of the
+old state; one all-reduce (MAX) of the first two makes them the global
+batch's; ``frost_fq_observe_reduced`` then steps the state from them (the
+kernel's own FMA), derives the traced qparams in every thread and
+quantizes. Its plain version is :func:`fake_quant_observe_plain` fed the
+global min and max. Each launch counts in ``fake_quant_observe.dp_launches``
+(``launches`` keeps the one-launch sites: one rank's QAT step, and weight
+sites, which observe replicated weights).
 """
 from __future__ import annotations
 
@@ -38,8 +51,8 @@ from typing import Dict, Tuple
 import torch
 
 from ..quant.fake_quant import fake_quant_forward, ste_backward
-from ..quant.observer import (ObserverState, calculate_qparams_traced, qparams_range_factor,
-                              update_observer)
+from ..quant.observer import (ObserverState, calculate_qparams_traced, global_batch_min_max,
+                              qparams_range_factor, update_observer)
 from ..quant.qtypes import SCALE_EPS, QSpec
 from . import cuda_build
 from .frost_block import sm_count
@@ -55,6 +68,7 @@ MAX_CLUSTER = 16  # CUDA blocks of the cluster shape at most (a non-portable siz
 RANK_BYTES = 16 * 1024
 CLUSTER_BYTES = MAX_CLUSTER * RANK_BYTES
 QUANTIZE_BLOCKS = 132 * 16  # grid cap of the QAT_FROZEN quantize launch
+MIN_MAX_BLOCKS = 264  # CUDA blocks of the data-parallel route's min/max launch at most
 
 _SCRATCH: Dict[torch.device, torch.Tensor] = {}
 
@@ -120,10 +134,12 @@ def plan_fake_quant(n: int, itemsize: int, aligned: bool, sms: int) -> FakeQuant
 
 
 def fake_quant_observe_plain(x: torch.Tensor, state: ObserverState, spec: QSpec,
-                             observe: bool = True):
-    """(y, mask, new_state, scale, zero_point) of one per-tensor site, in torch ops."""
+                             observe: bool = True, batch=None):
+    """(y, mask, new_state, scale, zero_point) of one per-tensor site, in torch ops.
+    ``batch`` is the (min, max) to observe in place of ``x``'s own (the
+    global batch's under data parallelism)."""
     if observe:
-        state = update_observer(state, x, spec)
+        state = update_observer(state, x, spec, batch=batch)
     scale, zp = calculate_qparams_traced(state, spec)
     y, mask = fake_quant_forward(x, scale, zp, spec.qmin, spec.qmax)
     return y, mask, state, scale, zp
@@ -146,6 +162,11 @@ def _bind():
         lib.frost_fq_occupancy.restype = i
         lib.frost_fq_quantize.argtypes = [p, p, p, i, ll, i, p, p, f, f, f, f, f, i, i, p]
         lib.frost_fq_quantize.restype = i
+        lib.frost_fq_min_max.argtypes = [p, i, ll, i, p, p, p, p, p, i, p]
+        lib.frost_fq_min_max.restype = i
+        lib.frost_fq_observe_reduced.argtypes = [p, p, p, i, ll, i, p, p, p, p, f, i, f, f, f,
+                                                 f, f, i, i, p]
+        lib.frost_fq_observe_reduced.restype = i
         lib.frost_fq_error_string.argtypes = [i]
         lib.frost_fq_error_string.restype = ctypes.c_char_p
     return lib
@@ -161,6 +182,18 @@ def _scratch(device: torch.device, sms: int) -> Tuple[int, int]:
         buf = _SCRATCH[device] = torch.zeros((sms + 1) * SLOT_BYTES // 4, dtype=torch.int32,
                                              device=device)
     return buf.data_ptr(), buf.data_ptr() + sms * SLOT_BYTES
+
+
+def _min_max_scratch(device: torch.device) -> Tuple[int, int]:
+    """Addresses of the data-parallel min/max launch's per-device partials
+    (two floats a CUDA block) and its arrival count (zeroed once; the last
+    CUDA block resets it)."""
+    key = ("min_max", device)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(2 * MIN_MAX_BLOCKS + 32, dtype=torch.int32,
+                                          device=device)
+    return buf.data_ptr(), buf.data_ptr() + 2 * MIN_MAX_BLOCKS * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -201,15 +234,19 @@ def _check(x: torch.Tensor, min_val: torch.Tensor, max_val: torch.Tensor):
 
 
 def fake_quant_observe(x: torch.Tensor, min_val: torch.Tensor, max_val: torch.Tensor,
-                       spec: QSpec, observe: bool = True):
+                       spec: QSpec, observe: bool = True, mesh=None):
     """(y, mask, qparams) of one per-tensor site; the state is updated in place.
 
     ``min_val``/``max_val`` are the observer's float32 scalar buffers.
     ``qparams`` is a (2,) float32 tensor (scale, zero point) of the new
     state, None when ``observe`` is False. CPU tensors take the plain
-    version; a CUDA tensor launches the kernel (or raises).
+    version; a CUDA tensor launches the kernel (or raises). With ``mesh``
+    (``parallel.Mesh`` of several replicas) an observing site observes the
+    global batch (the data-parallel route, above).
     """
     _check(x, min_val, max_val)
+    if observe and mesh is not None and mesh.distributed:
+        return _observe_global(x, min_val, max_val, spec, mesh)
     if x.device.type == "cpu":
         y, mask, st, scale, zp = fake_quant_observe_plain(
             x, ObserverState(min_val, max_val), spec, observe)
@@ -255,6 +292,50 @@ def fake_quant_observe(x: torch.Tensor, min_val: torch.Tensor, max_val: torch.Te
 
 
 fake_quant_observe.launches = 0
+fake_quant_observe.dp_launches = 0
+
+
+def _observe_global(x, min_val, max_val, spec, mesh):
+    """The data-parallel route of :func:`fake_quant_observe`: this rank's
+    (-min, max), one all-reduce (MAX), then the observer step and
+    fake-quantization on the global min and max."""
+    from torch.distributed import ReduceOp
+
+    if x.device.type == "cpu":
+        y, mask, st, scale, zp = fake_quant_observe_plain(
+            x, ObserverState(min_val, max_val), spec, True, batch=global_batch_min_max(x, mesh))
+        with torch.no_grad():
+            min_val.copy_(st.min_val)
+            max_val.copy_(st.max_val)
+        return y, mask, torch.stack([scale, zp.to(torch.float32)])
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x = x.contiguous()
+    n = x.numel()
+    aligned = int(x.data_ptr() % VECTOR_BYTES == 0)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    lib = _bind()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stats = torch.empty(4, dtype=torch.float32, device=x.device)  # -min, max, old min, old max
+    partials, count = _min_max_scratch(x.device)
+    err = lib.frost_fq_min_max(x.data_ptr(), is_bf16, n, aligned, min_val.data_ptr(),
+                               max_val.data_ptr(), stats.data_ptr(), partials, count,
+                               MIN_MAX_BLOCKS, stream)
+    cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe (min/max)")
+    fake_quant_observe.dp_launches += 1
+    mesh.all_reduce(stats[:2], ReduceOp.MAX)
+    y = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    qparams = torch.empty(2, dtype=torch.float32, device=x.device)
+    c = spec.averaging_constant
+    err = lib.frost_fq_observe_reduced(
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(), is_bf16, n, aligned, stats.data_ptr(),
+        min_val.data_ptr(), max_val.data_ptr(), qparams.data_ptr(),
+        0.0 if c is None else float(c), int(c is not None), *_grid_args(spec),
+        QUANTIZE_BLOCKS, stream)
+    cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe (reduced)")
+    fake_quant_observe.dp_launches += 1
+    return y, mask, qparams
 
 
 class ObservedFakeQuant(torch.autograd.Function):
@@ -265,13 +346,13 @@ class ObservedFakeQuant(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, observer, spec, observe):
+    def forward(ctx, x, observer, spec, observe, mesh=None):
         y, mask, _ = fake_quant_observe(x.detach(), observer.min_val, observer.max_val,
-                                        spec, observe)
+                                        spec, observe, mesh)
         ctx.save_for_backward(mask)
         return y
 
     @staticmethod
     def backward(ctx, g):
         (mask,) = ctx.saved_tensors
-        return ste_backward(mask, g), None, None, None
+        return ste_backward(mask, g), None, None, None, None

@@ -54,12 +54,27 @@ def batch_min_max(x: torch.Tensor, channel_axis: Optional[int] = None
     return torch.amin(x, dim=axes), torch.amax(x, dim=axes)
 
 
-def update_observer(state: ObserverState, x: torch.Tensor, spec: QSpec,
-                    channel_axis: Optional[int] = None) -> ObserverState:
-    """One observer step on a batch (pure; the new state is returned)."""
-    from ..ops.requant import fma_f32  # ops imports this module: import at use
+def global_batch_min_max(x: torch.Tensor, mesh, channel_axis: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global batch's (min, max) of this rank's ``x`` over a
+    data-parallel ``mesh`` (``parallel.Mesh``): one all-reduce (MAX) of
+    ``(-min, max)``."""
+    from torch.distributed import ReduceOp
 
     bmin, bmax = batch_min_max(x, channel_axis)
+    stats = mesh.all_reduce(torch.stack([-bmin, bmax]), ReduceOp.MAX)
+    return -stats[0], stats[1]
+
+
+def update_observer(state: ObserverState, x: torch.Tensor, spec: QSpec,
+                    channel_axis: Optional[int] = None,
+                    batch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> ObserverState:
+    """One observer step on a batch (pure; the new state is returned).
+    ``batch`` gives the batch's (min, max) in place of ``x``'s (the global
+    batch's under data parallelism)."""
+    from ..ops.requant import fma_f32  # ops imports this module: import at use
+
+    bmin, bmax = batch_min_max(x, channel_axis) if batch is None else batch
     m_min, m_max = state.min_val.to(torch.float32), state.max_val.to(torch.float32)
     uninit = torch.isinf(m_min)
     c = spec.averaging_constant

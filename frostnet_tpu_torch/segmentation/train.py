@@ -11,8 +11,12 @@ directories and ``checkpoint_meta.json`` (``--resume`` continues from
 them) -> the dual mIoU, QAT_FROZEN and INT8 (frozen in process right before
 it runs).
 
-It runs on the card unless ``--device cpu`` is given. The native C++
-loader (``--loader native``) is not ported and raises.
+It runs on the card unless ``--device cpu`` is given. ``--loader native``
+hands the dataset's (image, mask) file list to the C++ pool (``native/``:
+uint8 images, normalized on the device); it needs g++, libjpeg and libpng
+and raises where they are missing, where the JAX trainer falls back to the
+Python loader. The trainer runs on one device: the JAX trainer's
+data-parallel mesh is ROADMAP.md, Queue A item 6.5a.
 
 Run: python -m frostnet_tpu_torch.segmentation.train --model mobilenetv3_RE_small \\
        --dataset synthetic --crop_size 768
@@ -43,10 +47,6 @@ from .data import (CITYSCAPES_CLASS_WEIGHTS, CITYSCAPES_IGNORE, CityscapesSegmen
                    CustomSegmentation, SyntheticSegmentation, VOCSegmentation)
 from .models import get_seg_model
 
-NATIVE_LOADER = ("loader='native' (the C++ segmentation loader of frostnet_tpu/native) is not "
-                 "ported yet (ROADMAP.md, Queue A item 6.1); use loader='python'")
-
-
 @dataclasses.dataclass
 class SegConfig:
     model: str = "mobilenetv3_RE_small"
@@ -70,7 +70,7 @@ class SegConfig:
     ignore_index: int = CITYSCAPES_IGNORE
     loss_type: str = "ce"            # 'ce' | 'bce'
     width_scale: Optional[float] = None  # espnet/espnetv2 channel scale
-    loader: str = "python"           # "native" (the C++ pool) is not ported
+    loader: str = "python"           # "native": the C++ pool (native/)
     resume: bool = False             # continue from save_dir/checkpoint
     device: str = "cuda"             # "cpu" runs the kernels' plain versions
 
@@ -89,24 +89,38 @@ def resolve_dataset_defaults(cfg: SegConfig) -> SegConfig:
 
 
 def build_seg_dataset(cfg: SegConfig, train: bool):
-    if cfg.loader == "native":
-        raise NotImplementedError(NATIVE_LOADER)
     crop = (cfg.crop_size, cfg.crop_size)
     if cfg.dataset == "synthetic":
         return SyntheticSegmentation(num_classes=cfg.num_classes, crop=crop,
                                      length=cfg.batch_size * (cfg.steps_per_epoch or 4),
                                      batch_size=cfg.batch_size, seed=cfg.seed + (not train))
     if cfg.dataset == "pascal":
-        return VOCSegmentation(cfg.data_dir, train=train, crop_size=crop,
-                               batch_size=cfg.batch_size, seed=cfg.seed,
-                               coco_list=cfg.coco_list if train else None)
-    if cfg.dataset == "city":
-        return CityscapesSegmentation(cfg.data_dir, train=train, crop_size=crop,
-                                      batch_size=cfg.batch_size, seed=cfg.seed)
-    if cfg.dataset == "custom":
-        return CustomSegmentation(cfg.data_dir, train=train, crop_size=crop,
-                                  batch_size=cfg.batch_size, seed=cfg.seed)
-    raise ValueError(f"unknown dataset {cfg.dataset!r} (city|pascal|custom|synthetic)")
+        ds = VOCSegmentation(cfg.data_dir, train=train, crop_size=crop,
+                             batch_size=cfg.batch_size, seed=cfg.seed,
+                             coco_list=cfg.coco_list if train else None)
+    elif cfg.dataset == "city":
+        ds = CityscapesSegmentation(cfg.data_dir, train=train, crop_size=crop,
+                                    batch_size=cfg.batch_size, seed=cfg.seed)
+    elif cfg.dataset == "custom":
+        ds = CustomSegmentation(cfg.data_dir, train=train, crop_size=crop,
+                                batch_size=cfg.batch_size, seed=cfg.seed)
+    else:
+        raise ValueError(f"unknown dataset {cfg.dataset!r} (city|pascal|custom|synthetic)")
+    if cfg.loader != "native":
+        return ds
+    from ..native import NativeSegmentationLoader
+
+    # the Python dataset's (img, mask) list goes to the C++ pool: city and
+    # custom pairs are root-relative, VOC's absolute. Validation: pascal
+    # resizes to the crop, city evaluates at the native 1024x2048 (the
+    # whole-frame resize is the identity there)
+    root = cfg.data_dir if cfg.dataset in ("city", "custom") else ""
+    if not train and cfg.dataset == "city":
+        crop = (1024, 2048)
+    return NativeSegmentationLoader([os.path.join(root, a) for a, _ in ds.pairs],
+                                    [os.path.join(root, b) for _, b in ds.pairs],
+                                    crop_size=crop, batch_size=cfg.batch_size, train=train,
+                                    seed=cfg.seed, ignore=cfg.ignore_index)
 
 
 def seg_model_kwargs(cfg: SegConfig) -> dict:

@@ -35,8 +35,13 @@ keys of ``frostnet_tpu.serve``:
   * ``pipeline_images_per_sec``: batches enqueued back to back, one
     synchronisation at the end (a saturated server).
 
-The JAX server's ``--dp`` (a request batch sharded over chips) is not
-ported yet (ROADMAP.md, Queue A item 6.5).
+``--dp N`` (every workload) splits each request batch over N replicas of
+the frozen model, on ``cuda:0`` to ``cuda:N-1`` (``devices=`` of the
+predictors places them anywhere, two on one device too): replica ``i``
+serves its contiguous block of rows, the outputs are gathered in order on
+the first device. A batch that N does not divide goes over the largest
+divisor that fits (``parallel.make_dp_mesh``, JAX's rule). INT8 rows are
+independent, so the output equals ``--dp 1``'s.
 
 Run: python -m frostnet_tpu_torch.serve --model frostnet_quant_large_1_0 \\
        --artifact model_int8.npz --source synthetic --iters 20 [--fuse_int8]
@@ -52,16 +57,18 @@ Run: python -m frostnet_tpu_torch.serve --model frostnet_quant_large_1_0 \\
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .gan import define_g
 from .models import create_model
+from .parallel import make_dp_mesh, shard_rows
 from .quant import freeze, from_jax_variables, load_int8
 from .quant.export import artifact_qconfig
 from .quant.freeze import resolve_device
@@ -71,24 +78,73 @@ _DEFAULTS = {"cls": (_CLS_DEFAULT, 224), "seg": ("mobilenetv3_large", 512),
              "gan": ("resnet_9blocks", 256), "det": ("qssd", None)}
 
 
+def replica_devices(device="cuda", dp: int = 1, devices: Optional[Sequence] = None) -> list:
+    """The devices of ``dp`` replicas: ``devices`` when given, else
+    ``cuda:0..dp-1`` (``device`` itself ``dp`` times for the CPU)."""
+    if devices is not None:
+        return [resolve_device(d) for d in devices]
+    device = resolve_device(device)
+    if dp <= 1:
+        return [device]
+    if device.type != "cuda":
+        return [device] * dp
+    if torch.cuda.device_count() < dp:
+        raise ValueError(f"--dp {dp} needs {dp} cards, this host has {torch.cuda.device_count()}")
+    return [torch.device("cuda", i) for i in range(dp)]
+
+
+class Replicated:
+    """``fn(images)`` over replicas: ``fns[i]`` serves on ``devices[i]``.
+    Each request batch is split over the largest divisor of its size that
+    fits the replicas (``make_dp_mesh``), replica ``i`` takes its contiguous
+    block of rows (``shard_rows``), and the outputs (a tensor or a tuple of
+    tensors) are gathered in order on the first device."""
+
+    def __init__(self, fns: List[Callable], devices: Sequence[torch.device]):
+        self.fns, self.devices = list(fns), list(devices)
+
+    def __call__(self, images):
+        if len(self.fns) == 1:
+            return self.fns[0](images)
+        n = len(images)
+        dp = make_dp_mesh(n, self.devices).dp
+        outs = [self.fns[i](images[shard_rows(n, dp, i)]) for i in range(dp)]
+        first = self.devices[0]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[k].to(first) for o in outs]) for k in range(len(outs[0])))
+        return torch.cat([o.to(first) for o in outs])
+
+
+def _frozen_replicas(model, devices, image_size: int) -> Replicated:
+    """``freeze`` of ``model`` on each device (copies made before the first
+    freeze prepares it)."""
+    models = [model] + [copy.deepcopy(model) for _ in devices[1:]]
+    return Replicated([freeze(m, d, image_size=image_size) for m, d in zip(models, devices)],
+                      devices)
+
+
 class Int8Predictor:
     """Frozen-INT8 classifier over an ``export_int8`` artifact, a trainer
     checkpoint (restored, then frozen) or a serialized program (no model
-    code: ``quant.load_serving``). Exactly one of the three."""
+    code: ``quant.load_serving``). Exactly one of the three. ``dp`` or
+    ``devices`` replicate it (``Replicated``)."""
 
     def __init__(self, model_name: str = _CLS_DEFAULT, num_classes: int = 1000,
                  artifact: Optional[str] = None, checkpoint: Optional[str] = None,
                  program: Optional[str] = None, image_size: int = 224,
-                 fuse_int8: bool = False, device="cuda"):
+                 fuse_int8: bool = False, device="cuda", dp: int = 1,
+                 devices: Optional[Sequence] = None):
         if sum(x is not None for x in (artifact, checkpoint, program)) != 1:
             raise ValueError("pass exactly one of artifact= / checkpoint= / program=")
-        self.device = resolve_device(device)
+        self.devices = replica_devices(device, dp, devices)
+        self.device = self.devices[0]
         self.image_size = image_size
         if program is not None:
             from .quant import load_serving
 
             self.model = None
-            self._apply = load_serving(program, self.device)
+            self._apply = Replicated([load_serving(program, d) for d in self.devices],
+                                     self.devices)
             return
         # a trainer checkpoint holds the registry's default qconfig, an
         # artifact says its own
@@ -103,7 +159,7 @@ class Int8Predictor:
 
             restore_model_variables(checkpoint,
                                     create_train_state(self.model, None, device=self.device))
-        self._apply = freeze(self.model, self.device, image_size=image_size)
+        self._apply = _frozen_replicas(self.model, self.devices, image_size)
 
     def export_program(self, path: str, batch: Optional[int] = None) -> int:
         """Write the served model's serialized program to ``path``; returns
@@ -126,16 +182,19 @@ class Int8Predictor:
 
 class FrozenPredictor:
     """Frozen-INT8 serving of a non-classifier model (the segmentation model,
-    the GAN generator) over an ``export_int8`` artifact."""
+    the GAN generator) over an ``export_int8`` artifact; ``dp`` or
+    ``devices`` replicate it."""
 
-    def __init__(self, model, artifact: Optional[str], image_size: int, device="cuda"):
+    def __init__(self, model, artifact: Optional[str], image_size: int, device="cuda",
+                 dp: int = 1, devices: Optional[Sequence] = None):
         if artifact is None:
             raise ValueError("pass artifact= (an export_int8 .npz)")
-        self.device = resolve_device(device)
+        self.devices = replica_devices(device, dp, devices)
+        self.device = self.devices[0]
         self.image_size = image_size
         self.model = model
         from_jax_variables(self.model, load_int8(artifact))
-        self._apply = freeze(self.model, self.device, image_size=image_size)
+        self._apply = _frozen_replicas(self.model, self.devices, image_size)
 
     def __call__(self, images) -> torch.Tensor:
         """(B, H, W, 3) float images -> the model's float32 output on the device."""
@@ -147,35 +206,39 @@ class GanPredictor(FrozenPredictor):
     S, 3) float32 in [-1, 1]."""
 
     def __init__(self, net_g: str = "resnet_9blocks", ngf: int = 64,
-                 artifact: Optional[str] = None, image_size: int = 256, device="cuda"):
+                 artifact: Optional[str] = None, image_size: int = 256, device="cuda",
+                 dp: int = 1, devices: Optional[Sequence] = None):
         if artifact is None:
             raise ValueError("pass artifact= (an export_int8 .npz)")
         super().__init__(define_g(ngf=ngf, netG=net_g, qconfig=artifact_qconfig(artifact)),
-                         artifact, image_size, device)
+                         artifact, image_size, device, dp, devices)
 
 
 def seg_predictor(name: str, artifact: str, num_classes: int, image_size: int,
-                  device="cuda") -> FrozenPredictor:
+                  device="cuda", dp: int = 1, devices: Optional[Sequence] = None
+                  ) -> FrozenPredictor:
     """The JAX server's seg model (``frostnet_tpu/serve.py`` ``_build_seg``):
     ``name`` from the seg registry, built in bfloat16 (the compute dtype of
     the quant region's float phases; the INT8 graph and the float32 tail do
     not read it), frozen over ``artifact``."""
     from .segmentation.models import get_seg_model
 
-    device = resolve_device(device)
+    devices = replica_devices(device, dp, devices)  # raises before any file is read
     model = get_seg_model(name, num_classes=num_classes, qconfig=artifact_qconfig(artifact),
                           dtype=torch.bfloat16)
-    return FrozenPredictor(model, artifact, image_size, device)
+    return FrozenPredictor(model, artifact, image_size, devices=devices)
 
 
 class DetPredictor:
     """SSD / Tiny-DSOD serving (``frostnet_tpu/serve.py:198-257``): the frozen
     INT8 feature net, then the float head, over ``BASE_feat.npz`` and
-    ``BASE_head.npz``; :meth:`detect` adds the softmax and ``detect``."""
+    ``BASE_head.npz``; :meth:`detect` adds the softmax and ``detect``.
+    ``dp`` or ``devices`` replicate the two nets (``Replicated``)."""
 
     def __init__(self, net_type: str = "qssd", artifact: Optional[str] = None,
                  num_classes: Optional[int] = None, dataset: str = "voc",
-                 image_size: Optional[int] = None, device="cuda"):
+                 image_size: Optional[int] = None, device="cuda", dp: int = 1,
+                 devices: Optional[Sequence] = None):
         from .detection.anchors import make_priors
         from .detection.train import build_net, select_config
 
@@ -191,26 +254,40 @@ class DetPredictor:
             raise SystemExit(f"--workload det runs at the net config's input size "
                              f"{self.image_size}, got --image_size {image_size}")
         base = artifact[:-4] if artifact.endswith(".npz") else artifact
-        self.device = resolve_device(device)
+        self.devices = replica_devices(device, dp, devices)
+        self.device = self.devices[0]
         self.num_classes = num_classes or det_cfg["num_classes"]
         self.feat, self.head = build_net(net_type, self.num_classes,
                                          qconfig=artifact_qconfig(base + "_feat.npz"))
         from_jax_variables((self.feat, self.head),
                            (load_int8(base + "_feat.npz"), load_int8(base + "_head.npz")))
-        self.feat.to(self.device).eval()
-        self.head.to(self.device).eval()
-        self.feat.prepare_int8(self.device)
+        nets = [(self.feat, self.head)] + [copy.deepcopy((self.feat, self.head))
+                                           for _ in self.devices[1:]]
+        self._apply = Replicated([self._frozen(f, h, d) for (f, h), d in
+                                  zip(nets, self.devices)], self.devices)
         self.priors = torch.as_tensor(make_priors(det_cfg), device=self.device)
+
+    @staticmethod
+    def _frozen(feat, head, device) -> Callable:
+        """The INT8 feature net and the float head on ``device``."""
+        from .nn import INT8
+
+        feat.to(device).eval()
+        head.to(device).eval()
+        feat.prepare_int8(device)
+
+        def fn(images):
+            x = torch.as_tensor(np.asarray(images, np.float32) if isinstance(images, np.ndarray)
+                                else images).to(device=device, dtype=torch.float32)
+            return head(feat(x, mode=INT8))
+
+        return fn
 
     @torch.inference_mode()
     def __call__(self, images):
         """(B, 300, 300, 3) float BGR images, mean subtracted -> (loc (B, P,
         4), conf (B, P, C)) logits, tensors on the device."""
-        from .nn import INT8
-
-        x = torch.as_tensor(np.asarray(images, np.float32) if isinstance(images, np.ndarray)
-                            else images).to(device=self.device, dtype=torch.float32)
-        return self.head(self.feat(x, mode=INT8))
+        return self._apply(images)
 
     @torch.inference_mode()
     def detect(self, images, conf_thresh: float = 0.25, top_k: int = 50) -> torch.Tensor:
@@ -334,9 +411,10 @@ def _batches(args) -> Iterator[np.ndarray]:
     return (x for x, _ in _requests(args))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 def _predictor(args):
@@ -356,17 +434,17 @@ def _predictor(args):
         pred = DetPredictor(args.model, artifact=args.artifact,
                             num_classes=args.num_classes if args.num_classes != 1000 else None,
                             dataset=args.dataset, image_size=args.image_size,
-                            device=args.device)
+                            device=args.device, dp=args.dp)
         args.image_size = pred.image_size
         return pred, pred.write_detections
     if args.workload in ("gan", "seg"):
         if args.workload == "gan":
             pred = GanPredictor(args.model, ngf=args.ngf, artifact=args.artifact,
-                                image_size=args.image_size, device=args.device)
+                                image_size=args.image_size, device=args.device, dp=args.dp)
             write = write_fakes
         else:
             pred = seg_predictor(args.model, args.artifact, args.num_classes, args.image_size,
-                                 device=args.device)
+                                 device=args.device, dp=args.dp)
             write = write_seg_maps
         return pred, lambda path, x, start: write(path, pred(x), start)
     if args.program and (args.fuse_int8 or args.export_program):
@@ -375,7 +453,7 @@ def _predictor(args):
     pred = Int8Predictor(args.model, num_classes=args.num_classes, artifact=args.artifact,
                          checkpoint=args.checkpoint, program=args.program,
                          image_size=args.image_size, fuse_int8=args.fuse_int8,
-                         device=args.device)
+                         device=args.device, dp=args.dp)
     if args.export_program:
         size = pred.export_program(args.export_program)
         print(f"[serve] serving program -> {args.export_program} ({size / 1e6:.2f} MB)")
@@ -399,17 +477,18 @@ def main(args):
         lat.append(time.perf_counter() - t0)
     lat_ms = np.sort(np.asarray(lat)) * 1000
 
-    _sync(pred.device)
+    _sync(pred.devices)
     t0 = time.perf_counter()
     for _ in range(args.iters):
         pred(next(gen)[0])
-    _sync(pred.device)
+    _sync(pred.devices)
     pipeline_ips = args.batch_size * args.iters / (time.perf_counter() - t0)
 
     report = {
         "workload": args.workload,
         "model": f"program:{args.program}" if args.program else args.model,
         "device": str(pred.device),
+        "dp": len(pred.devices),
         "fuse_int8": bool(args.fuse_int8),
         "batch_size": args.batch_size,
         "iters": args.iters,
@@ -481,6 +560,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fuse_int8", action="store_true",
                    help="run each Frost block as one fused CUDA kernel (FrostNet only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dp", type=int, default=1,
+                   help="replicas on cuda:0..N-1, each request batch split over them")
     p.add_argument("--output", default=None,
                    help="cls: top-k jsonl; det: detections jsonl; seg, gan: a directory of "
                         "PNGs")

@@ -10,11 +10,22 @@ the dual accuracy: QAT_FROZEN and INT8. The INT8 evaluation freezes the
 current state in process (``prepare_int8``) right before it runs, after the
 last change to weights and observers.
 
-It runs on the card unless ``--device cpu`` is given. Model parallelism
-(``mp > 1``) and the native C++ loader are not ported and raise.
+It runs on the card unless ``--device cpu`` is given. ``--loader native``
+reads the image folders ``data_dir/dataset/{train,val}`` with the C++ pool
+(``native/``: uint8 batches, normalized on the device); it needs g++,
+libjpeg and libpng, and raises where they are missing (no fallback).
+
+Data parallelism: under ``torchrun`` each rank trains on ``cuda:LOCAL_RANK``
+(ranks beyond the host's cards share them, over gloo) with its block of
+each global batch of ``batch_size`` rows, the state replicated from rank 0,
+the global batch's BN statistics, observers and gradient (``parallel/``);
+evaluation counts are all-reduced, and checkpoints,
+``checkpoint_meta.json`` and the metric log come from rank 0 only. Model
+parallelism (``mp > 1``) is not ported and raises.
 
 Run: python -m frostnet_tpu_torch.train.classification --config cfg.json
      python -m frostnet_tpu_torch.train.classification --dataset synthetic --epochs 1
+     torchrun --nproc_per_node 2 -m frostnet_tpu_torch.train.classification --dataset synthetic
 """
 from __future__ import annotations
 
@@ -31,13 +42,12 @@ from ..data import SyntheticClassification, build_classification_dataset, prefet
 from ..models import create_model
 from ..nn import FP32, INT8, QAT, QAT_FROZEN
 from ..optim import get_lr_scheduler, get_optimizer, grouped_weight_decay, learning_rate
+from ..parallel import Mesh, RankRows, make_mesh, multihost, replicate
 from ..quant.freeze import resolve_device
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
 from ..utils.metrics import AverageMeter
 from .state import create_train_state, make_eval_step, make_train_step
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue A)"
 
 
 def flatten_reference_json(raw: dict, aliases: dict, ignored=frozenset()) -> dict:
@@ -68,7 +78,7 @@ class ClassificationConfig:
     model: str = "frostnet_quant_small_1_0"
     dataset: str = "synthetic"
     data_dir: str = "./data"
-    loader: str = "python"       # "native" (the C++ pool) is not ported
+    loader: str = "python"       # "native": the C++ pool (native/)
     num_classes: int = 1000
     image_size: int = 224
     batch_size: int = 64
@@ -96,7 +106,7 @@ class ClassificationConfig:
     seed: int = 42
     save_dir: str = "./runs/classification"
     log_every: int = 10
-    mp: int = 1                  # model-parallel axis size: only 1 is ported
+    mp: int = 1                  # model-parallel axis size: only 1 is ported (Queue A 6.5b)
     resume_path: Optional[str] = None  # an explicit checkpoint directory to restore
     resume: bool = False         # continue from save_dir/checkpoint
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
@@ -129,18 +139,30 @@ class ClassificationConfig:
         return cls(**out)
 
 
-def _build_dataset(cfg: ClassificationConfig, train: bool):
+def _build_dataset(cfg: ClassificationConfig, train: bool, mesh: Optional[Mesh] = None):
+    """The train or val batches, this rank's rows of each under a
+    data-parallel ``mesh``: the native pool decodes only those, the other
+    loaders build the global batch and keep them."""
+    seed = cfg.seed + (0 if train else 1)
     if cfg.dataset == "synthetic":
-        return SyntheticClassification(
+        ds = SyntheticClassification(
             num_classes=cfg.num_classes, image_size=cfg.image_size,
             length=cfg.batch_size * (cfg.steps_per_epoch or 8),
-            batch_size=cfg.batch_size, seed=cfg.seed + (0 if train else 1))
-    if cfg.loader == "native":
-        raise NotImplementedError(f"loader='native' (the C++ loader of frostnet_tpu/native) is "
-                                  f"{_NOT_PORTED}; use loader='python'")
-    return build_classification_dataset(
-        cfg.dataset, cfg.data_dir, train, image_size=cfg.image_size,
-        batch_size=cfg.batch_size, seed=cfg.seed + (0 if train else 1), aa=cfg.aa)
+            batch_size=cfg.batch_size, seed=seed)
+    elif cfg.loader == "native":
+        from ..native import NativeClassificationLoader
+
+        # uint8 batches: 4x less host->device traffic, normalized on the
+        # device (state.prep_image); a failed build raises, no fallback
+        return NativeClassificationLoader.from_folder(
+            os.path.join(cfg.data_dir, cfg.dataset, "train" if train else "val"),
+            batch_size=cfg.batch_size, image_size=cfg.image_size, train=train, seed=seed,
+            output="uint8", rank=mesh.rank if mesh else 0, world=mesh.dp if mesh else 1)
+    else:
+        ds = build_classification_dataset(
+            cfg.dataset, cfg.data_dir, train, image_size=cfg.image_size,
+            batch_size=cfg.batch_size, seed=seed, aa=cfg.aa)
+    return RankRows(ds, mesh) if mesh is not None and mesh.distributed else ds
 
 
 def _schedule(cfg: ClassificationConfig, steps_per_epoch: int):
@@ -193,10 +215,12 @@ def _meters(pending, meters):
     return meters
 
 
-def _run_epoch(step_fn, state, dataset, device, epoch, tag, logger, log_every, max_steps=None):
+def _run_epoch(step_fn, state, dataset, device, epoch, tag, logger, log_every, max_steps=None,
+               replicas: int = 1):
     """One epoch of ``step_fn``; the summary has the metrics' averages,
-    ``images_per_sec`` (the device synchronized at the end) and each step's
-    host wall time in ms (``step_ms``)."""
+    ``images_per_sec`` (the device synchronized at the end; all
+    ``replicas``' images) and each step's host wall time in ms
+    (``step_ms``)."""
     meters, pending, step_ms = {}, [], []
     _sync(device)
     t0 = last = time.perf_counter()
@@ -219,16 +243,18 @@ def _run_epoch(step_fn, state, dataset, device, epoch, tag, logger, log_every, m
     _sync(device)
     dt = time.perf_counter() - t0
     summary = {k: m.avg for k, m in meters.items()}
-    summary["images_per_sec"] = n_images / max(dt, 1e-9)
+    summary["images_per_sec"] = n_images * replicas / max(dt, 1e-9)
     summary["step_ms"] = step_ms
     return state, summary
 
 
 def evaluate(state, dataset, device, mode, num_classes, max_steps=None, use_ema=False,
-             image_size: Optional[int] = None):
+             image_size: Optional[int] = None, mesh: Optional[Mesh] = None):
     """Average metrics of ``mode`` over ``dataset`` (``images_per_sec``
     too). INT8 freezes the model's current state first (``prepare_int8``
-    at ``image_size``, by default the first batch's)."""
+    at ``image_size``, by default the first batch's). Under a data-parallel
+    ``mesh`` each rank evaluates its rows, and the sums and counts are
+    all-reduced."""
     eval_step = make_eval_step(mode, num_classes, use_ema=use_ema)
     meters, pending, n_images = {}, [], 0
     _sync(device)
@@ -244,6 +270,14 @@ def evaluate(state, dataset, device, mode, num_classes, max_steps=None, use_ema=
         pending.append((eval_step(state, batch), n))
     _meters(pending, meters)
     _sync(device)
+    if mesh is not None and mesh.distributed:
+        keys = sorted(meters)
+        sums = torch.tensor([[meters[k].sum, meters[k].count] for k in keys] + [[n_images, 0]],
+                            dtype=torch.float64, device=device)
+        sums = mesh.all_reduce(sums).tolist()
+        for k, (total, count) in zip(keys, sums):
+            meters[k].sum, meters[k].count = total, count
+        n_images = int(sums[-1][0])
     out = {k: m.avg for k, m in meters.items()}
     out["images_per_sec"] = n_images / max(time.perf_counter() - t0, 1e-9)
     return out
@@ -253,15 +287,19 @@ def main(cfg: ClassificationConfig):
     """Train and evaluate; returns ``(state, results)``: ``results`` has the
     final ``qat`` and ``int8`` metrics, each epoch's summary (``history``)
     and, on a resume, what was restored (``resumed``)."""
-    if cfg.mp > 1:
-        raise NotImplementedError(f"model parallelism (mp={cfg.mp}) is {_NOT_PORTED}")
-    device = resolve_device(cfg.device)
+    multihost.initialize(cfg.device)  # torchrun's ranks; a no-op in one process
+    mesh = make_mesh(mp=cfg.mp)  # every rank on 'dp'; mp > 1 raises
+    if cfg.batch_size % mesh.dp:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {mesh.dp} ranks")
+    device = resolve_device(multihost.local_device(cfg.device))
+    primary = multihost.is_primary()
     os.makedirs(cfg.save_dir, exist_ok=True)
-    logger = MetricLogger(cfg.save_dir)
-    logger.info(f"config: {dataclasses.asdict(cfg)}")
+    logger = MetricLogger(cfg.save_dir) if primary else MetricLogger(None, echo=False)
+    if primary:
+        logger.info(f"config: {dataclasses.asdict(cfg)}")
 
-    train_ds = _build_dataset(cfg, train=True)
-    val_ds = _build_dataset(cfg, train=False)
+    train_ds = _build_dataset(cfg, train=True, mesh=mesh)
+    val_ds = _build_dataset(cfg, train=False, mesh=mesh)
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
     model = create_model(cfg.model, num_classes=cfg.num_classes, image_size=cfg.image_size)
     tx = _optimizer(cfg, _schedule(cfg, steps_per_epoch))
@@ -283,8 +321,12 @@ def main(cfg: ClassificationConfig):
         resumed = {"qat_epoch": start_epoch, "step": int(state.step), "count": group["count"],
                    "lr": learning_rate(group),
                    "noise_generator": None if gen is None else gen.get_state()}
+    replicate(state.model, mesh)  # rank 0's parameters and buffers on every rank
+    if state.ema is not None:
+        replicate(state.ema, mesh)
     n_params = sum(p.numel() for p in state.model.parameters())
-    logger.info(f"model {cfg.model}: {n_params / 1e6:.2f}M params, device {device}")
+    logger.info(f"model {cfg.model}: {n_params / 1e6:.2f}M params, device {device}, "
+                f"mesh {mesh.shape}")
 
     history = []
     # StatAssist FP32 warm-up (reference train.py:149-160)
@@ -293,10 +335,11 @@ def main(cfg: ClassificationConfig):
                     f"(step {state.step}, best_top1 {best_top1:.4f})")
     else:
         fp_step = make_train_step(FP32, num_classes=cfg.num_classes,
-                                  label_smoothing=cfg.label_smoothing, ema_decay=cfg.ema_decay)
+                                  label_smoothing=cfg.label_smoothing, ema_decay=cfg.ema_decay,
+                                  mesh=mesh)
         for epoch in range(cfg.fp_epochs):
             state, summary = _run_epoch(fp_step, state, train_ds, device, epoch, "fp_warmup",
-                                        logger, cfg.log_every, cfg.steps_per_epoch)
+                                        logger, cfg.log_every, cfg.steps_per_epoch, mesh.dp)
             history.append({"tag": "fp_warmup", "epoch": epoch, **summary})
             logger.info(f"[fp_warmup {epoch}] {_brief(summary)}")
 
@@ -307,27 +350,31 @@ def main(cfg: ClassificationConfig):
 
     # QAT epochs (train.py:178-236)
     qat_step = make_train_step(QAT, num_classes=cfg.num_classes,
-                               label_smoothing=cfg.label_smoothing, ema_decay=cfg.ema_decay)
+                               label_smoothing=cfg.label_smoothing, ema_decay=cfg.ema_decay,
+                               mesh=mesh)
     for epoch in range(start_epoch, cfg.epochs):
         state, summary = _run_epoch(qat_step, state, train_ds, device, epoch, "qat", logger,
-                                    cfg.log_every, cfg.steps_per_epoch)
-        val = evaluate(state, val_ds, device, QAT_FROZEN, cfg.num_classes, cfg.steps_per_epoch)
+                                    cfg.log_every, cfg.steps_per_epoch, mesh.dp)
+        val = evaluate(state, val_ds, device, QAT_FROZEN, cfg.num_classes, cfg.steps_per_epoch,
+                       mesh=mesh)
         history.append({"tag": "qat", "epoch": epoch, **summary, "val": val})
         logger.log_scalars({f"val/{k}": v for k, v in val.items() if k != "images_per_sec"},
                            step=int(state.step))
         logger.info(f"[qat {epoch}] train {_brief(summary)} val {_brief(val)}")
-        save_checkpoint(ckpt_path, state)
-        if val.get("top1", 0.0) > best_top1:
-            best_top1 = val.get("top1", 0.0)
-            save_checkpoint(os.path.join(cfg.save_dir, "best"), state)
-        with open(meta_path, "w") as f:
-            json.dump({"qat_epoch": epoch + 1, "best_top1": float(best_top1)}, f)
+        improved = val.get("top1", 0.0) > best_top1
+        best_top1 = max(best_top1, val.get("top1", 0.0))
+        if primary:
+            save_checkpoint(ckpt_path, state)
+            if improved:
+                save_checkpoint(os.path.join(cfg.save_dir, "best"), state)
+            with open(meta_path, "w") as f:
+                json.dump({"qat_epoch": epoch + 1, "best_top1": float(best_top1)}, f)
 
     # the dual accuracy (evaluate.py:129-138); INT8 freezes the final state
     qat_metrics = evaluate(state, val_ds, device, QAT_FROZEN, cfg.num_classes,
-                           cfg.steps_per_epoch)
+                           cfg.steps_per_epoch, mesh=mesh)
     int8_metrics = evaluate(state, val_ds, device, INT8, cfg.num_classes, cfg.steps_per_epoch,
-                            image_size=cfg.image_size)
+                            image_size=cfg.image_size, mesh=mesh)
     logger.info(f"Accuracy(QAT sim): {_brief(qat_metrics)}")
     logger.info(f"Accuracy(INT8 frozen): {_brief(int8_metrics)}")
     logger.close()

@@ -9,6 +9,11 @@ report (``--layer_report N``, ``quant/numeric_suite.py``) and can write the
 INT8 artifact (``--export_int8``, the layout of the JAX package's
 ``export_int8``).
 
+Under ``torchrun`` each rank evaluates its block of every batch on
+``cuda:LOCAL_RANK`` and the counts are all-reduced (QAT_FROZEN and INT8
+alike); the calibration step, without a checkpoint, takes the global
+batch's statistics; the reports and the artifact come from rank 0.
+
 Run: python -m frostnet_tpu_torch.train.evaluate --model frostnet_quant_small_0_35 \\
        --checkpoint runs/classification/best --dataset synthetic [--device cpu]
 """
@@ -24,6 +29,7 @@ from ..data import FolderClassification, SyntheticClassification, prefetch_to_de
 from ..models import create_model
 from ..nn import INT8, QAT, QAT_FROZEN
 from ..optim import get_optimizer
+from ..parallel import RankRows, make_mesh, multihost, replicate
 from ..quant import export_int8
 from ..quant.freeze import resolve_device
 from ..utils.checkpoint import restore_model_variables
@@ -40,8 +46,11 @@ def int8_model_size_bytes(model) -> int:
 
 
 def main(args):
-    logger = MetricLogger(None, name="evaluate")
-    device = resolve_device(getattr(args, "device", "cuda"))
+    multihost.initialize(getattr(args, "device", "cuda"))  # torchrun's ranks, if any
+    mesh = make_mesh()
+    primary = multihost.is_primary()
+    logger = MetricLogger(None, name="evaluate", echo=primary)
+    device = resolve_device(multihost.local_device(getattr(args, "device", "cuda")))
     model = create_model(args.model, num_classes=args.num_classes, image_size=args.image_size)
     if args.dataset == "synthetic":
         ds = SyntheticClassification(args.num_classes, args.image_size, args.batch_size * 4,
@@ -49,12 +58,15 @@ def main(args):
     else:
         ds = FolderClassification(os.path.join(args.data_dir, args.dataset, "val"),
                                   args.image_size, args.batch_size, train=False)
+    if mesh.distributed:
+        ds = RankRows(ds, mesh)
     state = create_train_state(model, get_optimizer("QSGD", 1e-3), seed=0, device=device)
     if args.checkpoint:
         restore_model_variables(args.checkpoint, state)
-    else:
+    replicate(state.model, mesh)
+    if not args.checkpoint:
         # calibration: one train iteration (evaluate.py:108-110)
-        step = make_train_step(QAT, num_classes=args.num_classes)
+        step = make_train_step(QAT, num_classes=args.num_classes, mesh=mesh)
         step(state, next(iter(prefetch_to_device(iter(ds), device))))
     if args.use_ema:
         if state.ema is None:
@@ -74,10 +86,11 @@ def main(args):
             if i >= args.calib_batches:
                 break
             batches.append(b)
-        recalibrate(state, batches)
+        recalibrate(state, batches, mesh=mesh)
 
-    qat = evaluate(state, ds, device, QAT_FROZEN, args.num_classes)
-    int8 = evaluate(state, ds, device, INT8, args.num_classes, image_size=args.image_size)
+    qat = evaluate(state, ds, device, QAT_FROZEN, args.num_classes, mesh=mesh)
+    int8 = evaluate(state, ds, device, INT8, args.num_classes, image_size=args.image_size,
+                    mesh=mesh)
     logger.info(f"Accuracy(QAT sim): top1={qat.get('top1', 0):.4f} "
                 f"top5={qat.get('top5', 0):.4f}")
     logger.info(f"Accuracy(INT8 frozen): top1={int8.get('top1', 0):.4f} "
@@ -93,7 +106,7 @@ def main(args):
         out["layer_report"] = compare_modes(state.model, prep_image(batch["image"]))
         logger.info("per-layer INT8 vs QAT_FROZEN (worst first):\n"
                     + format_report(out["layer_report"], args.layer_report))
-    if args.export_int8:
+    if args.export_int8 and primary:
         nbytes = export_int8(state.model, args.export_int8)
         logger.info(f"INT8 artifact written: {args.export_int8} ({nbytes / 1e6:.2f} MB)")
         out["export_bytes"] = nbytes

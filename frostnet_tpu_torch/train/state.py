@@ -17,6 +17,17 @@ one model run in another ``mode``:
   Metrics stay on the device: nothing waits for the host.
 * ``state.start_qat()`` is the StatAssist hand-off (``set_warmup``).
 
+Data parallelism (``mesh``, ``parallel.make_mesh()`` under ``torchrun``):
+each rank runs its block of the global batch's rows inside
+``parallel.data_parallel(mesh)``, so the BN statistics, the activation
+observers and the dropout mask are the global batch's; after the backward
+one all-reduce makes the gradient the mean over ranks, before the optimizer
+step; the metrics are the global batch's (the mean over ranks). The ranks
+start from one state (``parallel.replicate``) and stay replicas: their
+updates are bit-identical, GradBoost's noise generator is seeded alike on
+every rank (``optim/gradboost.py::_draws``), and ``state.generator`` draws
+the same dropout masks everywhere.
+
 The JAX step's ``remat`` option is not ported: the JAX package measured it
 as a memory lever only.
 """
@@ -31,6 +42,7 @@ import torch
 from ..nn.mode import QAT, QuantMode
 from ..ops.requant import fma_f32
 from ..optim import ema_update, set_warmup
+from ..parallel.mesh import Mesh, all_reduce_gradients, cross_replica_mean, data_parallel
 from ..quant.export import from_jax_variables, numpy_init
 from ..quant.freeze import resolve_device
 from ..utils.losses import cross_entropy
@@ -113,12 +125,14 @@ def _metrics(logits, labels, loss, num_classes):
 
 def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
                     num_classes: Optional[int] = None, label_smoothing: float = 0.0,
-                    ema_decay: float = 0.0, input_mean=None, input_std=None) -> Callable:
+                    ema_decay: float = 0.0, input_mean=None, input_std=None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``step(state, batch) -> metrics`` for one phase.
 
-    ``batch`` is ``{"image": (B, S, S, 3) uint8 or float, "label": (B,)}``;
-    ``loss_fn(outputs, batch)`` overrides the cross-entropy on labels.
-    Metrics: loss, and top1/top5 when ``num_classes`` is given.
+    ``batch`` is ``{"image": (B, S, S, 3) uint8 or float, "label": (B,)}``,
+    this rank's rows under a data-parallel ``mesh``; ``loss_fn(outputs,
+    batch)`` overrides the cross-entropy on labels. Metrics: loss, and
+    top1/top5 when ``num_classes`` is given (the global batch's).
     """
     if loss_fn is None:
         def loss_fn(outputs, batch):
@@ -128,16 +142,19 @@ def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
         dev = state.device
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         image = prep_image(batch["image"], input_mean, input_std)
-        logits = state.model(image, mode=mode, train=True, generator=state.generator)
-        loss = loss_fn(logits, batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with data_parallel(mesh):
+            logits = state.model(image, mode=mode, train=True, generator=state.generator)
+            loss = loss_fn(logits, batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if mesh is not None:
+            all_reduce_gradients(state.model.parameters(), mesh)
         state.optimizer.step()
         if state.ema is not None and ema_decay > 0:
             for name, p in state.model.named_parameters():
                 ema_update(state.ema[name], p, ema_decay)
         state.step += 1
-        return _metrics(logits, batch["label"], loss, num_classes)
+        return cross_replica_mean(_metrics(logits, batch["label"], loss, num_classes), mesh)
 
     return step
 
@@ -171,14 +188,16 @@ def make_eval_step(mode: QuantMode, num_classes: Optional[int] = None, use_ema: 
 
 @torch.no_grad()
 def recalibrate(state: TrainState, batches: Iterable, mode: QuantMode = QAT, seed: int = 0,
-                input_mean=None, input_std=None) -> TrainState:
+                input_mean=None, input_std=None, mesh: Optional[Mesh] = None) -> TrainState:
     """Re-estimate the BN running statistics and the observers: forwards in
     train mode without optimizer updates (the reference's calibration
-    pass, generalized to N batches)."""
+    pass, generalized to N batches); the global batch's under a
+    data-parallel ``mesh``."""
     dev = state.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for batch in batches:
         image = prep_image(torch.as_tensor(batch["image"]).to(dev), input_mean, input_std)
-        state.model(image, mode=mode, train=True, generator=gen)
+        with data_parallel(mesh):
+            state.model(image, mode=mode, train=True, generator=gen)
     return state

@@ -20,19 +20,25 @@ class _Color:
 
 
 class MetricLogger:
-    def __init__(self, logdir: Optional[str] = None, name: str = "frostnet_tpu_torch"):
+    def __init__(self, logdir: Optional[str] = None, name: str = "frostnet_tpu_torch",
+                 echo: bool = True):
+        """``echo=False`` prints nothing (the ranks of a data-parallel run
+        but the first)."""
         self.name = name
         self.logdir = logdir
+        self.echo = echo
         self._scalar_file = None
         if logdir:
             os.makedirs(logdir, exist_ok=True)
             self._scalar_file = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
     def info(self, msg: str):
-        print(f"{_Color.INFO}[{self.name}]{_Color.END} {msg}", flush=True)
+        if self.echo:
+            print(f"{_Color.INFO}[{self.name}]{_Color.END} {msg}", flush=True)
 
     def warning(self, msg: str):
-        print(f"{_Color.WARN}[{self.name} warn]{_Color.END} {msg}", flush=True)
+        if self.echo:
+            print(f"{_Color.WARN}[{self.name} warn]{_Color.END} {msg}", flush=True)
 
     def error(self, msg: str):
         print(f"{_Color.ERROR}[{self.name} error]{_Color.END} {msg}",

@@ -5,6 +5,8 @@ variables and constants (what ``frostnet_tpu.quant.freeze`` does), so XLA
 folds and rewrites the requant arithmetic exactly as in the frozen graph.
 Inputs come from numpy seeds and pass between the packages as numpy arrays.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -172,3 +174,105 @@ def few_threads():
     torch.set_num_threads(min(2, before))
     yield
     torch.set_num_threads(before)
+
+
+def dp_worker(rank, world, store, out, model, size, batch, classes, lr, steps, main_dir):
+    """One rank of a data-parallel run on the CPU (gloo, a FileStore at
+    ``store``): ``model`` from ``numpy_init(seed 0)`` replicated from rank
+    0, then ``steps`` ("FP32" / "QAT") on the global batches
+    ``train_batch(k, batch, size, classes)``, each rank its block of rows.
+    Writes its variables after each step and the metrics to
+    ``out``-``rank``.npz. Then ``classification.main`` (synthetic data, one
+    FP32 and one QAT step) into ``main_dir``, its evaluation to
+    ``main_dir/result-rank.npz``. Run by tests/test_torch_parallel.py in a
+    subprocess per rank."""
+    import torch.distributed as dist
+
+    from frostnet_tpu_torch.models import create_model
+    from frostnet_tpu_torch.nn import FP32, QAT
+    from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
+    from frostnet_tpu_torch.parallel import make_mesh, replicate, shard_batch
+    from frostnet_tpu_torch.parallel import multihost
+    from frostnet_tpu_torch.quant import model_variables
+    from frostnet_tpu_torch.train import create_train_state, make_train_step
+
+    torch.set_num_threads(2)
+    multihost.initialize("cpu", init_method=f"file://{store}", rank=rank, world_size=world)
+    mesh = make_mesh()
+    tx = get_optimizer("QSGD", lr, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    state = create_train_state(create_model(model, num_classes=classes, drop_rate=0.0), tx,
+                               seed=rank, device="cpu")
+    replicate(state.model, mesh)  # rank 1 starts from another seed: the broadcast fixes it
+    rec = {}
+    for k, name in enumerate(steps):
+        mode = {"FP32": FP32, "QAT": QAT}[name]
+        if mode is QAT and k and steps[k - 1] != "QAT":
+            state.start_qat()
+        m = make_train_step(mode, num_classes=classes, mesh=mesh)(
+            state, shard_batch(train_batch(k, batch, size, classes), mesh))
+        for n, v in m.items():
+            rec[f"metrics/{k}/{n}"] = float(v)
+        for n, v in model_variables(state.model).items():
+            rec[f"step{k}/{n}"] = v.detach().numpy().copy()
+    np.savez(f"{out}-{rank}.npz", **rec)
+    from frostnet_tpu_torch.train import classification
+
+    cfg = classification.ClassificationConfig(
+        model=model, num_classes=classes, image_size=size, batch_size=batch, steps_per_epoch=1,
+        fp_epochs=1, epochs=1, learning_rate=lr, device="cpu", save_dir=main_dir)
+    state, res = classification.main(cfg)
+    np.savez(os.path.join(main_dir, f"result-{rank}.npz"), step=state.step,
+             qat_top1=res["qat"]["top1"], qat_loss=res["qat"]["loss"],
+             int8_top1=res["int8"]["top1"], int8_loss=res["int8"]["loss"],
+             **{k: v.detach().numpy() for k, v in model_variables(state.model).items()})
+    dist.destroy_process_group()
+
+
+def jax_dp_reference(out, model, size, batch, classes, lr, part):
+    """JAX's jitted single-device steps (what GSPMD computes on a dp mesh) on
+    the global batches of :func:`dp_worker`, from ``numpy_init(seed 0)``:
+    part "FP32" runs the FP32 step and writes its state; part "QAT" traces
+    and compiles the QAT step meanwhile (on the initial state's shapes),
+    then runs it on that state. Each writes the variables after its step and
+    the metrics to ``out``.<part>.npz. Run by tests/test_torch_parallel.py
+    in two subprocesses beside the ranks."""
+    import time
+
+    import conftest  # noqa: F401 - JAX on the CPU, its settings and compile cache
+    import jax
+
+    from frostnet_tpu.models import create_model as jax_create_model
+    from frostnet_tpu.nn import FP32, QAT
+    from frostnet_tpu.optim import get_optimizer, grouped_weight_decay
+    from frostnet_tpu.train.state import make_train_step
+    from frostnet_tpu_torch.models import create_model
+    from frostnet_tpu_torch.quant import numpy_init
+    from frostnet_tpu_torch.quant.export import flatten_variables
+
+    tree = numpy_init(create_model(model, num_classes=classes), 0)
+    jmodel = jax_create_model(model, num_classes=classes, drop_rate=0.0)
+    tx = get_optimizer("QSGD", lr, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    js = jax_train_state(jmodel, tree, tx)
+    leaves, treedef = jax.tree.flatten(js)
+    k = 0 if part == "FP32" else 1
+    data = train_batch(k, batch, size, classes)
+    step = make_train_step(jmodel, FP32 if k == 0 else QAT, num_classes=classes, donate=False)
+    state_file = f"{out}.state.npz"
+    if k == 1:
+        step.lower(js.start_qat(), data).compile()
+        deadline = time.time() + 280
+        while not os.path.exists(state_file) and time.time() < deadline:
+            time.sleep(0.1)
+        saved = np.load(state_file)
+        js = jax.tree.unflatten(treedef, [
+            jax.numpy.asarray(saved[f"leaf{i}"], dtype=leaf.dtype)
+            for i, leaf in enumerate(leaves)]).start_qat()
+    js, m = step(js, data)
+    if k == 0:
+        np.savez(f"{state_file}.tmp.npz", **{f"leaf{i}": np.asarray(v) for i, v in
+                                             enumerate(jax.tree.leaves(js))})
+        os.replace(f"{state_file}.tmp.npz", state_file)
+    rec = {f"metrics/{k}/{n}": float(v) for n, v in m.items()}
+    for n, v in flatten_variables(jax.tree.map(np.asarray, js.model_variables)).items():
+        rec[f"step{k}/{n}"] = v
+    np.savez(f"{out}.{part}.npz", **rec)

@@ -223,10 +223,13 @@ def test_cli_help_and_flags(capsys):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue A item 6.5b"):
         classification.main(classification.ClassificationConfig(
             mp=2, device="cpu", save_dir=str(tmp_path)))
+    # the native loader is ported: a missing image folder raises, nothing
+    # falls back to the PIL loader
     cfg = classification.ClassificationConfig(dataset="imagenet", loader="native", device="cpu",
+                                              data_dir=str(tmp_path / "missing"),
                                               save_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         classification.main(cfg)

@@ -7,7 +7,7 @@
 * ``detection.train.main``: a run stopped at ``ssd300_2`` and resumed to a
   third iteration is bit-identical (every parameter, BN statistic, observer
   and optimizer state) to one run to 3; ``--quant false`` leaves the
-  observers empty; ``--loader native`` raises naming its ROADMAP item;
+  observers empty; ``--loader native`` on a missing VOC tree raises;
   ``--basenet`` loads a torchvision-format MobileNetV2 state dict as the
   JAX function does; uint8 batches get the BaseTransform bit-equal to JAX's.
 * the CLI, and ``qeval`` on its checkpoint (mAP in both modes). The
@@ -74,8 +74,11 @@ def test_quant_false_and_native_loader(tmp_path):
     assert [h["tag"] for h in res["history"]] == ["fp_warmup", "fp32"]
     obs = [v for k, v in model_variables(state.model).items() if k.endswith(".min_val")]
     assert obs and all(torch.isinf(v).all() for v in obs)
-    with pytest.raises(NotImplementedError, match="Queue A item 6.1"):
-        train.main(_cfg(tmp_path, loader="native"))
+    # the native loader is ported: a missing VOC tree raises, nothing falls
+    # back to the PIL loader
+    with pytest.raises(FileNotFoundError):
+        train.main(_cfg(tmp_path, loader="native", dataset="voc",
+                        data_root=str(tmp_path / "missing")))
     with pytest.raises(ValueError, match="basenet"):
         train.main(_cfg(tmp_path, net_type="qtdsod", basenet="x.pth"))
 

@@ -45,6 +45,8 @@ def test_importing_the_port_loads_no_jax():
             "frostnet_tpu_torch.models.frostnet_features, frostnet_tpu_torch.quant.numeric_suite, "
             "frostnet_tpu_torch.quant.serialize, frostnet_tpu_torch.train.latency_check, "
             "frostnet_tpu_torch.utils.flops, frostnet_tpu_torch.utils.profiling, "
+            "frostnet_tpu_torch.native, frostnet_tpu_torch.parallel, "
+            "frostnet_tpu_torch.parallel.multihost, "
             "chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r); "
             "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,))

@@ -392,9 +392,10 @@ def test_cli_and_refusals(tmp_path, capsys):
     with open(tmp_path / "cli" / "arguments.json") as f:
         args = json.load(f)
     assert args["crop_size"] == 32 and args["num_classes"] == 19 and args["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue A item 6.1"):
-        train.build_seg_dataset(train.SegConfig(loader="native", num_classes=19, crop_size=8),
-                                True)
+    # the native loader reads file datasets; synthetic data stays synthetic (as in JAX)
+    ds = train.build_seg_dataset(train.SegConfig(loader="native", num_classes=19, crop_size=8),
+                                 True)
+    assert type(ds).__name__ == "SyntheticSegmentation"
     # ESPNetv2 is ported: the trainer builds it at --width_scale and runs
     _, res = train.main(train.SegConfig(model="espnetv2", width_scale=0.5, dataset="synthetic",
                                         crop_size=32, batch_size=2, steps_per_epoch=1, epochs=1,
