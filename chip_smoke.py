@@ -312,6 +312,34 @@ Phases (each raises on failure, and any failure exits non-zero):
      (gloo), a global batch of 64, one FP32 and one QAT epoch of 2 steps:
      exit 0, the checkpoint and the log from rank 0 alone, the epochs'
      images/s.
+ 23. the last configurations (``last_configs_phase``): (a) ``torchrun
+     --nproc_per_node 2`` (gloo, both ranks on ``cuda:0``) of each trainer's
+     ``main`` at full width, 2 steps a phase, all five started together:
+     segmentation (768x768, global batch 8), detection (``qssd``, 300x300,
+     batch 32), pix2pix and CycleGAN (256x256, batch 2), and pix2pix at
+     batch 1 (JAX's mesh takes one device: rank 1 idles and writes nothing);
+     each exits 0, its ranks end bit-identical, its save directory holds
+     what the one-process run's does with as many log records (rank 0
+     alone wrote), its losses, observers and BN statistics stay within
+     phase 17's, 18's or 19's bands of that run (the same trainer in this
+     process on the same global batches), and every fake-quant site of its
+     first QAT step equals the plain version; (b) tensor parallelism:
+     ``frostnet_quant_large_1_0`` at 224x224 with phase 8's settings,
+     warmed in this process (an FP32 and four QAT steps), then a QAT step
+     (every site checked) and a QAT_FROZEN forward on a global batch of 16,
+     on mp 2 (two ranks), dp 2 x mp 2 (four) and dp 2 x mp 1 (two), started
+     together: mp 2 against the one-process step and dp 2 x mp
+     2 against dp 2 x mp 1, ``test_multihost``'s bands (loss rtol 1e-6,
+     logits atol 1e-5, each variable atol 1e-4 of max(|v|, 1)) printed and
+     phase 22's held, the ranks of a layout holding the same gathered
+     variables, each rank's launches; (c) ``remat``: phase 10's bf16 QAT
+     step at batch 256, plain, ``"full"`` and ``"conv_outs"``, with
+     ``cudnn.deterministic``: each step's loss and variables against plain
+     (a difference is printed), peak memory and ms a step; (d) the INT8
+     routes the port once refused (padded 1x1s, a dilated grouped 3x3,
+     depthwise 3x5 and a valid 5x5 stride 2), frozen on the card and on the
+     CPU from the same variables: the codes bit-equal, the padded 1x1 one
+     matmul launch.
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -336,16 +364,20 @@ step, the two training checks, the ESPNetv2 trainer path), and
 each batch, each dilated forward, the numeric suite, each latency probe),
 and ``dp_launches``, the same for phase 22 (each step of a rank, with the
 fake-quant kernel's data-parallel route as ``fake_quant_dp_route``, and
-each ``serve --dp 2`` forward).
+each ``serve --dp 2`` forward), and ``last_configs_launches``, the same for
+phase 23 (each rank of each torchrun trainer, each rank of each ``mp``
+layout, each ``remat`` step, each INT8 route).
 Phase 20 alone, after the build: ``python3 -c "import torch, chip_smoke as c;
 c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``
-(``tools_phase`` for phase 21, ``dp_phase`` for phase 22).
+(``tools_phase`` for phase 21, ``dp_phase`` for phase 22, ``last_configs_phase``
+for phase 23).
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import hashlib
 import json
@@ -4780,16 +4812,23 @@ def dp_rank(rank: int, world: int, store: str, out: str, device: str = "cuda"):
     torch.distributed.destroy_process_group()
 
 
-class _OneRankMesh:
-    """A one-replica stand-in for a data-parallel mesh (the all-reduce is
-    the identity): phase 22 times the data-parallel route's kernels with it,
-    without a collective, so that a CUDA graph can hold them."""
+def _twin_mesh():
+    """Rank 0 of two data-parallel replicas that hold the same rows: a real
+    ``Mesh`` whose all-reduce stays local (a sum doubled, a min or max as it
+    is). Phase 22 times the data-parallel route's kernels with it, without
+    a collective, so that a CUDA graph can hold them."""
+    import dataclasses
 
-    dp, rank, distributed = 1, 0, True
+    from torch.distributed import ReduceOp
 
-    @staticmethod
-    def all_reduce(t, op=None):
-        return t
+    from frostnet_tpu_torch.parallel import Mesh
+
+    @dataclasses.dataclass(frozen=True)
+    class TwinMesh(Mesh):
+        def all_reduce(self, t, op=ReduceOp.SUM):
+            return t.mul_(self.dp) if op == ReduceOp.SUM else t
+
+    return TwinMesh(devices=(0, 1), group="twin", rank=0)
 
 
 def dp_route_timing(dev):
@@ -4803,7 +4842,7 @@ def dp_route_timing(dev):
     from_jax_variables(model, numpy_init(model, 0)).to(dev)
     images = prep_image(torch.as_tensor(train_batch(1, DP_BATCH // DP_WORLD)["image"],
                                         device=dev))
-    sites, real, mesh = [], quant_ops.ObservedFakeQuant, _OneRankMesh()
+    sites, real, mesh = [], quant_ops.ObservedFakeQuant, _twin_mesh()
 
     class Recorder:
         @staticmethod
@@ -5086,14 +5125,807 @@ def dp_phase(dev):
     return rep, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the last configurations
+# ---------------------------------------------------------------------------
+
+PHASE23_DIR = os.path.join(ROOT, "build", "phase23")
+P23_WORLD = 2
+P23_TIMEOUT = 240  # seconds a group of ranks may take, their start included
+# the trainers under torchrun on this card: full width, 2 steps a phase
+P23_TRAINERS = {
+    "seg": ("segmentation", dict(SEG_TRAINER_CFG)),
+    "det": ("detection", dict(DET_TRAINER_CFG)),
+    "pix2pix": ("gan", dict(GAN_TRAINER_CFG, batch_size=2, epochs=1)),
+    "cyclegan": ("gan", dict(GAN_TRAINER_CFG, model="cycle_gan", batch_size=2, epochs=1)),
+    "gan_batch1": ("gan", dict(GAN_TRAINER_CFG, batch_size=1, epochs=1)),
+}
+# the trainers' bands against the one process on the same global batches:
+# phase 17's and 18's (phase 8's), phase 19's for the GANs. The phase turns
+# TF32 off itself: cuDNN's TF32 (on by default) in the one-process run put
+# det's first step 2.25e-4 off when the phase ran without the script's
+# settings, and 0-9.4e-8 off with them
+P23_BANDS = {"seg": (FP32_LOSS_REL, QAT_LOSS_REL), "det": (FP32_LOSS_REL, QAT_LOSS_REL)}
+# (b) tensor parallelism: (world, mp) of each layout; the global batch (a
+# rank's step is bound by gloo's host round trips: 16 rows took 2-3 s more)
+P23_MP_LAYOUTS = {"mp2": (2, 2), "dp2xmp2": (4, 2), "dp2": (2, 1)}
+P23_MP_BATCH = 8
+# test_multihost's bands (printed; the CPU test of the port holds them at
+# its settings); phase 22's decide on the card
+MP_LOSS_RTOL, MP_LOGITS_ATOL, MP_LEAF_ATOL = 1e-6, 1e-5, 1e-4
+# each parameter's update in the FP32 step against the reference's,
+# ||d mine - d ref|| / ||d ref||, the median and the worst over the
+# parameters: read 0.0037-0.0066 and 0.028-0.035 on the card at a global
+# batch of 16, 0.0055-0.0062 and 0.031-0.032 at 8 (mp 2 against one
+# process, dp 2 x mp 2 against dp 2 x mp 1; dp 2 against one process, no
+# mp, alike); a lost mp gradient sum reads 0.90 in the median (the CPU
+# test's model). The QAT step's gap, printed, reads 0.94-0.97 in
+# the median between any two sum orders, dp 2 against one process too, and
+# 0 between two runs of one process: it cannot tell a wrong gradient
+MP_FP32_UPDATE_GAP = (0.02, 0.15)
+# (c) remat: phase 10's step at batch 256
+P23_REMAT_BATCH = 256
+# (d) the INT8 routes the port once refused: (name, cin, cout, kernel, stride,
+# padding, dilation, groups, act, hw)
+P23_ROUTES = [("padded 1x1", 64, 128, 1, 1, 1, 1, 1, "relu", 56),
+              ("padded 1x1 stride 2", 96, 192, 1, 2, (1, 0), 1, 1, None, 56),
+              ("dilated grouped 3x3", 128, 128, 3, 1, 2, 2, 32, "relu", 28),
+              ("depthwise 3x5", 96, 96, (3, 5), 1, (1, 2), 1, 96, "relu", 56),
+              ("depthwise valid 5x5 stride 2", 144, 144, 5, 2, 0, 1, 144, None, 57)]
+P23_ROUTE_BATCH = 8
+
+
+def _gan_cfg(kw):
+    return {k: v for k, v in kw.items() if k != "device"}
+
+
+class FirstQatCheck:
+    """Patches a trainer module's step factories for a run: the first call
+    of each step function the QAT phase makes runs with every fake-quant
+    site held against its plain version (``_DPSiteCheck``: the
+    data-parallel route at the activation sites, on the all-reduced min and
+    max)."""
+
+    def __init__(self, module, names, record):
+        self.mod, self.names, self.record = module, names, record
+        self.saved = {n: getattr(module, n) for n in names}
+
+    def _step(self, fn):
+        done = []
+
+        def run(*args, **kwargs):
+            if done:
+                return fn(*args, **kwargs)
+            done.append(1)
+            _DPSiteCheck.record = self.record
+            quant_ops.ObservedFakeQuant = _DPSiteCheck
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                quant_ops.ObservedFakeQuant = ObservedFakeQuant
+        return run
+
+    def _factory(self, make):
+        def factory(mode, *args, **kwargs):
+            out = make(mode, *args, **kwargs)
+            if mode is not QAT:
+                return out
+            return tuple(self._step(f) for f in out) if isinstance(out, tuple) else self._step(out)
+        return factory
+
+    def __enter__(self):
+        for n, make in self.saved.items():
+            setattr(self.mod, n, self._factory(make))
+        return self
+
+    def __exit__(self, *exc):
+        for n, make in self.saved.items():
+            setattr(self.mod, n, make)
+
+
+def p23_run_trainer(kind: str, save_dir: str, device: str, record=None):
+    """``main`` of the trainer ``kind`` of ``P23_TRAINERS`` into ``save_dir``:
+    its record (every final variable under ``<net>/<key>``, the FP32
+    warm-up's losses under ``fp32/<i>``, the QAT phase's under ``qat/<i>``),
+    None on an idle rank. With ``record`` (a list) the first QAT step's
+    fake-quant sites are checked into it."""
+    from frostnet_tpu_torch.detection import train as det_train
+    from frostnet_tpu_torch.gan import train as gan_train
+    from frostnet_tpu_torch.segmentation import train as seg_train
+
+    pkg, kw = P23_TRAINERS[kind]
+    if pkg == "segmentation":
+        mod, names = seg_train, ("make_seg_train_step",)
+    elif pkg == "detection":
+        mod, names = det_train, ("make_det_train_step",)
+    else:
+        mod, names = gan_train, ("make_pix2pix_steps", "make_cyclegan_steps")
+    check = FirstQatCheck(mod, names, record) if record is not None else contextlib.nullcontext()
+    with check:
+        if pkg == "segmentation":
+            state, res = seg_train.main(seg_train.SegConfig(save_dir=save_dir, device=device,
+                                                            **kw))
+            nets = {"net": state.model}
+            losses = [(h["tag"], v) for h in res["history"] for v in h["losses"]]
+        elif pkg == "detection":
+            state, res = det_train.main(det_train.DetConfig(save_dir=save_dir, device=device,
+                                                            **kw))
+            if state is None:
+                return None
+            nets = {"net": state.model}
+            losses = [(h["tag"], h["loss"]) for h in res["history"]]
+        else:
+            gs, ds, res = gan_train.main(gan_train.GANConfig(save_dir=save_dir, device=device,
+                                                             **_gan_cfg(kw)))
+            if res.get("idle"):
+                return None
+            nets = {f"g{i}": s.model for i, s in enumerate(gs)}
+            nets.update({f"d{i}": s.model for i, s in enumerate(ds)})
+            losses = [(r["tag"], v) for r in res["history"] for k in sorted(r["losses"])
+                      for v in r["losses"][k]]
+    rec = {}
+    for name, model in nets.items():
+        rec.update({f"{name}/{k}": v.detach().cpu().numpy()
+                    for k, v in model_variables(model).items()})
+    for phase in ("fp32", "qat"):
+        mine = [float(v) for tag, v in losses if (tag == "fp_warmup") == (phase == "fp32")]
+        rec.update({f"{phase}/{i}": v for i, v in enumerate(mine)})
+    return rec
+
+
+def p23_trainer_rank(kind: str, out: str, device: str = "cuda"):
+    """A rank of ``torchrun --nproc_per_node 2 chip_smoke.py --p23-trainer
+    kind``: the trainer's ``main`` under torchrun's process group (gloo on
+    one card), the first QAT step's sites checked; writes its record to
+    ``out/kind-rank.npz`` (not on an idle rank) and its launches, sites and
+    seconds to ``out/kind-rank.json``."""
+    import torch.distributed as dist
+
+    from frostnet_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(device)
+    rank = dist.get_rank()
+    dev = multihost.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sites = []
+    ops.reset_launch_counts()
+    fake_quant_observe.dp_launches = 0
+    t0 = time.perf_counter()
+    rec = p23_run_trainer(kind, os.path.join(out, kind, "dp"), device, sites)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    counts["fake_quant_dp_route"] = fake_quant_observe.dp_launches
+    if rec is not None:
+        np.savez(os.path.join(out, f"{kind}-{rank}.npz"), **rec)
+    with open(os.path.join(out, f"{kind}-{rank}.json"), "w") as f:
+        json.dump({"launches": counts, "sites": sites, "idle": rec is None,
+                   "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def _state_bands(mine, ref):
+    """(each observer's |diff| / its range, each BN's max |d mean| / std,
+    each BN's max |d var| / var) of the variables ``mine`` against ``ref``
+    (flat keys): phase 8's measures."""
+    obs, means, variances = [], [], []
+    for k in ref:
+        if k.endswith(".min_val") and np.isfinite(ref[k]).all():
+            hi = k.replace(".min_val", ".max_val")
+            span = max(float(np.max(ref[hi] - ref[k])), 1e-6)
+            obs.append(max(float(np.max(np.abs(mine[k] - ref[k]))),
+                           float(np.max(np.abs(mine[hi] - ref[hi])))) / span)
+        elif k.endswith("/mean"):
+            var = ref[k[:-len("mean")] + "var"]
+            means.append(float(np.max(np.abs(mine[k] - ref[k]) / np.sqrt(var))))
+        elif k.endswith("/var"):
+            variances.append(float(np.max(np.abs(mine[k] - ref[k]) / ref[k])))
+    return obs, means, variances
+
+
+def _p23_bands(kind, mine, ref):
+    """The two ranks' run against the one process on the same global
+    batches: the loss bands of the trainer's phase, the observers' and BN's
+    bands of phase 8. Returns the measured values."""
+    fp32_band, qat_band = P23_BANDS.get(kind, (GAN_FP32_LOSS_REL, GAN_QAT_LOSS_REL))
+    rep = {}
+    # the first step starts from the same weights: only the BN sums' order
+    # differs; every later one carries the first's differences (a channel
+    # of near-zero variance amplifies them, as in QAT), phase 22's rule
+    keys = [k for k in ref if k.startswith(("fp32/", "qat/"))]
+    rel = {k: abs(float(mine[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-12)
+           for k in keys}
+    first = "fp32/0"
+    later = [v for k, v in rel.items() if k != first]
+    if first not in rel or rel[first] > fp32_band or not later or max(later) > qat_band:
+        raise AssertionError(f"[p23] {kind} losses {rel} outside the bands {fp32_band} (the "
+                             f"first step) and {qat_band}")
+    rep["fp32_loss_rel"], rep["qat_loss_rel"] = rel[first], max(later)
+    obs, means, variances = _state_bands(mine, ref)
+    if obs:
+        band_check(f"[p23] {kind}: observers, median |diff| / range", float(np.median(obs)),
+                   OBS_MEDIAN)
+        band_check(f"[p23] {kind}: observers, worst |diff| / range", float(max(obs)), OBS_WORST)
+        rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs))}
+    band_check(f"[p23] {kind}: BN running means, median |diff| / std", float(np.median(means)),
+               BN_MEAN_MEDIAN)
+    band_check(f"[p23] {kind}: BN running variances, median |diff| / var",
+               float(np.median(variances)), BN_VAR_MEDIAN)
+    rep["bn"] = {"mean_over_std_median": float(np.median(means)),
+                 "var_rel_median": float(np.median(variances))}
+    return rep
+
+
+def p23_trainers(dev, launches):
+    """Phase 23 (a): each trainer under ``torchrun --nproc_per_node 2`` on
+    this card (gloo), all started together; meanwhile each runs in this
+    process on the same global batches. Each two-rank run exits 0, keeps
+    its ranks bit-identical, writes its save directory from rank 0 alone,
+    stays within its bands of the one process, and holds every fake-quant
+    site of its first QAT step to the plain version; at batch 1 rank 1
+    idles."""
+    out = PHASE23_DIR
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = {kind: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(P23_WORLD), os.path.join(ROOT, "chip_smoke.py"), "--p23-trainer", kind,
+         "--p23-dir", out, "--p23-device", dev.type],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for kind in P23_TRAINERS}
+    one, one_s = {}, {}
+    try:
+        for kind in P23_TRAINERS:
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            one[kind] = p23_run_trainer(kind, os.path.join(out, kind, "one"), dev.type)
+            one_s[kind] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+        logs = {}
+        for kind, p in procs.items():
+            text, _ = p.communicate(timeout=max(1.0, P23_TIMEOUT - (time.perf_counter() - t0)))
+            logs[kind] = text
+            if p.returncode != 0:
+                raise AssertionError(f"[p23] torchrun {kind} failed:\n{text[-6000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    rep = {"seconds": time.perf_counter() - t0, "one_process_s": one_s, "runs": {}}
+    errors = []
+    for kind in P23_TRAINERS:
+        try:
+            rep["runs"][kind] = _p23_trainer_checks(kind, out, logs, one, launches)
+        except AssertionError as e:
+            errors.append(str(e))
+            log(f"[p23] {kind}: FAILED: {e}")
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return rep
+
+
+def _p23_trainer_checks(kind, out, logs, one, launches):
+    """The checks of phase 23 (a) on the trainer ``kind``'s two-rank run."""
+    infos = []
+    for r in range(P23_WORLD):
+        with open(os.path.join(out, f"{kind}-{r}.json")) as f:
+            infos.append(json.load(f))
+    run = {"rank_seconds": [i["seconds"] for i in infos],
+           "launches": [i["launches"] for i in infos]}
+    dp_dir, one_dir = os.path.join(out, kind, "dp"), os.path.join(out, kind, "one")
+    if sorted(os.listdir(dp_dir)) != sorted(os.listdir(one_dir)):
+        raise AssertionError(f"[p23] {kind}: wrote {sorted(os.listdir(dp_dir))}, one "
+                             f"process {sorted(os.listdir(one_dir))}")
+    lines = [len(open(os.path.join(d, "metrics.jsonl")).read().splitlines())
+             for d in (dp_dir, one_dir)]
+    if lines[0] != lines[1]:
+        raise AssertionError(f"[p23] {kind}: metrics.jsonl has {lines[0]} records, one "
+                             f"process {lines[1]}: not rank 0 alone")
+    if kind == "gan_batch1":
+        if not infos[1]["idle"] or infos[0]["idle"] or \
+                os.path.exists(os.path.join(out, f"{kind}-1.npz")):
+            raise AssertionError("[p23] gan batch 1: rank 1 should idle (dp 1)")
+        if "mesh {'dp': 1, 'mp': 1}" not in logs[kind]:
+            raise AssertionError(f"[p23] gan batch 1: no dp-1 mesh in the log")
+        mine = dict(np.load(os.path.join(out, f"{kind}-0.npz")))
+    else:
+        ranks = [dict(np.load(os.path.join(out, f"{kind}-{r}.npz")))
+                 for r in range(P23_WORLD)]
+        differ = [k for k in ranks[0] if not np.array_equal(ranks[0][k], ranks[1][k])]
+        if differ or sorted(ranks[0]) != sorted(ranks[1]):
+            raise AssertionError(f"[p23] {kind}: the ranks differ at {differ[:8]}")
+        mine = ranks[0]
+        if "backend gloo" not in logs[kind]:
+            raise AssertionError(f"[p23] {kind}: not on gloo:\n{logs[kind][-3000:]}")
+    run.update(_p23_bands(kind, mine, one[kind]))
+    sites = infos[0]["sites"]
+    if not sites:
+        raise AssertionError(f"[p23] {kind}: no fake-quant site checked")
+    run["sites"] = {"checked": len(sites), "dp_route": sum(s["route"] == "dp" for s in sites),
+                    "max_abs_err": max(s["max_abs_err"] for s in sites)}
+    for r, info in enumerate(infos):
+        launches[f"p23 torchrun {kind} rank {r}"] = info["launches"]
+    log(f"[p23] torchrun {kind} on 2 ranks: ranks bit-identical"
+        f"{' (rank 1 idle: dp 1)' if kind == 'gan_batch1' else ''}, rank 0 wrote alone, "
+        f"losses within {run['fp32_loss_rel']:.3g} (the first step) and "
+        f"{run['qat_loss_rel']:.3g} (the later ones) of one process; "
+        f"{run['sites']['checked']} fake-quant sites of the first QAT step == plain "
+        f"({run['sites']['dp_route']} on the data-parallel route); rank "
+        f"0 {run['rank_seconds'][0]:.1f} s; launches of rank 0 {run['launches'][0]}")
+    return run
+
+
+def p23_mp_state(dev, warm: str):
+    """A state of phase 8's model and optimizer (float32, GradBoost noise
+    off, drop_rate 0) on ``dev`` from the warm variables in ``warm``, in
+    QAT."""
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    state = create_train_state(model, tx, seed=0, device=dev,
+                               variables=unflatten_variables(dict(np.load(warm))))
+    return state.start_qat()
+
+
+def p23_mp_rank(rank: int, world: int, mp: int, store: str, out: str, warm: str,
+                device: str = "cuda"):
+    """One rank of phase 23 (b), in its own process on ``cuda:0``: from the
+    warm state (``p23_mp_state``), ``shard_params_for_mp`` on a ``mp > 1``
+    mesh, one QAT step (every fake-quant site checked) and a QAT_FROZEN
+    forward on this rank's rows of ``train_batch(k, P23_MP_BATCH)``, then
+    the FP32 step from the warm state. Writes the losses, the logits and the
+    gathered variables to ``out``-rank.npz (the FP32 step's under
+    ``fp32/``), the launches to .json."""
+    from frostnet_tpu_torch.parallel import (data_parallel, gather_mp, make_mesh, multihost,
+                                             shard_batch, shard_params_for_mp)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(device, init_method=f"file://{store}", rank=rank, world_size=world)
+    dev = multihost.local_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh(mp=mp)
+    deadline = time.perf_counter() + P23_TIMEOUT
+    while not os.path.exists(warm):  # written by p23_mp_start meanwhile
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"no warm state at {warm}")
+        time.sleep(0.05)
+    state = p23_mp_state(dev, warm)
+    sharded = shard_params_for_mp(state.model, mesh)
+    rec, info, sites = {}, {"sharded": len(sharded)}, []
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    fake_quant_observe.dp_launches = 0
+    _DPSiteCheck.record = sites
+    quant_ops.ObservedFakeQuant = _DPSiteCheck
+    try:
+        m = make_train_step(QAT, num_classes=CLASSES, mesh=mesh)(
+            state, shard_batch(train_batch(1, P23_MP_BATCH), mesh))
+    finally:
+        quant_ops.ObservedFakeQuant = ObservedFakeQuant
+    rec["loss"] = float(m["loss"])
+    with torch.no_grad(), data_parallel(mesh):
+        image = prep_image(torch.as_tensor(shard_batch(train_batch(2, P23_MP_BATCH), mesh)
+                                           ["image"]).to(dev))
+        rec["logits"] = state.model(image, mode=QAT_FROZEN).cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    info["seconds"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    counts["fake_quant_dp_route"] = fake_quant_observe.dp_launches
+    info["launches"], info["sites"] = counts, len(sites)
+    info["dp_route_sites"] = sum(s["route"] == "dp" for s in sites)
+    with gather_mp(state.model):
+        rec.update({k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()})
+    # the same step in FP32 (no fake-quant code to move): the gradients'
+    # check, free of the codes a partial sum's order moves
+    state = p23_mp_state(dev, warm)
+    shard_params_for_mp(state.model, mesh)
+    m = make_train_step(FP32, num_classes=CLASSES, mesh=mesh)(
+        state, shard_batch(train_batch(1, P23_MP_BATCH), mesh))
+    rec["fp32/loss"] = float(m["loss"])
+    with gather_mp(state.model):
+        rec.update({f"fp32/{k}": v.detach().cpu().numpy()
+                    for k, v in model_variables(state.model).items()})
+    np.savez(f"{out}-{rank}.npz", **rec)
+    with open(f"{out}-{rank}.json", "w") as f:
+        json.dump(info, f)
+    torch.distributed.destroy_process_group()
+
+
+def _update_gaps(mine, ref, warm):
+    """Each parameter's update against the reference's, both from ``warm``:
+    {key: ||d mine - d ref|| / ||d ref||}, d the change from ``warm``. A
+    parameter whose reference update is under 1e-3 of the median's (per
+    element) is left out: its exact gradient is zero (a BN shift that a
+    later BN removes) and its update rounding."""
+    steps = {}
+    for k, a in ref.items():
+        if k.startswith("params/"):
+            d = a.astype(np.float64) - warm[k]
+            steps[k] = (d, float(np.linalg.norm(d) / np.sqrt(d.size)))
+    floor = 1e-3 * float(np.median([rms for _, rms in steps.values()]))
+    return {k: float(np.linalg.norm(mine[k].astype(np.float64) - warm[k] - d)
+                     / np.linalg.norm(d)) for k, (d, rms) in steps.items() if rms > floor}
+
+
+def _mp_steps(rec):
+    """A phase 23 (b) record split into its QAT step's and its FP32 step's."""
+    return ({k: v for k, v in rec.items() if not k.startswith("fp32/")},
+            {k[len("fp32/"):]: v for k, v in rec.items() if k.startswith("fp32/")})
+
+
+def _gap_report(gaps):
+    worst = max(gaps, key=gaps.get)
+    return {"median": float(np.median(list(gaps.values()))), "worst": gaps[worst],
+            "variable": worst, "count": len(gaps)}
+
+
+def _mp_compare(what, mine, ref, logits, warm):
+    """``mine`` (a rank's record) against ``ref``, both a QAT step and an
+    FP32 step (keys under ``fp32/``) from the variables ``warm``:
+    test_multihost's measures (the loss, the QAT_FROZEN logits of the
+    global batch ``logits``, each variable scaled by max(|v|, 1)) printed
+    against its bands, and phase 22's bands for a comparison of two layouts
+    on the card (the loss in the QAT band, the observers and BN statistics
+    in phase 8's), which must hold: at full width a one-ulp change of a
+    partial sum moves a fake-quant code here and there, and the QAT_FROZEN
+    forward carries it. Each parameter's update (its change from ``warm``)
+    against the reference's, ||d mine - d ref|| / ||d ref||: in the FP32
+    step within ``MP_FP32_UPDATE_GAP`` (no code moves there: a dropped or
+    doubled tensor-parallel gradient moves a layer's by 0.5 or more); in the
+    QAT step printed."""
+    (mine, fp32), (ref, fp32_ref) = _mp_steps(mine), _mp_steps(ref)
+    rep = {"loss_rel": abs(mine["loss"] - ref["loss"]) / abs(ref["loss"]),
+           "logits_max_abs": float(np.abs(logits - ref["logits"]).max()),
+           "logits_rel_l2": float(np.linalg.norm(logits - ref["logits"])
+                                  / np.linalg.norm(ref["logits"])),
+           "fp32_loss_rel": abs(fp32["loss"] - fp32_ref["loss"]) / abs(fp32_ref["loss"]),
+           "update_gap_qat": _gap_report(_update_gaps(mine, ref, warm)),
+           "update_gap_fp32": _gap_report(_update_gaps(fp32, fp32_ref, warm))}
+    worst = (0.0, "")
+    for k, a in ref.items():
+        if k in ("loss", "logits") or not a.size:
+            continue
+        scale = max(float(np.abs(a).max()), 1.0)
+        worst = max(worst, (float(np.abs(a / scale - mine[k] / scale).max()), k))
+    obs, means, variances = _state_bands(mine, ref)
+    rep["leaf_worst"] = {"value": worst[0], "variable": worst[1]}
+    rep["jax_bands_hold"] = bool(rep["loss_rel"] <= MP_LOSS_RTOL
+                                 and rep["logits_max_abs"] <= MP_LOGITS_ATOL
+                                 and worst[0] <= MP_LEAF_ATOL)
+    rep["observer_rel_range"] = {"median": float(np.median(obs)), "worst": float(max(obs))}
+    rep["bn"] = {"mean_over_std_median": float(np.median(means)),
+                 "var_rel_median": float(np.median(variances))}
+    log(f"[p23] {what}: loss rel {rep['loss_rel']:.3g} (FP32 step {rep['fp32_loss_rel']:.3g}), "
+        f"QAT_FROZEN logits max |diff| "
+        f"{rep['logits_max_abs']:.3g} (rel L2 {rep['logits_rel_l2']:.3g}), worst variable "
+        f"{worst[0]:.3g} ({worst[1]}); test_multihost's bands ({MP_LOSS_RTOL:g}, "
+        f"{MP_LOGITS_ATOL:g}, {MP_LEAF_ATOL:g}) {'hold' if rep['jax_bands_hold'] else 'missed'}")
+    for step in ("fp32", "qat"):
+        g = rep[f"update_gap_{step}"]
+        log(f"[p23] {what}: the {g['count']} parameters' updates of the {step.upper()} step "
+            f"against the reference's, ||d mine - d ref|| / ||d ref||: median {g['median']:.3g}, "
+            f"worst {g['worst']:.3g} ({g['variable']})")
+    band_check(f"[p23] {what}: QAT loss, relative", rep["loss_rel"], QAT_LOSS_REL)
+    band_check(f"[p23] {what}: FP32 loss, relative", rep["fp32_loss_rel"], FP32_LOSS_REL)
+    band_check(f"[p23] {what}: FP32 step's parameter updates, median gap",
+               rep["update_gap_fp32"]["median"], MP_FP32_UPDATE_GAP[0])
+    band_check(f"[p23] {what}: FP32 step's parameter updates, worst gap",
+               rep["update_gap_fp32"]["worst"], MP_FP32_UPDATE_GAP[1])
+    band_check(f"[p23] {what}: observers, median |diff| / range",
+               rep["observer_rel_range"]["median"], OBS_MEDIAN)
+    band_check(f"[p23] {what}: observers, worst |diff| / range",
+               rep["observer_rel_range"]["worst"], OBS_WORST)
+    band_check(f"[p23] {what}: BN running means, median |diff| / std",
+               rep["bn"]["mean_over_std_median"], BN_MEAN_MEDIAN)
+    band_check(f"[p23] {what}: BN running variances, median |diff| / var",
+               rep["bn"]["var_rel_median"], BN_VAR_MEDIAN)
+    if not np.isfinite(logits).all():
+        raise AssertionError(f"[p23] {what}: non-finite logits")
+    return rep
+
+
+def p23_mp_start(dev):
+    """Phase 23 (b)'s start: the ranks of every layout started
+    (``p23_mp_rank``), and meanwhile ``frostnet_quant_large_1_0`` at
+    224x224 warmed in this process (an FP32 step and four QAT steps:
+    test_multihost's warm start, so that no BN channel of near-zero variance
+    amplifies a float-sum order), which they wait for. Returns what
+    :func:`p23_mp` waits for."""
+    out = os.path.join(PHASE23_DIR, "mp")
+    os.makedirs(out, exist_ok=True)
+    warm = os.path.join(out, "warm.npz")
+    t0 = time.perf_counter()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
+    procs = []  # started first: they wait for the warm state while they start
+    for name, (world, mp) in P23_MP_LAYOUTS.items():
+        store = os.path.join(out, f"{name}.store")
+        procs += [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.p23_mp_rank({r}, {world}, "
+                                   f"{mp}, {store!r}, {os.path.join(out, name)!r}, {warm!r}, "
+                                   f"{dev.type!r})"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+    model = create_model(MODEL, num_classes=CLASSES, drop_rate=0.0)
+    tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5), noise_decay=1.0)
+    state = create_train_state(model, tx, seed=0, device=dev)
+    for k in range(5):
+        if k == 1:
+            state.start_qat()
+        make_train_step(FP32 if k == 0 else QAT, num_classes=CLASSES)(
+            state, train_batch(10 + k, P23_MP_BATCH))
+    np.savez(warm + ".part.npz", **{k: v.detach().cpu().numpy()
+                                    for k, v in model_variables(state.model).items()})
+    os.replace(warm + ".part.npz", warm)
+    del state, model
+    torch.cuda.empty_cache()
+    return {"out": out, "warm": warm, "procs": procs, "t0": t0}
+
+
+def p23_mp_one_process(dev, warm: str) -> dict:
+    """Phase 23 (b) in one process: the QAT step from the warm state, the
+    QAT_FROZEN forward, then the FP32 step from the warm state (keys under
+    ``fp32/``), as :func:`p23_mp_rank` records them."""
+    state = p23_mp_state(dev, warm)
+    rec = {"loss": float(make_train_step(QAT, num_classes=CLASSES)(
+        state, train_batch(1, P23_MP_BATCH))["loss"])}
+    with torch.no_grad():
+        image = prep_image(torch.as_tensor(train_batch(2, P23_MP_BATCH)["image"]).to(dev))
+        rec["logits"] = state.model(image, mode=QAT_FROZEN).cpu().numpy()
+    rec.update({k: v.detach().cpu().numpy() for k, v in model_variables(state.model).items()})
+    state = p23_mp_state(dev, warm)
+    rec["fp32/loss"] = float(make_train_step(FP32, num_classes=CLASSES)(
+        state, train_batch(1, P23_MP_BATCH))["loss"])
+    rec.update({f"fp32/{k}": v.detach().cpu().numpy()
+                for k, v in model_variables(state.model).items()})
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p23_mp(dev, launches):
+    """Phase 23 (b): one QAT step and a QAT_FROZEN forward, and one FP32
+    step, from the warm state on mp 2 (two ranks), dp 2 x mp 2 (four) and
+    dp 2 x mp 1 (two), all on this card over gloo (:func:`p23_mp_start`),
+    and in this process (twice: the control of the card's nondeterminism):
+    mp 2 against the one process and dp 2 x mp 2 against dp 2 x mp 1 (the
+    same rows a rank: the same BN sums) in :func:`_mp_compare`'s bands, dp
+    2 against the one process printed beside them; the ranks of a layout
+    hold the same gathered variables."""
+    job = p23_mp_start(dev)
+    out, warm, procs, t0 = job["out"], job["warm"], job["procs"], job["t0"]
+    try:
+        # twice: the second is the control of what the card's nondeterminism
+        # alone moves
+        one, again = (p23_mp_one_process(dev, warm) for _ in range(2))
+        for p in procs:
+            text, _ = p.communicate(timeout=max(1.0, P23_TIMEOUT - (time.perf_counter() - t0)))
+            if p.returncode != 0:
+                raise AssertionError(f"[p23] mp rank failed:\n{text[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    rep = {"seconds": time.perf_counter() - t0}
+    recs, infos = {}, {}
+    for name, (world, mp) in P23_MP_LAYOUTS.items():
+        recs[name] = [dict(np.load(os.path.join(out, f"{name}-{r}.npz"))) for r in range(world)]
+        infos[name] = []
+        for r in range(world):
+            with open(os.path.join(out, f"{name}-{r}.json")) as f:
+                infos[name].append(json.load(f))
+            launches[f"p23 {name} rank {r}"] = infos[name][-1]["launches"]
+        for r in range(1, world):
+            for k, v in recs[name][0].items():
+                if k == "logits" and r // mp:
+                    continue
+                if not np.array_equal(v, recs[name][r][k]):
+                    raise AssertionError(f"[p23] {name}: rank {r} differs from rank 0 at {k}")
+    logits = {name: np.concatenate([recs[name][r]["logits"] for r in range(0, world, mp)])
+              for name, (world, mp) in P23_MP_LAYOUTS.items()}
+    rep["ranks"] = {name: [{k: i[k] for k in ("seconds", "launches", "sites", "dp_route_sites",
+                                              "sharded")} for i in info]
+                    for name, info in infos.items()}
+    for name, info in infos.items():
+        if any(i["sites"] != N_SITES for i in info):
+            raise AssertionError(f"[p23] {name}: {[i['sites'] for i in info]} fake-quant sites "
+                                 f"checked, expected {N_SITES}")
+    log(f"[p23] mp: {infos['mp2'][0]['sharded']} kernels sharded on mp 2; every rank's "
+        f"{N_SITES} fake-quant sites of the QAT step == plain; a rank's QAT step and forward: "
+        + ", ".join(f"{n} {info[0]['seconds']:.1f} s" for n, info in infos.items())
+        + "; launches of rank 0: " + ", ".join(f"{n} {info[0]['launches']}"
+                                               for n, info in infos.items()))
+    warm = dict(np.load(warm))
+    controls = {"one_process_twice": (again, one), "dp2_vs_one_process": (recs["dp2"][0], one)}
+    for name, (a, b) in controls.items():
+        (a_qat, a_fp32), (b_qat, b_fp32) = _mp_steps(a), _mp_steps(b)
+        rep[name] = {"fp32": _gap_report(_update_gaps(a_fp32, b_fp32, warm)),
+                     "qat": _gap_report(_update_gaps(a_qat, b_qat, warm))}
+        log(f"[p23] {name}: parameter updates, ||d mine - d ref|| / ||d ref||: " + "; ".join(
+            f"{step.upper()} median {g['median']:.3g}, worst {g['worst']:.3g} ({g['variable']})"
+            for step, g in rep[name].items()))
+    rep["mp2_vs_one_process"] = _mp_compare("mp 2 (2 ranks) against one process",
+                                            recs["mp2"][0], one, logits["mp2"], warm)
+    ref = dict(recs["dp2"][0], logits=logits["dp2"])
+    rep["dp2xmp2_vs_dp2"] = _mp_compare("dp 2 x mp 2 (4 ranks) against dp 2 x mp 1",
+                                        recs["dp2xmp2"][0], ref, logits["dp2xmp2"], warm)
+    return rep
+
+
+def p23_remat(dev, launches):
+    """Phase 23 (c): phase 10's QAT step (bf16, bench.py's optimizer) at batch
+    256, plain, ``remat="full"`` and ``"conv_outs"``, each from the same
+    state with ``cudnn.deterministic``: the first step's loss and every
+    variable against plain, then its peak memory and ms a step."""
+    rep = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        base = None
+        for remat in (False, "full", "conv_outs"):
+            model = create_model(MODEL, num_classes=CLASSES, dtype=torch.bfloat16)
+            tx = get_optimizer("QSGD", 0.04, weight_decay=grouped_weight_decay(4e-5))
+            state = create_train_state(model, tx, seed=0, device=dev)
+            state.start_qat()
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in train_batch(0, P23_REMAT_BATCH).items()}
+            step = make_train_step(QAT, num_classes=CLASSES, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            loss = float(step(state, batch)["loss"])
+            torch.cuda.synchronize()
+            name = str(remat) if remat else "plain"
+            launches[f"p23 remat {name} step"] = ops.launch_counts()
+            row = {"loss": loss, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            flat = {k: v.detach().float().cpu().numpy().copy() for k, v in
+                    model_variables(state.model).items()}
+            if base is None:
+                base = (loss, flat)
+            else:
+                differ = [k for k in flat
+                          if not np.array_equal(flat[k], base[1][k], equal_nan=True)]
+                row["loss_equal"] = loss == base[0]
+                row["variables_differing"] = len(differ)
+                row["max_abs_diff"] = max([float(np.nanmax(np.abs(flat[k] - base[1][k])))
+                                           for k in differ] or [0.0])
+            row["ms_per_step"] = time_ms(lambda: step(state, batch), reps=3, warmup=1)
+            rep[name] = row
+            del state, model, batch, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name in ("full", "conv_outs"):
+        r = rep[name]
+        if not r["loss_equal"] or r["variables_differing"]:
+            raise AssertionError(
+                f"[p23] remat {name}: the step differs from plain under cudnn.deterministic: "
+                f"loss equal {r['loss_equal']}, {r['variables_differing']} variables differ, "
+                f"max |diff| {r['max_abs_diff']:.3g}")
+    log(f"[p23] remat at batch {P23_REMAT_BATCH} (bf16 QAT step): " + "; ".join(
+        f"{n} {r['ms_per_step']:.1f} ms/step, peak {r['peak_gib']:.2f} GiB"
+        + ("" if n == "plain" else f", == plain: loss {r['loss_equal']}, "
+           f"{r['variables_differing']} variables differ")
+        for n, r in rep.items()))
+    return rep
+
+
+def _route_layer(cfg, device):
+    """A QConvBNAct of ``P23_ROUTES`` with seeded variables, its observers
+    calibrated by two QAT eval forwards, frozen on ``device`` for inputs on
+    grid (0.027, 97); the codes of a batch."""
+    name, cin, cout, k, s, p, d, g, act, hw = cfg
+    layer = QConvBNAct(cin, cout, k, strides=s, padding=p, dilation=d, groups=g, act=act)
+    rng = np.random.RandomState(len(name))
+    with torch.no_grad():
+        kern = layer.kernel
+        fan = int(np.prod(kern.shape[:-1]))
+        kern.copy_(torch.as_tensor(rng.randn(*kern.shape).astype(np.float32)
+                                   * np.sqrt(2.0 / fan)))
+        layer.scale.copy_(torch.as_tensor(rng.uniform(0.5, 1.5, cout).astype(np.float32)))
+        layer.bias_bn.copy_(torch.as_tensor(rng.normal(0.2, 0.3, cout).astype(np.float32)))
+        layer.mean.copy_(torch.as_tensor(rng.normal(0, 0.1, cout).astype(np.float32)))
+        layer.var.copy_(torch.as_tensor(rng.uniform(0.5, 1.5, cout).astype(np.float32)))
+    grid = QParams(0.027, 97)
+    q = torch.as_tensor(rng.randint(0, 256, (P23_ROUTE_BATCH, hw, hw, cin)).astype(np.uint8))
+    xf = (q.float() - grid.zero_point) * torch.tensor(grid.scale, dtype=torch.float32)
+    with torch.no_grad():
+        for _ in range(2):
+            layer(xf, mode=QAT, train=False)
+    layer.eval()
+    layer.prepare_int8(grid, device)
+    return layer, QTensor(q.to(device), *grid.tensors(device))
+
+
+def p23_routes(dev, launches):
+    """Phase 23 (d): the INT8 routes the port once refused, on the card
+    against the plain version on the CPU (the same layer frozen on each):
+    the padded 1x1's matmul kernel and the depthwise and grouped routes'
+    torch ops, codes bit-equal."""
+    rep = {}
+    for cfg in P23_ROUTES:
+        layer, x = _route_layer(cfg, dev)
+        ops.reset_launch_counts()
+        got = layer(x, mode=INT8).q
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        plain, xc = _route_layer(cfg, torch.device("cpu"))
+        want = plain(xc, mode=INT8).q
+        err = check_equal(f"[p23] route {cfg[0]} ({layer._route})", got.cpu(), want)
+        rep[cfg[0]] = {"route": layer._route, "shape": list(got.shape), "launches": counts,
+                       "max_abs_err": err, "distinct_codes": int(len(torch.unique(want)))}
+        launches[f"p23 route {cfg[0]}"] = counts
+    if rep["padded 1x1"]["launches"]["int8_matmul_requant"] != 1:
+        raise AssertionError(f"[p23] the padded 1x1 launched {rep['padded 1x1']['launches']}")
+    log(f"[p23] INT8 routes on the card == plain, codes bit for bit: "
+        + "; ".join(f"{n} ({r['route']}, {r['shape']}, {r['distinct_codes']} codes)"
+                    for n, r in rep.items()))
+    return rep
+
+
+def last_configs_phase(dev):
+    """Phase 23: (a) the seg, det and GAN trainers on two ranks, (b) mp 2 and
+    dp 2 x mp 2, (c) remat, (d) the INT8 routes once refused. Returns
+    (report, launches of each path)."""
+    rep, launches, seconds, errors = {}, {}, {}, []
+    shutil.rmtree(PHASE23_DIR, ignore_errors=True)
+    os.makedirs(PHASE23_DIR)
+    # float32 as the ranks compute it, whatever ran before in this process
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # one part after another: (b)'s ranks beside (a)'s made both slower on one card
+    try:
+        for key, fn in (("trainers", p23_trainers), ("mp", p23_mp), ("remat", p23_remat),
+                        ("routes", p23_routes)):
+            t0 = time.perf_counter()
+            try:  # every part runs; the phase fails after them if one did
+                rep[key] = fn(dev, launches)
+            except Exception as e:
+                errors.append(f"({key}) {type(e).__name__}: {e}")
+                log(f"[p23] {key}: FAILED: {type(e).__name__}: {e}")
+            seconds[key] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rep["seconds"] = seconds
+    log(f"[p23] phase 23 in {sum(seconds.values()):.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    if errors:
+        raise AssertionError("phase 23: " + " | ".join(errors))
+    return rep, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke.json"))
+    ap.add_argument("--p23-trainer", default=None, help=argparse.SUPPRESS)  # a phase 23 rank
+    ap.add_argument("--p23-dir", default=PHASE23_DIR, help=argparse.SUPPRESS)
+    ap.add_argument("--p23-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--p23-alone", action="store_true",
+                    help="build the kernels and run phase 23 alone, with torch's default "
+                         "settings; its report to --out")
     args = ap.parse_args(argv)
+    if args.p23_trainer:
+        return p23_trainer_rank(args.p23_trainer, args.p23_dir, args.p23_device)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 1
+    if args.p23_alone:
+        log(f"[card] {card_line()}")
+        cuda_build.build(cuda_build.SOURCES)
+        rep, launches = last_configs_phase(torch.device("cuda"))
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card_line(), "last_configs": rep, "launches": launches}, f,
+                      indent=1)
+        return 0
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5391,6 +6223,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     report["dp"], dp_counts = dp_phase(dev)
 
+    # 23. the last configurations: the seg, det and GAN trainers on two ranks,
+    # mp 2 and dp 2 x mp 2, remat, the INT8 routes once refused
+    torch.cuda.empty_cache()
+    report["last_configs"], last_counts = last_configs_phase(dev)
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -5432,7 +6269,8 @@ def main(argv=None):
                                  ("gan_train_launches", gan_train_counts),
                                  ("zoo_launches", zoo_counts),
                                  ("tools_launches", tools_counts),
-                                 ("dp_launches", dp_counts)):
+                                 ("dp_launches", dp_counts),
+                                 ("last_configs_launches", last_counts)):
             entry[key] = {path: (sum(c[entry["name"]] for c in counts.values())
                                  if path == "serving" else counts[entry["name"]])
                           for path, counts in path_counts.items()}

@@ -40,6 +40,22 @@ def multibox_loss(loc_pred: torch.Tensor, conf_pred: torch.Tensor, gt_boxes: tor
     (B, G, 4) point-form, ``gt_labels`` (B, G) 0-based, ``gt_valid`` (B, G)
     bool, ``priors`` (P, 4) center-form.
     """
+    loss_l, loss_c, num_pos = multibox_loss_sums(loc_pred, conf_pred, gt_boxes, gt_labels,
+                                                 gt_valid, priors, threshold, negpos_ratio,
+                                                 variances)
+    n = torch.clamp(num_pos, min=1.0)
+    return loss_l / n, loss_c / n
+
+
+def multibox_loss_sums(loc_pred: torch.Tensor, conf_pred: torch.Tensor, gt_boxes: torch.Tensor,
+                       gt_labels: torch.Tensor, gt_valid: torch.Tensor, priors: torch.Tensor,
+                       threshold: float = 0.5, negpos_ratio: int = 3, variances=(0.1, 0.2)
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the localization sum, the confidence sum, the batch's positives as
+    float32) of :func:`multibox_loss`, which divides the sums by the
+    positives (at least 1). Under data parallelism the positives are the
+    global batch's (``parallel.global_normalizer``); the hard negatives are
+    mined per image, so they need no collective."""
     with torch.no_grad():
         loc_t, conf_t = batched_match_priors(gt_boxes, gt_labels, gt_valid, priors,
                                              threshold, variances)
@@ -57,6 +73,4 @@ def multibox_loss(loc_pred: torch.Tensor, conf_pred: torch.Tensor, gt_boxes: tor
         num_neg = torch.clamp(negpos_ratio * num_pos, max=pos.shape[1] - 1)
         keep = pos | (rank < num_neg)
     loss_c = (ce * keep).sum()
-
-    n = torch.clamp(num_pos.sum().to(torch.float32), min=1.0)
-    return loss_l / n, loss_c / n
+    return loss_l, loss_c, num_pos.sum().to(torch.float32)

@@ -12,8 +12,16 @@ one, the data stream from where it stopped (the JAX trainer restarts it).
 trunk; ``--quant false`` trains plain FP32 throughout; uint8 batches get the
 SSD BaseTransform on the device (``prep_det_image``).
 
-Differences from the JAX trainer: one device (its data-parallel mesh is
-ROADMAP.md, Queue A item 6.5a), and ``--loader native`` (the C++ pool of
+Under ``torchrun`` it runs JAX's mesh, ``make_dp_mesh(batch_size)``: the
+largest divisor of the batch that fits the ranks, the ranks beyond it idle
+until the run ends (``parallel/``). Each rank trains on its block of each
+global batch's rows, with the global batch's BN statistics and observers,
+the MultiBox loss divided by the global batch's positives
+(``parallel.global_normalizer``; the hard negatives are mined per image),
+and rank 0 alone writes the checkpoints, ``arguments.json`` and the log.
+A resume continues each rank's stream where it stopped.
+
+Differences from the JAX trainer: ``--loader native`` (the C++ pool of
 ``native/``: the annotations parsed here, decode and augmentation there,
 uint8 images) raises where g++, libjpeg or libpng are missing, where JAX
 falls back to the Python loader with a warning. It runs on the card unless
@@ -38,6 +46,8 @@ from ..data import prefetch_to_device
 from ..nn import FP32, QAT
 from ..nn.mode import QuantMode
 from ..optim import get_optimizer, schedules
+from ..parallel import (Mesh, all_reduce_gradients, data_parallel, global_normalizer,
+                        make_dp_mesh, multihost, rank_rows, replicate)
 from ..quant import numpy_init
 from ..quant.freeze import resolve_device
 from ..train.state import create_train_state
@@ -45,7 +55,7 @@ from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
 from .anchors import CONFIGS, make_priors
 from .data import MEANS, COCODetection, SyntheticDetection, VOCDetection
-from .losses import multibox_loss
+from .losses import multibox_loss_sums
 from .models import Detector, build_ssd, join_variables, load_torch_mobilenet_v2_checkpoint
 from .tdsod import build_tdsod
 
@@ -81,11 +91,12 @@ def select_config(net_type: str, dataset: str) -> dict:
     return CONFIGS[f"tdsod_{key}" if net_type == "qtdsod" else key]
 
 
-def build_detection_dataset(cfg: DetConfig, train: bool = True):
-    """'voc' | 'coco' | 'synthetic' -> a batched detection dataset."""
+def build_detection_dataset(cfg: DetConfig, train: bool = True, mesh: Optional[Mesh] = None):
+    """'voc' | 'coco' | 'synthetic' -> a batched detection dataset; under a
+    data-parallel ``mesh`` this rank's rows of each batch."""
     if cfg.dataset == "synthetic":
-        return SyntheticDetection((cfg.num_classes or 21) - 1, 300, cfg.batch_size * 4,
-                                  cfg.batch_size, cfg.seed)
+        return rank_rows(SyntheticDetection((cfg.num_classes or 21) - 1, 300,
+                                            cfg.batch_size * 4, cfg.batch_size, cfg.seed), mesh)
     if cfg.dataset == "coco":
         ds = COCODetection(cfg.data_root, split=cfg.coco_split, batch_size=cfg.batch_size,
                            train=train, seed=cfg.seed)
@@ -94,7 +105,7 @@ def build_detection_dataset(cfg: DetConfig, train: bool = True):
     else:
         raise ValueError(f"unknown dataset {cfg.dataset!r} (voc|coco|synthetic)")
     if cfg.loader != "native":
-        return ds
+        return rank_rows(ds, mesh)
     from ..native import NativeDetectionLoader
 
     # the annotations are parsed here; decode and the SSD augmentation run
@@ -102,7 +113,8 @@ def build_detection_dataset(cfg: DetConfig, train: bool = True):
     # device (prep_det_image)
     paths, boxes, labels = ds.annotations()
     return NativeDetectionLoader(paths, boxes, labels, batch_size=cfg.batch_size, train=train,
-                                 seed=cfg.seed)
+                                 seed=cfg.seed, rank=mesh.dp_index if mesh else 0,
+                                 world=mesh.dp if mesh else 1)
 
 
 def build_net(net_type: str, num_classes: int, **kw):
@@ -125,26 +137,47 @@ def prep_det_image(image: torch.Tensor) -> torch.Tensor:
     return image.to(torch.float32).flip(-1) - _means(image.device)
 
 
-def _det_loss(state, batch, priors, mode: QuantMode, train: bool):
+def multibox_step_loss(loc, conf, boxes, labels, valid, priors, mesh: Optional[Mesh] = None):
+    """(loss to differentiate, loss, loss_l, loss_c) of a batch's MultiBox
+    loss, divided by the global batch's positives under a data-parallel
+    ``mesh``: the first ``dp`` times this rank's share (its gradient's mean
+    over the ranks is the global loss's), the others the global values."""
+    sum_l, sum_c, num_pos = multibox_loss_sums(loc, conf, boxes, labels, valid, priors)
+    num_pos, factor = global_normalizer(num_pos, mesh)
+    n = torch.clamp(num_pos, min=1.0)
+    loss_l, loss_c = sum_l / n, sum_c / n
+    loss = loss_l + loss_c
+    if factor == 1.0:
+        return loss, loss, loss_l, loss_c
+    parts = mesh.all_reduce(torch.stack([loss_l.detach(), loss_c.detach()]))
+    return loss * factor, parts[0] + parts[1], parts[0], parts[1]
+
+
+def _det_loss(state, batch, priors, mode: QuantMode, train: bool,
+              mesh: Optional[Mesh] = None):
+    """:func:`multibox_step_loss` of the model's predictions on ``batch``."""
     batch = {k: torch.as_tensor(v).to(state.device) for k, v in batch.items()}
     loc, conf = state.model(prep_det_image(batch["image"]), mode=mode, train=train)
-    loss_l, loss_c = multibox_loss(loc, conf, batch["boxes"], batch["labels"], batch["valid"],
-                                   priors)
-    return loss_l + loss_c, loss_l, loss_c
+    return multibox_step_loss(loc, conf, batch["boxes"], batch["labels"], batch["valid"],
+                              priors, mesh)
 
 
-def make_det_train_step(mode: QuantMode, priors: torch.Tensor):
+def make_det_train_step(mode: QuantMode, priors: torch.Tensor, mesh: Optional[Mesh] = None):
     """``step(state, batch) -> {"loss", "loss_l", "loss_c"}`` (device
     tensors): the forward in ``mode`` with ``train=True`` (the head in float),
-    the MultiBox loss, backward, one optimizer step."""
+    the MultiBox loss, backward, one optimizer step; the global batch's
+    under a data-parallel ``mesh``."""
 
     def step(state, batch):
-        loss, loss_l, loss_c = _det_loss(state, batch, priors, mode, True)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with data_parallel(mesh):
+            loss, total, loss_l, loss_c = _det_loss(state, batch, priors, mode, True, mesh)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if mesh is not None:
+            all_reduce_gradients(state.model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach()}
+        return {"loss": total.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach()}
 
     return step
 
@@ -156,7 +189,7 @@ def make_det_eval_step(mode: QuantMode, priors: torch.Tensor):
 
     @torch.no_grad()
     def step(state, batch):
-        loss, loss_l, loss_c = _det_loss(state, batch, priors, mode, False)
+        _, loss, loss_l, loss_c = _det_loss(state, batch, priors, mode, False)
         return {"loss": loss, "loss_l": loss_l, "loss_c": loss_c}
 
     return step
@@ -177,20 +210,29 @@ def _cycle(ds, device, skip: int = 0):
 def main(cfg: DetConfig):
     """Train; returns ``(state, results)``: each iteration's losses
     (``history``: tag, iteration, loss, loss_l, loss_c, wall ms) and the
-    iteration a resume started at (``resumed``)."""
-    device = resolve_device(cfg.device)
+    iteration a resume started at (``resumed``). A rank beyond the
+    data-parallel mesh returns ``(None, {"idle": True})`` at the run's end."""
+    multihost.initialize(cfg.device)  # torchrun's ranks; a no-op in one process
+    mesh = make_dp_mesh(cfg.batch_size)  # JAX's mesh: the largest divisor that fits
+    if not mesh.member:
+        multihost.wait_for_end(mesh)
+        return None, {"idle": True}
+    device = resolve_device(multihost.local_device(cfg.device))
+    primary = multihost.is_primary()
     os.makedirs(cfg.save_dir, exist_ok=True)
-    logger = MetricLogger(cfg.save_dir, name="det")
+    logger = (MetricLogger(cfg.save_dir, name="det") if primary
+              else MetricLogger(None, name="det", echo=False))
     logger.info(f"config: {dataclasses.asdict(cfg)}")
-    with open(os.path.join(cfg.save_dir, "arguments.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    if primary:
+        with open(os.path.join(cfg.save_dir, "arguments.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2)
 
     det_cfg = select_config(cfg.net_type, cfg.dataset)
     priors = torch.as_tensor(make_priors(det_cfg), device=device)
     max_iter = cfg.max_iter or det_cfg["max_iter"]
     cfg.num_classes = cfg.num_classes or det_cfg["num_classes"]
 
-    ds = build_detection_dataset(cfg)
+    ds = build_detection_dataset(cfg, mesh=mesh)
     epoch_size = max(len(ds), 1)
     warmup_iters = cfg.warmup_iters if cfg.warmup_iters is not None else 2 * epoch_size
 
@@ -208,13 +250,15 @@ def main(cfg: DetConfig):
     state = create_train_state(Detector(feat, head), tx, seed=cfg.seed, device=device,
                                variables=join_variables(fv, hv))
 
-    fp_step = make_det_train_step(FP32, priors)
-    qat_step = make_det_train_step(QAT if cfg.quant else FP32, priors)
+    fp_step = make_det_train_step(FP32, priors, mesh)
+    qat_step = make_det_train_step(QAT if cfg.quant else FP32, priors, mesh)
     it, resumed = 0, None
     if cfg.resume_iter:
         restore_checkpoint(os.path.join(cfg.save_dir, f"ssd300_{cfg.resume_iter}"), state)
         it = resumed = cfg.resume_iter
         logger.info(f"resumed from ssd300_{it} (step {state.step})")
+    replicate(state.model, mesh)  # rank 0's parameters and buffers on every rank
+    logger.info(f"mesh {mesh.shape}")
     batches = _cycle(ds, device, skip=it % epoch_size)
     history = []
 
@@ -234,7 +278,8 @@ def main(cfg: DetConfig):
     while it < max_iter:  # QAT (qtrainval.py:259-327)
         m = run(qat_step, "qat" if cfg.quant else "fp32")
         if it % cfg.save_every == 0 or it == max_iter:
-            save_checkpoint(os.path.join(cfg.save_dir, f"ssd300_{it}"), state)
+            if primary:
+                save_checkpoint(os.path.join(cfg.save_dir, f"ssd300_{it}"), state)
             logger.log_scalars({k: float(m[k]) for k in ("loss", "loss_l", "loss_c")}, step=it)
             logger.info(f"[iter {it}] loss={float(m['loss']):.4f} "
                         f"(l={float(m['loss_l']):.4f} c={float(m['loss_c']):.4f})")
@@ -245,6 +290,7 @@ def main(cfg: DetConfig):
     if history:
         logger.info(f"final loss={history[-1]['loss']:.4f}")
     logger.close()
+    multihost.wait_for_end(mesh)
     return state, {"history": history, "resumed": resumed, "num_classes": cfg.num_classes}
 
 

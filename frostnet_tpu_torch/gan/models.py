@@ -30,6 +30,16 @@ observers in place, so each drop is explicit here:
   vector lines up with JAX's (GradBoost noise, per-element EMAs).
 
 Each step returns its metrics as device tensors; nothing waits for the host.
+
+Under a data-parallel ``mesh`` (``parallel``; the steps' ``mesh`` argument)
+each rank runs its block of the global batch's rows inside
+``parallel.data_parallel``: every BN (the generators' quantized core, the
+pix2pix D's) and every observer takes the global batch's statistics, and
+each update's gradient is the mean over the ranks before the optimizer
+step. Every loss is a mean over equal row blocks, so that mean is the
+global loss's gradient; the metrics are the global batch's. The dropped
+updates above are the same under the mesh: ``discarded_updates`` restores
+what the global statistics stepped.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ import torch
 from torch import nn
 
 from ..nn.mode import QuantMode
+from ..parallel import Mesh, all_reduce_gradients, cross_replica_mean, data_parallel
 from ..quant.export import numpy_init
 from ..train.state import TrainState, create_train_state
 from ..utils.losses import l1
@@ -109,88 +120,101 @@ def _device_batch(batch, dev) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items() if k in ("A", "B")}
 
 
-def _update(optimizer, loss: torch.Tensor) -> None:
+def _update(optimizer, loss: torch.Tensor, mesh: Optional[Mesh] = None) -> None:
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        all_reduce_gradients([p for g in optimizer.param_groups for p in g["params"]], mesh)
     optimizer.step()
 
 
-def make_pix2pix_steps(mode: QuantMode, gan_mode: str = "lsgan", lambda_l1: float = 100.0):
+def make_pix2pix_steps(mode: QuantMode, gan_mode: str = "lsgan", lambda_l1: float = 100.0,
+                       mesh: Optional[Mesh] = None):
     """``(d_step, g_step)`` of one phase (pix2pix_model.py:96-131), each
     ``step(g_state, d_state, batch) -> metrics``; ``batch`` is ``{"A": (B,
-    H, W, C), "B": ...}`` and the conditional D sees ``cat(A, x)``."""
+    H, W, C), "B": ...}`` (this rank's rows under ``mesh``) and the
+    conditional D sees ``cat(A, x)``."""
 
     def d_step(g_state: NetState, d_state: NetState, batch) -> Dict[str, torch.Tensor]:
         b = _device_batch(batch, d_state.device)
-        with torch.no_grad(), discarded_updates(g_state.model):
-            fake_b = g_state.model(b["A"], mode, train=True, generator=g_state.generator)
-        net_d = d_state.model
-        pred_fake = net_d(torch.cat([b["A"], fake_b], -1), train=True)
-        pred_real = net_d(torch.cat([b["A"], b["B"]], -1), train=True)
-        loss = 0.5 * (gan_loss(pred_fake, False, gan_mode) + gan_loss(pred_real, True, gan_mode))
-        _update(d_state.optimizer, loss)
+        with data_parallel(mesh):
+            with torch.no_grad(), discarded_updates(g_state.model):
+                fake_b = g_state.model(b["A"], mode, train=True, generator=g_state.generator)
+            net_d = d_state.model
+            pred_fake = net_d(torch.cat([b["A"], fake_b], -1), train=True)
+            pred_real = net_d(torch.cat([b["A"], b["B"]], -1), train=True)
+            loss = 0.5 * (gan_loss(pred_fake, False, gan_mode)
+                          + gan_loss(pred_real, True, gan_mode))
+            _update(d_state.optimizer, loss, mesh)
         d_state.step += 1
-        return {"loss_D": loss.detach()}
+        return cross_replica_mean({"loss_D": loss.detach()}, mesh)
 
     def g_step(g_state: NetState, d_state: NetState, batch) -> Dict[str, torch.Tensor]:
         b = _device_batch(batch, g_state.device)
-        fake_b = g_state.model(b["A"], mode, train=True, generator=g_state.generator)
-        with no_param_grads(d_state.model):
-            pred_fake = d_state.model(torch.cat([b["A"], fake_b], -1))
-        loss_gan = gan_loss(pred_fake, True, gan_mode)
-        loss_l1 = l1(fake_b, b["B"]) * lambda_l1
-        loss = loss_gan + loss_l1
-        _update(g_state.optimizer, loss)
+        with data_parallel(mesh):
+            fake_b = g_state.model(b["A"], mode, train=True, generator=g_state.generator)
+            with no_param_grads(d_state.model):
+                pred_fake = d_state.model(torch.cat([b["A"], fake_b], -1))
+            loss_gan = gan_loss(pred_fake, True, gan_mode)
+            loss_l1 = l1(fake_b, b["B"]) * lambda_l1
+            loss = loss_gan + loss_l1
+            _update(g_state.optimizer, loss, mesh)
         g_state.step += 1
-        return {"loss_G": loss.detach(), "loss_G_GAN": loss_gan.detach(),
-                "loss_G_L1": loss_l1.detach()}
+        return cross_replica_mean({"loss_G": loss.detach(), "loss_G_GAN": loss_gan.detach(),
+                                   "loss_G_L1": loss_l1.detach()}, mesh)
 
     return d_step, g_step
 
 
 def make_cyclegan_steps(mode: QuantMode, gan_mode: str = "lsgan", lambda_a: float = 10.0,
-                        lambda_b: float = 10.0, lambda_idt: float = 0.5):
+                        lambda_b: float = 10.0, lambda_idt: float = 0.5,
+                        mesh: Optional[Mesh] = None):
     """``(g_step, d_step)`` of one phase (cycle_gan_model.py:128-197).
 
     ``g_step(gA, gB, dA, dB, batch, joint_optimizer) -> (fake_a, fake_b,
     metrics)`` updates both generators with the joint optimizer;
     ``d_step(d_state, real, fake) -> loss_D`` updates one discriminator
-    against a pool-provided fake."""
+    against a pool-provided fake. Under ``mesh`` the fakes are this rank's
+    rows (the trainer queries the pool on the global batch)."""
 
     def g_step(gA: NetState, gB: NetState, dA: NetState, dB: NetState, batch, joint_optimizer):
         b = _device_batch(batch, gA.device)
         real_a, real_b = b["A"], b["B"]
         net_a, net_b = gA.model, gB.model
-        fake_b = net_a(real_a, mode, train=True, generator=gA.generator)
-        rec_a = net_b(fake_b, mode, train=True, generator=gB.generator)
-        fake_a = net_b(real_b, mode, train=True, generator=gB.generator)
-        rec_b = net_a(fake_a, mode, train=True, generator=gA.generator)
-        with no_param_grads(dA.model, dB.model):
-            loss_gan_a = gan_loss(dA.model(fake_b), True, gan_mode)
-            loss_gan_b = gan_loss(dB.model(fake_a), True, gan_mode)
-        loss_cyc_a = l1(rec_a, real_a) * lambda_a
-        loss_cyc_b = l1(rec_b, real_b) * lambda_b
-        loss = loss_gan_a + loss_gan_b + loss_cyc_a + loss_cyc_b
-        if lambda_idt > 0:
-            with discarded_updates(net_a, net_b):
-                idt_a = net_a(real_b, mode, train=True, generator=gA.generator)
-                idt_b = net_b(real_a, mode, train=True, generator=gB.generator)
-            loss = loss + (l1(idt_a, real_b) * lambda_b * lambda_idt
-                           + l1(idt_b, real_a) * lambda_a * lambda_idt)
-        _update(joint_optimizer, loss)
+        with data_parallel(mesh):
+            fake_b = net_a(real_a, mode, train=True, generator=gA.generator)
+            rec_a = net_b(fake_b, mode, train=True, generator=gB.generator)
+            fake_a = net_b(real_b, mode, train=True, generator=gB.generator)
+            rec_b = net_a(fake_a, mode, train=True, generator=gA.generator)
+            with no_param_grads(dA.model, dB.model):
+                loss_gan_a = gan_loss(dA.model(fake_b), True, gan_mode)
+                loss_gan_b = gan_loss(dB.model(fake_a), True, gan_mode)
+            loss_cyc_a = l1(rec_a, real_a) * lambda_a
+            loss_cyc_b = l1(rec_b, real_b) * lambda_b
+            loss = loss_gan_a + loss_gan_b + loss_cyc_a + loss_cyc_b
+            if lambda_idt > 0:
+                with discarded_updates(net_a, net_b):
+                    idt_a = net_a(real_b, mode, train=True, generator=gA.generator)
+                    idt_b = net_b(real_a, mode, train=True, generator=gB.generator)
+                loss = loss + (l1(idt_a, real_b) * lambda_b * lambda_idt
+                               + l1(idt_b, real_a) * lambda_a * lambda_idt)
+            _update(joint_optimizer, loss, mesh)
         gA.step += 1
         gB.step += 1
-        return fake_a.detach(), fake_b.detach(), {
-            "loss_G": loss.detach(), "cyc_A": loss_cyc_a.detach(), "cyc_B": loss_cyc_b.detach()}
+        return fake_a.detach(), fake_b.detach(), cross_replica_mean({
+            "loss_G": loss.detach(), "cyc_A": loss_cyc_a.detach(),
+            "cyc_B": loss_cyc_b.detach()}, mesh)
 
     def d_step(d_state: NetState, real, fake) -> torch.Tensor:
         dev = d_state.device
         real, fake = torch.as_tensor(real).to(dev), torch.as_tensor(fake).to(dev).detach()
-        pred_real = d_state.model(real, train=True)
-        pred_fake = d_state.model(fake, train=True)
-        loss = 0.5 * (gan_loss(pred_real, True, gan_mode) + gan_loss(pred_fake, False, gan_mode))
-        _update(d_state.optimizer, loss)
+        with data_parallel(mesh):
+            pred_real = d_state.model(real, train=True)
+            pred_fake = d_state.model(fake, train=True)
+            loss = 0.5 * (gan_loss(pred_real, True, gan_mode)
+                          + gan_loss(pred_fake, False, gan_mode))
+            _update(d_state.optimizer, loss, mesh)
         d_state.step += 1
-        return loss.detach()
+        return cross_replica_mean(loss.detach().clone(), mesh)
 
     return g_step, d_step

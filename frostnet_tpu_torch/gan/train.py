@@ -13,15 +13,23 @@ every ``save_epoch_freq`` QAT epochs and at the end; ``--continue_train``
 resumes from them.
 
 Both packages start from ``numpy_init(nets, seed, init="gan")`` here, the
-GAN init drawn with numpy in key order. The trainer runs on one device, the
-card unless ``--device cpu`` is given: the JAX trainer's data-parallel mesh
-over every device that divides the batch is ROADMAP.md, Queue A item 6.5a.
-Where the JAX trainer writes ``gan_meta.json`` only at ``save_epoch_freq``
-epochs, the port also writes it with the final save, so that a resume
-starts from the epoch the final checkpoint holds.
+GAN init drawn with numpy in key order. The trainer runs on the card unless
+``--device cpu`` is given. Under ``torchrun`` it runs JAX's mesh,
+``make_dp_mesh(batch_size)``: the largest divisor of the batch that fits
+the ranks (batch 1, the published setting, takes one; the other ranks
+idle until the run ends). Each rank trains on its rows with the global
+batch's BN statistics and observers and the gradients' mean
+(``models.py``); the CycleGAN image pools are one pool, as JAX's host
+pools are: every rank gathers the global batch's fakes, queries identical
+pools (one seed) on it and keeps its rows, so the pools' numpy draws stay
+in JAX's order. Rank 0 alone writes the checkpoints, ``gan_meta.json`` and
+the log. Where the JAX trainer writes ``gan_meta.json`` only at
+``save_epoch_freq`` epochs, the port also writes it with the final save, so
+that a resume starts from the epoch the final checkpoint holds.
 
 Run: python -m frostnet_tpu_torch.gan.train --model pix2pix --dataset synthetic \\
        --netG resnet_9blocks --epochs 1 --fp_epochs 1 --steps_per_epoch 2
+     (or torchrun --nproc_per_node 2 -m frostnet_tpu_torch.gan.train ... --batch_size 2)
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from ..nn import FP32, QAT
 from ..optim import get_optimizer, set_warmup
 from ..optim.schedules import _F32, _fma, _rcp
+from ..parallel import Mesh, make_dp_mesh, multihost, rank_rows, replicate, shard_rows
 from ..quant import numpy_init
 from ..quant.freeze import resolve_device
 from ..utils.checkpoint import (restore_checkpoint, restore_optimizer, save_checkpoint,
@@ -164,10 +173,12 @@ def _write_meta(path: str, qat_epoch: int) -> None:
         json.dump({"qat_epoch": qat_epoch}, f)
 
 
-def train_pix2pix(cfg: GANConfig, logger, device):
+def train_pix2pix(cfg: GANConfig, logger, device, mesh: Optional[Mesh] = None):
     """FP32 warm-up, ``set_warmup(False)``, QAT; returns ``(g_state, d_state,
-    history)``."""
-    ds = _dataset(cfg)
+    history)``. Under a data-parallel ``mesh`` this rank trains on its rows
+    and only rank 0 writes."""
+    ds = rank_rows(_dataset(cfg), mesh)
+    primary = multihost.is_primary()
     in_nc, out_nc = (1, 2) if cfg.dataset == "colorization" else (3, 3)
     net_g = define_g(output_nc=out_nc, ngf=cfg.ngf, netG=cfg.netG, quantized=True,
                      input_nc=in_nc)
@@ -187,15 +198,18 @@ def train_pix2pix(cfg: GANConfig, logger, device):
         resumed, start_epoch = True, _read_meta(meta_path)
         logger.info(f"continue_train: restored latest_G/latest_D from {cfg.save_dir} "
                     f"(qat epoch {start_epoch})")
+    replicated(mesh, g_state.model, d_state.model)
     history = []
 
     def save(qat_epoch):
+        if not primary:
+            return
         save_checkpoint(os.path.join(cfg.save_dir, "latest_G"), g_state)
         save_checkpoint(os.path.join(cfg.save_dir, "latest_D"), d_state)
         _write_meta(meta_path, qat_epoch)
 
     def run_phase(mode, epochs, tag, start=0):
-        d_step, g_step = make_pix2pix_steps(mode, cfg.gan_mode, cfg.lambda_l1)
+        d_step, g_step = make_pix2pix_steps(mode, cfg.gan_mode, cfg.lambda_l1, mesh)
         for epoch in range(start, epochs):
             rows, n_images, step_ms = [], 0, []
             _sync(device)
@@ -209,7 +223,8 @@ def train_pix2pix(cfg: GANConfig, logger, device):
                 step_ms.append((now - last) * 1e3)
                 last = now
             _sync(device)
-            rec = _epoch_record(tag, epoch, rows, n_images, time.perf_counter() - t0, step_ms)
+            rec = _epoch_record(tag, epoch, rows, n_images * _replicas(mesh),
+                                time.perf_counter() - t0, step_ms)
             history.append(rec)
             logger.info(f"[{tag} {epoch}] {rec['last']} {rec['images_per_sec']:.2f} images/s")
             if tag == "qat" and cfg.save_epoch_freq > 0 and (epoch + 1) % cfg.save_epoch_freq == 0:
@@ -223,10 +238,13 @@ def train_pix2pix(cfg: GANConfig, logger, device):
     return g_state, d_state, history
 
 
-def train_cyclegan(cfg: GANConfig, logger, device):
+def train_cyclegan(cfg: GANConfig, logger, device, mesh: Optional[Mesh] = None):
     """FP32 warm-up, ``set_warmup(False)`` on the joint optimizer, QAT;
-    returns ``((gA, gB), (dA, dB), joint_optimizer, history)``."""
-    ds = _dataset(cfg)
+    returns ``((gA, gB), (dA, dB), joint_optimizer, history)``. Under a
+    data-parallel ``mesh`` this rank trains on its rows, the pools take the
+    global batch's fakes, and only rank 0 writes."""
+    ds = rank_rows(_dataset(cfg), mesh)
+    primary = multihost.is_primary()
     nets = (define_g(ngf=cfg.ngf, netG=cfg.netG, quantized=True),
             define_g(ngf=cfg.ngf, netG=cfg.netG, quantized=True),
             define_d(ndf=cfg.ndf, netD=cfg.netD, n_layers=cfg.n_layers_d,
@@ -252,23 +270,26 @@ def train_cyclegan(cfg: GANConfig, logger, device):
         resumed, start_epoch = True, _read_meta(meta_path)
         logger.info(f"continue_train: restored all four nets and the joint G optimizer from "
                     f"{cfg.save_dir} (qat epoch {start_epoch})")
+    replicated(mesh, gA.model, gB.model, dA.model, dB.model)
     history = []
 
     def save(qat_epoch):
+        if not primary:
+            return
         _save_cyclegan(cfg.save_dir, gA, gB, dA, dB, joint)
         _write_meta(meta_path, qat_epoch)
 
     def run_phase(mode, epochs, tag, start=0):
         g_step, d_step = make_cyclegan_steps(mode, cfg.gan_mode, cfg.lambda_a, cfg.lambda_b,
-                                             cfg.lambda_idt)
+                                             cfg.lambda_idt, mesh)
         for epoch in range(start, epochs):
             rows, n_images, step_ms = [], 0, []
             _sync(device)
             t0 = last = time.perf_counter()
             for batch in _iterations(ds, cfg):
                 fake_a, fake_b, mg = g_step(gA, gB, dA, dB, batch, joint)
-                fb = pool_b.query(fake_b.cpu().numpy())
-                fa = pool_a.query(fake_a.cpu().numpy())
+                fb = pooled(pool_b, fake_b, mesh)
+                fa = pooled(pool_a, fake_a, mesh)
                 loss_da = d_step(dA, batch["B"], fb)
                 loss_db = d_step(dB, batch["A"], fa)
                 rows.append({**mg, "loss_D_A": loss_da, "loss_D_B": loss_db})
@@ -277,7 +298,8 @@ def train_cyclegan(cfg: GANConfig, logger, device):
                 step_ms.append((now - last) * 1e3)
                 last = now
             _sync(device)
-            rec = _epoch_record(tag, epoch, rows, n_images, time.perf_counter() - t0, step_ms)
+            rec = _epoch_record(tag, epoch, rows, n_images * _replicas(mesh),
+                                time.perf_counter() - t0, step_ms)
             history.append(rec)
             logger.info(f"[{tag} {epoch}] {rec['last']} {rec['images_per_sec']:.2f} images/s")
             if tag == "qat" and cfg.save_epoch_freq > 0 and (epoch + 1) % cfg.save_epoch_freq == 0:
@@ -291,6 +313,29 @@ def train_cyclegan(cfg: GANConfig, logger, device):
     return (gA, gB), (dA, dB), joint, history
 
 
+def pooled(pool: ImagePool, fakes: torch.Tensor, mesh: Optional[Mesh] = None):
+    """The pool's answer for this rank's rows of ``fakes``. Under a
+    data-parallel mesh every rank gathers the global batch's fakes, queries
+    its copy of the pool on them (the copies draw alike: one seed, the same
+    images in the same order) and keeps its rows: the one pool of JAX's
+    host loop."""
+    if mesh is None or not mesh.distributed:
+        return pool.query(fakes.cpu().numpy())
+    out = pool.query(mesh.dp_gather(fakes).cpu().numpy())
+    return out[shard_rows(out.shape[0], mesh.dp, mesh.dp_index)]
+
+
+def replicated(mesh: Optional[Mesh], *models) -> None:
+    """Rank 0's parameters and buffers of ``models`` on every rank."""
+    if mesh is not None:
+        for m in models:
+            replicate(m, mesh)
+
+
+def _replicas(mesh: Optional[Mesh]) -> int:
+    return mesh.dp if mesh is not None and mesh.distributed else 1
+
+
 def _save_cyclegan(save_dir, gA, gB, dA, dB, joint) -> None:
     """All four nets and the joint generator optimizer."""
     for name, st in (("latest_G_A", gA), ("latest_G_B", gB), ("latest_D_A", dA),
@@ -302,16 +347,25 @@ def _save_cyclegan(save_dir, gA, gB, dA, dB, joint) -> None:
 def main(cfg: GANConfig):
     """Train; returns ``(generator states, discriminator states, results)``
     with each epoch's per-iteration losses, images/s and step times in
-    ``results["history"]``."""
-    device = resolve_device(cfg.device)
+    ``results["history"]``. A rank beyond the data-parallel mesh returns
+    ``((), (), {"history": [], "idle": True})`` at the run's end."""
+    multihost.initialize(cfg.device)  # torchrun's ranks; a no-op in one process
+    mesh = make_dp_mesh(cfg.batch_size)  # JAX's mesh: the largest divisor that fits
+    if not mesh.member:
+        multihost.wait_for_end(mesh)
+        return (), (), {"history": [], "idle": True}
+    device = resolve_device(multihost.local_device(cfg.device))
+    primary = multihost.is_primary()
     os.makedirs(cfg.save_dir, exist_ok=True)
-    logger = MetricLogger(cfg.save_dir, name="gan")
+    logger = (MetricLogger(cfg.save_dir, name="gan") if primary
+              else MetricLogger(None, name="gan", echo=False))
     logger.info(f"config: {dataclasses.asdict(cfg)}")
+    logger.info(f"mesh {mesh.shape}, device {device}")
     if cfg.model == "pix2pix":
-        g, d, history = train_pix2pix(cfg, logger, device)
+        g, d, history = train_pix2pix(cfg, logger, device, mesh)
         gs, ds = (g,), (d,)
     elif cfg.model == "cycle_gan":
-        gs, ds, _, history = train_cyclegan(cfg, logger, device)
+        gs, ds, _, history = train_cyclegan(cfg, logger, device, mesh)
     else:
         raise ValueError(f"unknown model {cfg.model!r}")
     for rec in history:
@@ -319,6 +373,7 @@ def main(cfg: GANConfig):
                            step=rec["epoch"])
     logger.info("done")
     logger.close()
+    multihost.wait_for_end(mesh)
     return gs, ds, {"history": history}
 
 

@@ -82,6 +82,15 @@ FROSTNET_SETTINGS = {
         [(5, 192, 6, 4, 2), (5, 192, 6, 4, 1), (5, 192, 6, 4, 1)],
         [(5, 320, 6, 2, 1)],
     ),
+    # not a published variant: the JAX package's five-block table for quick
+    # tests (its tensor-parallel check runs it)
+    "tiny": (
+        [(3, 16, 1, 1, 1)],
+        [(5, 24, 3, 4, 2)],
+        [(5, 40, 3, 4, 2)],
+        [(5, 96, 3, 2, 2)],
+        [(5, 160, 6, 2, 1)],
+    ),
 }
 
 
@@ -297,23 +306,31 @@ class FrostNet(nn.Module):
         x = self.last_layer(x, mode, train)
         x = global_avg_pool(x, keepdims=True)
         if train and self.drop_rate > 0 and not mode.int8:
-            x = dropout(x, self.drop_rate, generator)
+            mp = self.last_layer.mp_layer
+            x = dropout(x, self.drop_rate, generator, mp[0] if mp and mp[1] == 3 else None)
         x = dequant(self.classifier(x, mode, train))
         return x.reshape(x.shape[0], x.shape[-1])
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            mp_mesh=None) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - rate``, scale kept values
     by ``1 / (1 - rate)``; the mask draws from ``generator``. Under a
     data-parallel mesh the mask is drawn for the global batch and this
-    rank's rows kept: the one-process step's mask."""
+    rank's rows kept: the one-process step's mask. ``mp_mesh``: ``x``'s
+    channels are this rank's block over that mesh's ``mp`` (the mask drawn
+    for every channel, the block kept)."""
     keep = 1.0 - rate
     mesh = active_mesh()
-    if mesh is None:
-        mask = torch.empty(x.shape, device=x.device).bernoulli_(keep, generator=generator)
-    else:
-        rows = x.shape[0]
-        mask = torch.empty((rows * mesh.dp,) + tuple(x.shape[1:]), device=x.device).bernoulli_(
-            keep, generator=generator)[mesh.rank * rows:(mesh.rank + 1) * rows]
+    shape, rows, chans = list(x.shape), slice(None), slice(None)
+    if mesh is not None and mesh.distributed:
+        rows = slice(mesh.dp_index * x.shape[0], (mesh.dp_index + 1) * x.shape[0])
+        shape[0] *= mesh.dp
+    if mp_mesh is not None and mp_mesh.mp > 1:
+        start, n = mp_mesh.mp_block(x.shape[-1] * mp_mesh.mp)
+        chans = slice(start, start + n)
+        shape[-1] *= mp_mesh.mp
+    mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+    mask = mask[rows][..., chans]
     return torch.where(mask.bool(), x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))

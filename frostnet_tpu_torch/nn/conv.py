@@ -37,22 +37,27 @@ weight observer's grid (``fold_bn`` -> ``calculate_qparams_folded`` ->
 and the packed operands, all on the target device. The INT8 forward then
 takes one of five routes:
 
-* 1x1: one INT8 matmul (``ops/int8_matmul``);
-* depthwise kxk, dilated or not (the segmentation trunks' last stage runs
-  dilation 2), with or without a channel multiplier (the SSD extras' 3x3
-  maps 32 -> 128 channels, output channel ``oc`` reading input ``oc // 4``):
-  k*k shifted integer multiply-adds in torch over (k*k, Cout) taps, tap
-  ``(dy, dx)`` at ``dilation * (dy, dx)`` (JAX runs the same multiply-adds as
-  XLA code, not a TPU kernel);
+* 1x1: one INT8 matmul (``ops/int8_matmul``); a padded 1x1 pads the codes
+  with the input's zero point first, then takes the strided slice, as JAX
+  does;
+* depthwise kh x kw, dilated or not (the segmentation trunks' last stage
+  runs dilation 2), with or without a channel multiplier (the SSD extras'
+  3x3 maps 32 -> 128 channels, output channel ``oc`` reading input
+  ``oc // 4``), at any kernel shape and padding: kh*kw shifted integer
+  multiply-adds in torch over (kh*kw, Cout) taps, tap ``(dy, dx)`` at
+  ``dilation * (dy, dx)`` of the zero-point-padded codes (JAX runs the same
+  multiply-adds as XLA code, not a TPU kernel);
 * dense 3x3 stride 1 dilation 1 with 'same' padding (the GAN's ResnetBlock
   and up convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
 * any other dense kxk (the stems, strided convs, R-ASPP's atrous 3x3s):
   zero-point-padded im2col patches (dilated taps where the conv is) and one
   INT8 matmul, whatever K the patches have;
-* grouped kxk (ResNeXt's ``groups=32`` 3x3s): the exact int32 sum of a
-  float64 grouped conv in torch (``ops/requant.py::conv_acc``; JAX
-  runs it as an s32 ``lax.conv``, XLA code, not a TPU kernel), then the
-  shared epilogue. Padded 1x1 convs and dilated grouped convs are refused.
+* grouped kxk, dilated or not (ResNeXt's ``groups=32`` 3x3s): the exact
+  int32 sum of a float64 grouped conv in torch (``ops/requant.py::conv_acc``;
+  JAX runs it as an s32 ``lax.conv`` with ``rhs_dilation``, XLA code, not a
+  TPU kernel), then the shared epilogue.
+
+``padding`` is an int or an (h, w) pair, on both sides of each axis.
 
 Every route takes ``relu6`` as a narrower clamp of the codes. The frozen
 epilogue computes ``quantize(clip(y, 0, 6))``; quantize is monotone, so that
@@ -62,7 +67,10 @@ equals ``clamp(rint(y * f32(1/s)) + zp, max(qmin, zp), min(qmax, q6))`` with
 
 Under a data-parallel mesh (``parallel.data_parallel``) the train-mode BN
 takes the global batch's statistics, as JAX's dp step does:
-:class:`GlobalBatchNorm`.
+:class:`GlobalBatchNorm`. Under tensor parallelism
+(``parallel.shard_params_for_mp``, :meth:`QConvBNAct.shard_for_mp`) a layer
+holds its block of the kernel and computes the unsharded layer's function
+on it, as GSPMD does for JAX's sharded step.
 """
 from __future__ import annotations
 
@@ -72,16 +80,17 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
 from ..ops.requant import (conv_acc, depthwise_acc, epilogue_constants, reciprocal,
                            requant_epilogue)
-from ..parallel.mesh import Mesh, active_mesh
+from ..parallel.mesh import Mesh, active_mesh, mp_enter, mp_slice, mp_sum
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
 from .mode import FP32, QuantMode
-from .quant_ops import Observer, observed_fake_quant, observed_qparams
+from .quant_ops import Observer, ObserverBlock, observed_fake_quant, observed_qparams
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -120,7 +129,12 @@ class GlobalBatchNorm(torch.autograd.Function):
 
     torch's ``SyncBatchNorm`` takes another variance form and runs on CUDA
     only; DDP's default BN computes per-replica statistics, another
-    function."""
+    function.
+
+    The backward is once differentiable: a double backward through it (a
+    gradient penalty's ``create_graph``) raises. No trainer step takes one:
+    ``gan.networks.gradient_penalty`` is no part of the GAN steps, whose
+    ``wgangp`` loss is ``-+mean(pred)``."""
 
     @staticmethod
     def forward(ctx, y, gamma, beta, running_mean, running_var, momentum: float, eps: float,
@@ -141,6 +155,7 @@ class GlobalBatchNorm(torch.autograd.Function):
         return xhat * gamma + beta
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         xhat, inv, gamma = ctx.saved_tensors
         gx = g * gamma
@@ -157,7 +172,7 @@ class QConvBNAct(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Union[int, Sequence[int]] = 3, strides: int = 1,
-                 padding: int = 0, dilation: int = 1, groups: int = 1, use_bn: bool = True,
+                 padding: Union[int, Sequence[int]] = 0, dilation: int = 1, groups: int = 1, use_bn: bool = True,
                  use_bias: bool = False, act: Optional[str] = "relu",
                  quantized: bool = True, qconfig: QConfig = QNNPACK,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5,
@@ -169,7 +184,8 @@ class QConvBNAct(nn.Module):
                              f"{'quantized' if quantized else 'float'} block, got {act!r}")
         kh, kw = _pair(kernel_size)
         self.in_features, self.features = in_features, features
-        self.kernel_size, self.strides, self.padding = (kh, kw), strides, padding
+        self.kernel_size, self.strides = (kh, kw), strides
+        self.padding = padding if isinstance(padding, int) else tuple(padding)
         self.dilation = dilation
         self.groups, self.use_bn, self.use_bias, self.act = groups, use_bn, use_bias, act
         self.quantized = quantized
@@ -185,10 +201,80 @@ class QConvBNAct(nn.Module):
         if quantized:
             self.w_obs = Observer(features if qconfig.weight.per_channel else None)
             self.act_obs = Observer(None)
+        self.mp_layer: Optional[Tuple[Mesh, int]] = None  # (mesh, sharded HWIO axis)
 
     @property
     def depthwise(self) -> bool:
         return self.groups > 1 and self.groups == self.in_features
+
+    def shard_for_mp(self, mesh: Mesh, axis: int) -> None:
+        """Keep this rank's block of the kernel along ``axis`` (3: the
+        out-channels; 2: the in-channels; ``parallel.shard_params_for_mp``).
+        The forward then computes the layer's single-device function on
+        the blocks: out-channel sharding runs the rank's channels through
+        conv, BN (its block of the parameters and running statistics) and
+        activation, a depthwise slicing a replicated input; in-channel
+        sharding sums the partial conv outputs over ``mp`` before the bias
+        and BN. A per-tensor weight observer takes min and max over ``mp``;
+        a per-channel one (fbgemm) observes its block's channels under
+        out-channel sharding and reduces each channel over ``mp`` under
+        in-channel sharding. The kernel parameter keeps its full shape and
+        its block in ``mp_block`` (the optimizer's noise draws,
+        ``gather_mp``)."""
+        if self.groups > 1 and not (self.depthwise and self.features == self.in_features
+                                    and axis == 3):
+            raise ValueError(f"a grouped conv shards only as a depthwise by out-channel "
+                             f"(groups {self.groups}, axis {axis})")
+        k = self.kernel
+        start, n = mesh.mp_block(k.shape[axis])
+        k.mp_block = (tuple(k.shape), axis, start, n)
+        k.data = k.data.narrow(axis, start, n).clone()
+        self.mp_layer = (mesh, axis)
+
+    def _local_vars(self):
+        """(gamma, beta, bias, mean, var) of the forward: the layer's, or
+        under out-channel sharding this rank's blocks (the parameters through
+        ``mp_slice``, whose gradient sums over ``mp``; the statistics as
+        views, which BN steps in place)."""
+        bn = self.use_bn
+        gamma, beta = (self.scale, self.bias_bn) if bn else (None, None)
+        mean, var = (self.mean, self.var) if bn else (None, None)
+        bias = self.bias if self.use_bias else None
+        if self.mp_layer is None or self.mp_layer[1] != 3:
+            return gamma, beta, bias, mean, var
+        mesh = self.mp_layer[0]
+        start, n = mesh.mp_block(self.features)
+        if bias is not None:
+            bias = mp_slice(bias, 0, mesh)
+        if bn:
+            gamma, beta = mp_slice(gamma, 0, mesh), mp_slice(beta, 0, mesh)
+            mean, var = mean.narrow(0, start, n), var.narrow(0, start, n)
+        return gamma, beta, bias, mean, var
+
+    def _weight_observer(self):
+        """(the weight observer this rank steps, whether it reduces over
+        ``mp``): see :meth:`shard_for_mp`."""
+        if self.mp_layer is None:
+            return self.w_obs, False
+        mesh, axis = self.mp_layer
+        if self.qconfig.weight.per_channel and axis == 3:
+            return ObserverBlock(self.w_obs, *mesh.mp_block(self.features)), False
+        return self.w_obs, True
+
+    @torch.no_grad()
+    def sync_mp_statistics(self) -> None:
+        """Every rank's running statistics (and per-channel weight
+        observer) whole: the ``mp`` ranks' blocks gathered (out-channel
+        sharding steps only the rank's own)."""
+        if self.mp_layer is None or self.mp_layer[1] != 3:
+            return
+        mesh = self.mp_layer[0]
+        start, n = mesh.mp_block(self.features)
+        stats = [self.mean, self.var] if self.use_bn else []
+        if self.quantized and self.qconfig.weight.per_channel:
+            stats += [self.w_obs.min_val, self.w_obs.max_val]
+        for t in stats:
+            t.copy_(mesh.mp_gather(t.narrow(0, start, n), 0))
 
     def int8_params(self):
         """(qw, w_scale, bias, out_scale, out_zp) on the CPU: the frozen INT8
@@ -220,6 +306,9 @@ class QConvBNAct(nn.Module):
 
     def prepare_int8(self, x: QParams, device) -> QParams:
         """Freeze the conv for inputs on grid ``x``; returns the output grid."""
+        if self.mp_layer is not None and tuple(self.kernel.shape) != self.kernel.mp_block[0]:
+            raise RuntimeError("an mp-sharded layer freezes from its full kernel: inside "
+                               "parallel.gather_mp")
         qw, w_scale, bf, out_s, out_zp = self.int8_params()
         comb = torch.tensor(x.scale, dtype=torch.float32) * w_scale
         relu = self.act in ("relu", "relu6")
@@ -227,21 +316,17 @@ class QConvBNAct(nn.Module):
         kh, kw = self.kernel_size
         self._in, self._out = x, QParams(out_s, out_zp)
         self._out_t = self._out.tensors(device)
+        ph, pw = _pair(self.padding)
         if kh == 1 and kw == 1 and self.groups == 1:
-            if self.padding:
-                raise ValueError("padded 1x1 convs are not part of the INT8 port")
             self._route = "matmul"
             self._op = conv1x1_operands(qw[0, 0], comb, bf, x.zero_point, out_s, out_zp,
                                         relu, qmin, qmax, device)
         elif self.depthwise:  # channel multiplier features // groups, 1 or more
-            if kh != kw or self.padding != self.dilation * (kh - 1) // 2:
-                raise ValueError("the INT8 depthwise route takes square kernels with "
-                                 "'same' padding (dilation * (k - 1) // 2)")
             self._route = "depthwise"
             self._taps = qw.reshape(kh * kw, self.features).to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
             self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
-        elif ((kh, kw) == (3, 3) and self.strides == 1 and self.padding == 1
+        elif ((kh, kw) == (3, 3) and self.strides == 1 and (ph, pw) == (1, 1)
               and self.dilation == 1 and self.groups == 1):
             self._route = "dense3x3"
             self._op = conv3x3_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
@@ -251,14 +336,11 @@ class QConvBNAct(nn.Module):
             self._op = conv1x1_operands(qw.reshape(kh * kw * self.in_features, self.features),
                                         comb, bf, x.zero_point, out_s, out_zp, relu,
                                         qmin, qmax, device)
-        elif self.dilation == 1:
+        else:
             self._route = "grouped"
             self._w64 = qw.to(torch.float64).permute(3, 2, 0, 1).contiguous().to(device)
             scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
             self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
-        else:
-            raise ValueError(f"a dilated grouped conv ({self.in_features} -> {self.features}, "
-                             f"groups {self.groups}) is not part of the INT8 port")
         return self._out
 
     def _patches(self, q: torch.Tensor) -> torch.Tensor:
@@ -267,9 +349,8 @@ class QConvBNAct(nn.Module):
         corner), then zero columns up to a multiple of 16: the matmul kernel
         reads 16-byte aligned rows, and the packed weight is zero there."""
         kh, kw = self.kernel_size
-        s, p, d = self.strides, self.padding, self.dilation
-        if p:
-            q = torch.nn.functional.pad(q, (0, 0, p, p, p, p), value=self._in.zero_point)
+        s, d = self.strides, self.dilation
+        q = self._zp_padded(q)
         hp, wp = q.shape[1], q.shape[2]
         ho, wo = (hp - d * (kh - 1) - 1) // s + 1, (wp - d * (kw - 1) - 1) // s + 1
         cols = [q[:, d * dy:d * dy + (ho - 1) * s + 1:s, d * dx:d * dx + (wo - 1) * s + 1:s, :]
@@ -280,14 +361,20 @@ class QConvBNAct(nn.Module):
         return torch.cat(cols, dim=-1)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """NHWC ``x`` (*) HWIO ``w`` -> NHWC, in the compute dtype."""
+        """NHWC ``x`` (*) HWIO ``w`` -> NHWC, in the compute dtype; under
+        in-channel sharding the partial outputs summed over ``mp``."""
+        groups = self.groups
+        if self.mp_layer is not None and self.depthwise:
+            groups //= self.mp_layer[0].mp
         xt = x.to(self.dtype).permute(0, 3, 1, 2)
         wt = w.to(self.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         with _full_f32(xt, not self.quantized):
-            y = F.conv2d(xt, wt, None, self.strides, self.padding, self.dilation, self.groups)
-        return y.permute(0, 2, 3, 1)
+            y = F.conv2d(xt, wt, None, self.strides, self.padding, self.dilation, groups)
+        y = y.permute(0, 2, 3, 1)
+        return mp_sum(y, self.mp_layer[0]) if self.mp_layer and self.mp_layer[1] == 2 else y
 
-    def _batch_norm(self, y: torch.Tensor, train: bool) -> torch.Tensor:
+    def _batch_norm(self, y: torch.Tensor, train: bool, gamma=None, beta=None, mean=None,
+                    var=None) -> torch.Tensor:
         """BN over NHWC ``y`` in float32; in train mode it normalizes with the
         batch statistics and steps the running ones once. One value per
         channel (the ESPNetv2 classifier's reinforcement call on a 1x1 zeros
@@ -295,47 +382,56 @@ class QConvBNAct(nn.Module):
         ``bias_bn`` and steps the statistics as JAX does: the mean toward
         that value, the variance toward 0 (``n / max(n - 1, 1)`` is 1).
         Under a data-parallel mesh the statistics are the global batch's
-        (:class:`GlobalBatchNorm`)."""
+        (:class:`GlobalBatchNorm`). ``gamma`` .. ``var`` default to the
+        layer's (a sharded layer passes its blocks)."""
+        if gamma is None:
+            gamma, beta, mean, var = self.scale, self.bias_bn, self.mean, self.var
         mesh = active_mesh() if train else None
-        if mesh is not None:
-            return GlobalBatchNorm.apply(y.to(torch.float32), self.scale, self.bias_bn,
-                                         self.mean, self.var, self.bn_momentum, self.bn_eps,
-                                         mesh)
+        if mesh is not None and mesh.distributed:
+            return GlobalBatchNorm.apply(y.to(torch.float32), gamma, beta, mean, var,
+                                         self.bn_momentum, self.bn_eps, mesh)
         if train and y.numel() == y.shape[-1]:
             y = y.to(torch.float32)
             bmean = y.reshape(-1)
             with torch.no_grad():
                 m = self.bn_momentum
-                self.mean.mul_(1 - m).add_(m * bmean.detach())
-                self.var.mul_(1 - m)
+                mean.mul_(1 - m).add_(m * bmean.detach())
+                var.mul_(1 - m)
             inv = torch.rsqrt(torch.full_like(bmean, self.bn_eps))
-            return ((y - bmean) * inv * self.scale + self.bias_bn).reshape(y.shape)
-        y = F.batch_norm(y.to(torch.float32).permute(0, 3, 1, 2), self.mean, self.var,
-                         self.scale, self.bias_bn, training=train,
+            return ((y - bmean) * inv * gamma + beta).reshape(y.shape)
+        y = F.batch_norm(y.to(torch.float32).permute(0, 3, 1, 2), mean, var,
+                         gamma, beta, training=train,
                          momentum=self.bn_momentum, eps=self.bn_eps)
         return y.permute(0, 2, 3, 1)
 
     def _float_forward(self, x: torch.Tensor, mode: QuantMode, train: bool) -> torch.Tensor:
         wspec, aspec = self.qconfig.weight, self.qconfig.activation
         w_axis = -1 if wspec.per_channel else None
-        bias = self.bias if self.use_bias else None
+        gamma, beta, bias, mean, var = self._local_vars()
         q_on = self.quantized and (mode.fake_quant or mode.observe)
+        sharded = self.mp_layer is not None
+        if sharded:
+            x = self._mp_input(x, mode)
+        w_obs, w_mp = self._weight_observer() if self.quantized else (None, False)
         if q_on and self.use_bn and train:
-            sf = bn_scale_factor(self.scale, self.var, self.bn_eps)
-            w_q = observed_fake_quant(self.kernel * sf, self.w_obs, wspec, mode, w_axis,
-                                      replicated=True)
+            sf = bn_scale_factor(gamma, var, self.bn_eps)
+            w_q = observed_fake_quant(self.kernel * self._mp_weight_side(sf), w_obs, wspec,
+                                      mode, w_axis, replicated=True, mp_sharded=w_mp)
             y = self._conv(x, w_q) / sf
             if bias is not None:
                 y = y + bias
-            y = self._batch_norm(y, True)
+            y = self._batch_norm(y, True, gamma, beta, mean, var)
         elif q_on and self.use_bn:
-            wf, bf = fold_bn(self.kernel, bias, self.scale, self.bias_bn, self.mean, self.var,
-                             self.bn_eps)
-            w_q = observed_fake_quant(wf, self.w_obs, wspec, mode, w_axis, replicated=True)
+            wf, bf = fold_bn(self.kernel, bias, gamma, beta, mean, var, self.bn_eps)
+            if sharded and self.mp_layer[1] == 2:
+                wf = fold_bn(self.kernel, bias, self._mp_weight_side(gamma), beta, mean, var,
+                             self.bn_eps)[0]
+            w_q = observed_fake_quant(wf, w_obs, wspec, mode, w_axis, replicated=True,
+                                      mp_sharded=w_mp)
             y = self._conv(x, w_q) + bf
         elif q_on:  # quantized conv without BN (the classifier)
-            w_q = observed_fake_quant(self.kernel, self.w_obs, wspec, mode, w_axis,
-                                      replicated=True)
+            w_q = observed_fake_quant(self.kernel, w_obs, wspec, mode, w_axis,
+                                      replicated=True, mp_sharded=w_mp)
             y = self._conv(x, w_q)
             if bias is not None:
                 y = y + bias
@@ -344,7 +440,7 @@ class QConvBNAct(nn.Module):
             if bias is not None:
                 y = y + bias
             if self.use_bn:
-                y = self._batch_norm(y, train)
+                y = self._batch_norm(y, train, gamma, beta, mean, var)
         if self.act == "relu":
             y = F.relu(y)
         elif self.act == "relu6":
@@ -355,6 +451,30 @@ class QConvBNAct(nn.Module):
             y = observed_fake_quant(y, self.act_obs, aspec, mode)
         return y.to(self.dtype)
 
+    def _mp_weight_side(self, t: torch.Tensor) -> torch.Tensor:
+        """A replicated per-out-channel factor of the weight: under
+        in-channel sharding each rank's weight block gives it part of its
+        gradient, summed over ``mp`` (``mp_enter``)."""
+        if self.mp_layer is None or self.mp_layer[1] != 2:
+            return t
+        return mp_enter(t, self.mp_layer[0])
+
+    def _mp_input(self, x: torch.Tensor, mode: QuantMode) -> torch.Tensor:
+        """The input of a sharded layer: a replicated map entering an
+        out-channel-sharded dense conv (its gradient summed over ``mp``), the
+        rank's channels of a replicated map entering a sharded depthwise;
+        a map already sharded (the depthwise after a sharded expand, the
+        in-channel-sharded consumer) as it is."""
+        mesh, axis = self.mp_layer
+        if mode.observe and active_mesh() is None:
+            raise RuntimeError("an mp-sharded layer observes only inside "
+                               "parallel.data_parallel(mesh)")
+        if axis != 3:
+            return x
+        if not self.depthwise:
+            return mp_enter(x, mesh)
+        return mp_slice(x, -1, mesh) if x.shape[-1] == self.in_features else x
+
     def forward(self, x, mode: QuantMode = FP32, train: bool = False):
         """NHWC float ``x`` in FP32/QAT/QAT_FROZEN and into a float block; a
         QTensor into a quantized block in INT8 (frozen)."""
@@ -362,11 +482,11 @@ class QConvBNAct(nn.Module):
             return self._float_forward(x, mode, train)
         if self._route in ("depthwise", "grouped"):
             if self._route == "depthwise":
-                acc = depthwise_acc(x.q, self._taps, self.kernel_size[0], self.strides,
-                                    self._in.zero_point, self.dilation)
+                acc = depthwise_acc(x.q, self._taps, self.kernel_size, self.strides,
+                                    self._in.zero_point, self.dilation, _pair(self.padding))
             else:
                 acc = conv_acc(x.q, self._w64, self._in.zero_point, self.strides,
-                               self.padding, self.groups)
+                               _pair(self.padding), self.groups, self.dilation)
             scale, bias, mult, qmin, qmax = self._epilogue
             q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
                                  self.act in ("relu", "relu6"), qmin, qmax)
@@ -377,10 +497,19 @@ class QConvBNAct(nn.Module):
         q = int8_matmul_requant(a.reshape(-1, a.shape[-1]), self._op).reshape(a.shape[:3] + (self.features,))
         return QTensor(q, *self._out_t)
 
+    def _zp_padded(self, q: torch.Tensor) -> torch.Tensor:
+        """The codes padded by ``padding`` with the input's zero point."""
+        ph, pw = _pair(self.padding)
+        if not (ph or pw):
+            return q
+        return torch.nn.functional.pad(q, (0, 0, pw, pw, ph, ph), value=self._in.zero_point)
+
     def matmul_input(self, q: torch.Tensor) -> torch.Tensor:
         """The (B, Ho, Wo, K') matmul operand of the 1x1 and im2col routes:
-        K' is the conv's K on the 1x1 route; the im2col route pads it with
-        zero columns to a multiple of 16 (``_patches``)."""
+        K' is the conv's K on the 1x1 route (the codes zero-point-padded,
+        then strided); the im2col route pads it with zero columns to a
+        multiple of 16 (``_patches``)."""
         if self._route == "matmul":
+            q = self._zp_padded(q)
             return q[:, ::self.strides, ::self.strides, :] if self.strides != 1 else q
         return self._patches(q)

@@ -54,6 +54,18 @@ class Observer(nn.Module):
         return ObserverState(self.min_val, self.max_val)
 
 
+class ObserverBlock:
+    """Channels ``[start, start + n)`` of a per-channel :class:`Observer`, as
+    views (the observer of an out-channel-sharded weight's block)."""
+
+    def __init__(self, obs: Observer, start: int, n: int):
+        self.min_val = obs.min_val.narrow(0, start, n)
+        self.max_val = obs.max_val.narrow(0, start, n)
+
+    def live(self) -> ObserverState:
+        return ObserverState(self.min_val, self.max_val)
+
+
 def observed_qparams(obs: Observer, spec) -> QParams:
     """The frozen grid of an observer (``freeze``'s folded qparams)."""
     scale, zp = calculate_qparams_folded(obs.state(), spec)
@@ -62,7 +74,7 @@ def observed_qparams(obs: Observer, spec) -> QParams:
 
 def observed_fake_quant(x: torch.Tensor, obs: Observer, spec: QSpec, mode: QuantMode,
                         channel_axis: Optional[int] = None,
-                        replicated: bool = False) -> torch.Tensor:
+                        replicated: bool = False, mp_sharded: bool = False) -> torch.Tensor:
     """Observe ``x`` (``mode.observe``) and fake-quantize it (``mode.fake_quant``).
 
     The JAX package's ``apply_observer``: the state steps first, in place and
@@ -70,12 +82,15 @@ def observed_fake_quant(x: torch.Tensor, obs: Observer, spec: QSpec, mode: Quant
     per-tensor site runs the ``ops.fake_quant`` kernel on the GPU; a
     per-channel site (fbgemm weights) runs torch ops.
 
-    Under a data-parallel mesh (``parallel.data_parallel``) an observing
-    site takes the global batch's min and max, as JAX's observer sees the
-    global tensor: one all-reduce. ``replicated`` sites (the weights, the
-    same on every rank) skip it.
+    Under a mesh (``parallel.data_parallel``) an observing site takes the
+    min and max of the global tensor, as JAX's observer sees it: one
+    all-reduce over every rank of the mesh (rows over ``dp``, channels over
+    ``mp``). ``replicated`` sites (the weights, the same on every rank) skip
+    it; a ``mp_sharded`` weight reduces over its ``mp`` blocks.
     """
-    mesh = active_mesh() if mode.observe and not replicated else None
+    mesh = active_mesh() if mode.observe else None
+    if mesh is not None:
+        mesh = (mesh.mp_ranks() if mp_sharded else None) if replicated else mesh.observer_ranks()
     if channel_axis is None and mode.fake_quant:
         return ObservedFakeQuant.apply(x, obs, spec, mode.observe, mesh)
     if mode.observe:

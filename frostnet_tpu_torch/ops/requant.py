@@ -153,52 +153,55 @@ def qadd_codes(qa: torch.Tensor, za: int, sa: float, qb: torch.Tensor, zb: int,
     return torch.clamp(torch.round(y) + float(z_out), qmin, qmax).to(torch.uint8)
 
 
-def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel: int, stride: int,
-                  zp: int, dilation: int = 1) -> torch.Tensor:
+def depthwise_acc(x: torch.Tensor, w: torch.Tensor, kernel, stride: int,
+                  zp: int, dilation: int = 1, padding=None) -> torch.Tensor:
     """int32 depthwise conv of uint8 NHWC codes around their zero point.
 
-    ``w`` is (k*k, Cout) int8 taps in (dy, dx) order; tap ``(dy, dx)`` reads
-    the input ``dilation * (dy, dx)`` from the window's corner, and the
-    padding is ``dilation * (k - 1) // 2`` ('same'). Out-of-image taps read
-    the zero point (qnnpack pad semantics), so they contribute exactly 0:
-    ``acc = sum (x - zp) * w``, the same integer as the JAX package's
-    zero-point-shifted form. With a channel multiplier (``Cout = m * C``, the
-    SSD extras' 32 -> 128) output channel ``oc`` reads input channel
-    ``oc // m``, as the JAX package repeats each input channel ``m`` times
-    (lax's group-major order).
+    ``w`` is (kh*kw, Cout) int8 taps in (dy, dx) order (``kernel`` an int
+    or a (kh, kw) pair); tap ``(dy, dx)`` reads the input ``dilation * (dy,
+    dx)`` from the window's corner, and the padding is ``padding`` (an
+    (h, w) pair) or, when None, ``dilation * (k - 1) // 2`` ('same').
+    Out-of-image taps read the zero point (qnnpack pad semantics), so they
+    contribute exactly 0: ``acc = sum (x - zp) * w``, the same integer as
+    the JAX package's zero-point-shifted form. With a channel multiplier
+    (``Cout = m * C``, the SSD extras' 32 -> 128) output channel ``oc``
+    reads input channel ``oc // m``, as the JAX package repeats each input
+    channel ``m`` times (lax's group-major order).
 
     Under ``torch.export`` the same integers come from one grouped float64
     conv (:func:`conv_acc`): a node where the loop over taps makes about
     five a tap, which the export and the program's load pay for.
     """
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else tuple(kernel)
     d = dilation
-    p = d * (kernel - 1) // 2
+    ph, pw = ((d * (kh - 1) // 2, d * (kw - 1) // 2) if padding is None else tuple(padding))
     b, h, w_sp, c = x.shape
     mult = w.shape[1] // c
     if cuda_build.traced(x):
-        wc = w.to(torch.float64).t().reshape(c * mult, 1, kernel, kernel)
-        return conv_acc(x, wc, zp, stride, p, groups=c, dilation=d)
+        wc = w.to(torch.float64).t().reshape(c * mult, 1, kh, kw)
+        return conv_acc(x, wc, zp, stride, (ph, pw), groups=c, dilation=d)
     xi = x.to(torch.int32) - zp
-    xi = torch.nn.functional.pad(xi, (0, 0, p, p, p, p))
-    ho = (h + 2 * p - d * (kernel - 1) - 1) // stride + 1
-    wo = (w_sp + 2 * p - d * (kernel - 1) - 1) // stride + 1
+    xi = torch.nn.functional.pad(xi, (0, 0, pw, pw, ph, ph))
+    ho = (h + 2 * ph - d * (kh - 1) - 1) // stride + 1
+    wo = (w_sp + 2 * pw - d * (kw - 1) - 1) // stride + 1
     acc = torch.zeros((b, ho, wo, c * mult), dtype=torch.int32, device=x.device)
     wi = w.to(torch.int32)
-    for dy in range(kernel):
-        for dx in range(kernel):
+    for dy in range(kh):
+        for dx in range(kw):
             sl = xi[:, d * dy:d * dy + (ho - 1) * stride + 1:stride,
                     d * dx:d * dx + (wo - 1) * stride + 1:stride, :]
             if mult > 1:
                 sl = sl.repeat_interleave(mult, dim=3)
-            acc += sl * wi[dy * kernel + dx]
+            acc += sl * wi[dy * kw + dx]
     return acc
 
 
-def conv_acc(x: torch.Tensor, w: torch.Tensor, zp: int, stride: int = 1, padding: int = 1,
+def conv_acc(x: torch.Tensor, w: torch.Tensor, zp: int, stride: int = 1, padding=1,
              groups: int = 1, dilation: int = 1) -> torch.Tensor:
     """The int32 sum of a conv of uint8 NHWC codes around their zero point.
 
-    ``w`` is the (Cout, Cin / groups, kh, kw) weight as float64. The JAX
+    ``w`` is the (Cout, Cin / groups, kh, kw) weight as float64, ``padding``
+    an int or an (h, w) pair (``dilation`` the taps' spacing). The JAX
     package computes this sum as an s32 ``lax.conv`` (``feature_group_count``
     ``groups``) over zero-point-padded codes; here it is a float64 conv of
     ``x - zp`` with zero padding, the same integer. Every product and

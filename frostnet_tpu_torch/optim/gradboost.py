@@ -264,14 +264,19 @@ class _Chain(torch.optim.Optimizer):
         self.seed, self.noise_draws, self.generator = seed, noise_draws, None
 
     def _draws(self, params):
-        """``|Laplace(0, 1)|`` magnitudes and fair coins for ``params``."""
+        """``|Laplace(0, 1)|`` magnitudes and fair coins for ``params``. A
+        tensor-parallel block (``mp_block``, ``parallel.shard_params_for_mp``)
+        draws its full parameter's values, in the same order on every rank,
+        and keeps its block: the draws of the unsharded step."""
         if self.noise_draws is not None:
             return self.noise_draws(params)
         if self.generator is None:
             self.generator = torch.Generator(device=params[0].device)
             self.generator.manual_seed(self.seed)
-        lap = [torch.empty_like(p).exponential_(1.0, generator=self.generator) for p in params]
-        coin = [torch.empty_like(p).bernoulli_(0.5, generator=self.generator) for p in params]
+        lap = [_block(torch.empty(_full_shape(p), dtype=p.dtype, device=p.device)
+                      .exponential_(1.0, generator=self.generator), p) for p in params]
+        coin = [_block(torch.empty(_full_shape(p), dtype=p.dtype, device=p.device)
+                       .bernoulli_(0.5, generator=self.generator), p) for p in params]
         return lap, coin
 
     def _boost(self, group, st, g, x, params):
@@ -299,6 +304,19 @@ class _Chain(torch.optim.Optimizer):
         if clip > 0.0:
             return g + torch.clamp(noise * torch.sign(g), -clip, clip)
         return fma_f32(noise, torch.sign(g), g)
+
+
+def _full_shape(p: torch.Tensor) -> tuple:
+    block = getattr(p, "mp_block", None)
+    return tuple(p.shape) if block is None else block[0]
+
+
+def _block(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``p``'s block of the full-shape draw ``t``."""
+    block = getattr(p, "mp_block", None)
+    if block is None or tuple(p.shape) == block[0]:
+        return t
+    return t.narrow(block[1], block[2], block[3])
 
 
 def _boosted(cls):

@@ -84,3 +84,12 @@ def local_batch_slice(global_batch: int) -> slice:
     per = global_batch // dist.get_world_size()
     i = dist.get_rank()
     return slice(i * per, (i + 1) * per)
+
+
+def wait_for_end(mesh) -> None:
+    """Every rank of the process group meets here at the end of a run: the
+    mesh's ranks after their last write, the ranks beyond a ``make_dp_mesh``
+    mesh (``mesh.member`` False) right away, so that they exit 0 with the
+    run (a barrier of ``mesh.end_group``; a no-op without a group)."""
+    if getattr(mesh, "end_group", None) is not None:
+        dist.barrier(group=mesh.end_group)

@@ -6,6 +6,12 @@ artifact (``--export_int8``, the JAX package's layout), then reports the
 dual mIoU: mIoU(QAT sim) and mIoU(INT8 frozen). ``--save_images`` writes
 colorized predictions and their Cityscapes label ids as PNGs (PIL).
 
+Under ``torchrun`` it runs JAX's mesh (``make_mesh()``): each rank
+evaluates its rows of each batch, the confusion matrices are summed over
+the ranks (int64, so the dual mIoU is the one-process value bit for bit),
+the calibration step is the data-parallel one, and rank 0 alone writes the
+artifact, the PNGs and the log.
+
 Run: python -m frostnet_tpu_torch.segmentation.evaluate --model mobilenetv3_RE_small \\
        --checkpoint runs/segmentation/best --dataset synthetic [--device cpu]
 """
@@ -20,6 +26,7 @@ import torch
 from ..data import prefetch_to_device
 from ..nn import INT8, QAT, QAT_FROZEN
 from ..optim import get_optimizer
+from ..parallel import make_mesh, multihost, rank_rows, replicate
 from ..quant import export_int8
 from ..quant.freeze import resolve_device
 from ..train.state import create_train_state
@@ -72,33 +79,39 @@ def eval_dataset(cfg: SegConfig, data_dir: str):
 def main(args):
     """Returns ``{"qat", "int8"}`` mIoUs, the two evaluation records, the
     state and, with ``--export_int8``, the artifact's size in bytes."""
-    logger = MetricLogger(None, name="seg-eval")
-    device = resolve_device(getattr(args, "device", "cuda"))
+    multihost.initialize(getattr(args, "device", "cuda"))  # torchrun's ranks, if any
+    mesh = make_mesh()
+    primary = multihost.is_primary()
+    logger = MetricLogger(None, name="seg-eval", echo=primary)
+    device = resolve_device(multihost.local_device(getattr(args, "device", "cuda")))
     cfg = resolve_dataset_defaults(
         SegConfig(model=args.model, dataset=args.dataset, crop_size=args.crop_size,
                   batch_size=args.batch_size, num_classes=args.num_classes,
                   width_scale=getattr(args, "width_scale", None)))
+    if cfg.batch_size % mesh.dp:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {mesh.dp} ranks")
     model = get_seg_model(cfg.model, **seg_model_kwargs(cfg))
-    ds = eval_dataset(cfg, args.data_dir)
+    ds = rank_rows(eval_dataset(cfg, args.data_dir), mesh)
     state = create_train_state(model, get_optimizer("QSGD", 1e-3), seed=0, device=device)
     if args.checkpoint:
         restore_model_variables(args.checkpoint, state)
-    else:
+    replicate(state.model, mesh)
+    if not args.checkpoint:
         # calibration: one QAT train iteration (the reference's train_seg_one_iter)
-        step = make_seg_train_step(QAT, None, cfg.ignore_index, cfg.num_classes)
+        step = make_seg_train_step(QAT, None, cfg.ignore_index, cfg.num_classes, mesh=mesh)
         step(state, next(iter(prefetch_to_device(iter(ds), device))))
     out = {"state": state}
-    if args.export_int8:
+    if args.export_int8 and primary:
         out["export_bytes"] = export_int8(state.model, args.export_int8)
         logger.info(f"INT8 artifact written: {args.export_int8} "
                     f"({out['export_bytes'] / 1e6:.2f} MB)")
 
-    qat = evaluate_seg(state, ds, device, QAT_FROZEN, cfg)
-    int8 = evaluate_seg(state, ds, device, INT8, cfg)
+    qat = evaluate_seg(state, ds, device, QAT_FROZEN, cfg, mesh=mesh)
+    int8 = evaluate_seg(state, ds, device, INT8, cfg, mesh=mesh)
     logger.info(f"mIoU(QAT sim)={qat['miou']:.4f}  mIoU(INT8 frozen)={int8['miou']:.4f}")
     out.update(qat=qat["miou"], int8=int8["miou"], qat_eval=qat, int8_eval=int8)
 
-    if args.save_images:
+    if args.save_images and primary:
         Image = _pil_image()
         os.makedirs(args.save_images, exist_ok=True)
         batch = next(iter(prefetch_to_device(iter(ds), device)))
@@ -110,6 +123,7 @@ def main(args):
             Image.fromarray(relabel(pred[i])).save(
                 os.path.join(args.save_images, f"pred_{i}_labelids.png"))
         logger.info(f"prediction PNGs -> {args.save_images}")
+    multihost.wait_for_end(mesh)
     return out
 
 

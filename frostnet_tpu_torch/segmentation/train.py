@@ -15,8 +15,17 @@ It runs on the card unless ``--device cpu`` is given. ``--loader native``
 hands the dataset's (image, mask) file list to the C++ pool (``native/``:
 uint8 images, normalized on the device); it needs g++, libjpeg and libpng
 and raises where they are missing, where the JAX trainer falls back to the
-Python loader. The trainer runs on one device: the JAX trainer's
-data-parallel mesh is ROADMAP.md, Queue A item 6.5a.
+Python loader.
+
+Under ``torchrun`` it runs JAX's data-parallel mesh (``make_mesh()``, every
+rank on ``dp``; ``parallel/``): each rank trains on its block of each
+global batch's rows, the BN statistics, observers and dropout are the
+global batch's, the CE divides by the global batch's class-weight sum
+(``parallel.global_normalizer``), the confusion matrices are summed over
+the ranks (int64), and rank 0 alone writes the checkpoints, their meta,
+``arguments.json`` and the metric log.
+
+Run: torchrun --nproc_per_node 2 -m frostnet_tpu_torch.segmentation.train ...
 
 Run: python -m frostnet_tpu_torch.segmentation.train --model mobilenetv3_RE_small \\
        --dataset synthetic --crop_size 768
@@ -37,11 +46,13 @@ from ..data import prefetch_to_device
 from ..nn import FP32, INT8, QAT, QAT_FROZEN
 from ..nn.mode import QuantMode
 from ..optim import get_lr_scheduler, get_optimizer, grouped_weight_decay
+from ..parallel import (Mesh, all_reduce_gradients, cross_replica_mean, data_parallel,
+                        global_normalizer, make_mesh, multihost, rank_rows, replicate)
 from ..quant.freeze import resolve_device
 from ..train.state import create_train_state, prep_image
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
-from ..utils.losses import binary_cross_entropy_with_logits, cross_entropy
+from ..utils.losses import binary_cross_entropy_with_logits, cross_entropy_sums
 from ..utils.metrics import confusion_matrix, miou_from_confusion
 from .data import (CITYSCAPES_CLASS_WEIGHTS, CITYSCAPES_IGNORE, CityscapesSegmentation,
                    CustomSegmentation, SyntheticSegmentation, VOCSegmentation)
@@ -88,12 +99,15 @@ def resolve_dataset_defaults(cfg: SegConfig) -> SegConfig:
     return cfg
 
 
-def build_seg_dataset(cfg: SegConfig, train: bool):
+def build_seg_dataset(cfg: SegConfig, train: bool, mesh: Optional[Mesh] = None):
+    """The train or validation batches; under a data-parallel ``mesh`` this
+    rank's rows of each (the native pool decodes only those)."""
     crop = (cfg.crop_size, cfg.crop_size)
     if cfg.dataset == "synthetic":
-        return SyntheticSegmentation(num_classes=cfg.num_classes, crop=crop,
-                                     length=cfg.batch_size * (cfg.steps_per_epoch or 4),
-                                     batch_size=cfg.batch_size, seed=cfg.seed + (not train))
+        return rank_rows(SyntheticSegmentation(
+            num_classes=cfg.num_classes, crop=crop,
+            length=cfg.batch_size * (cfg.steps_per_epoch or 4), batch_size=cfg.batch_size,
+            seed=cfg.seed + (not train)), mesh)
     if cfg.dataset == "pascal":
         ds = VOCSegmentation(cfg.data_dir, train=train, crop_size=crop,
                              batch_size=cfg.batch_size, seed=cfg.seed,
@@ -107,7 +121,7 @@ def build_seg_dataset(cfg: SegConfig, train: bool):
     else:
         raise ValueError(f"unknown dataset {cfg.dataset!r} (city|pascal|custom|synthetic)")
     if cfg.loader != "native":
-        return ds
+        return rank_rows(ds, mesh)
     from ..native import NativeSegmentationLoader
 
     # the Python dataset's (img, mask) list goes to the C++ pool: city and
@@ -120,7 +134,9 @@ def build_seg_dataset(cfg: SegConfig, train: bool):
     return NativeSegmentationLoader([os.path.join(root, a) for a, _ in ds.pairs],
                                     [os.path.join(root, b) for _, b in ds.pairs],
                                     crop_size=crop, batch_size=cfg.batch_size, train=train,
-                                    seed=cfg.seed, ignore=cfg.ignore_index)
+                                    seed=cfg.seed, ignore=cfg.ignore_index,
+                                    rank=mesh.dp_index if mesh else 0,
+                                    world=mesh.dp if mesh else 1)
 
 
 def seg_model_kwargs(cfg: SegConfig) -> dict:
@@ -137,10 +153,28 @@ def seg_loss(logits, label, weights, ignore_index, num_classes, loss_type="ce"):
     """The trainer's loss: the weighted CE with the ignore label, or BCE on
     one-hot targets whose ignored pixels are all-zero rows, weighted per
     class."""
+    return seg_step_loss(logits, label, weights, ignore_index, num_classes, loss_type)[0]
+
+
+def seg_step_loss(logits, label, weights, ignore_index, num_classes, loss_type="ce",
+                  mesh: Optional[Mesh] = None):
+    """(the loss this rank differentiates, the global batch's loss) of
+    :func:`seg_loss`. Under a data-parallel ``mesh`` the CE's normalizer is
+    the global batch's weight sum and this rank's loss is ``dp`` times its
+    share, so that its gradient's mean over the ranks is the global loss's;
+    BCE's elementwise mean over equal row blocks averages to the global one
+    as it is."""
     if loss_type == "bce":
         onehot = (label.unsqueeze(-1) == torch.arange(num_classes, device=label.device))
-        return binary_cross_entropy_with_logits(logits, onehot.to(logits.dtype), weight=weights)
-    return cross_entropy(logits, label, class_weights=weights, ignore_index=ignore_index)
+        loss = binary_cross_entropy_with_logits(logits, onehot.to(logits.dtype), weight=weights)
+        return loss, cross_replica_mean(loss.detach().clone(), mesh)
+    num, den = cross_entropy_sums(logits, label, class_weights=weights,
+                                  ignore_index=ignore_index)
+    den, factor = global_normalizer(den, mesh)
+    share = num / torch.clamp(den, min=1e-12)
+    if factor == 1.0:
+        return share, share.detach()
+    return share * factor, mesh.all_reduce(share.detach().clone())
 
 
 def _weights(class_weights, device):
@@ -149,10 +183,13 @@ def _weights(class_weights, device):
 
 
 def make_seg_train_step(mode: QuantMode, class_weights, ignore_index: int, num_classes: int,
-                        input_mean=None, input_std=None, loss_type: str = "ce"):
+                        input_mean=None, input_std=None, loss_type: str = "ce",
+                        mesh: Optional[Mesh] = None):
     """``step(state, batch) -> {"loss", "cm"}`` (device tensors) for one
     phase: forward in ``mode`` with ``train=True``, the loss, backward, the
-    optimizer step, and the step's confusion matrix of the argmax."""
+    optimizer step, and the step's confusion matrix of the argmax. Under a
+    data-parallel ``mesh`` the batch is this rank's rows, and the loss and
+    the confusion matrix are the global batch's."""
     cache = {}
 
     def step(state, batch):
@@ -161,17 +198,26 @@ def make_seg_train_step(mode: QuantMode, class_weights, ignore_index: int, num_c
             cache[dev] = _weights(class_weights, dev)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         image = prep_image(batch["image"], input_mean, input_std)
-        logits = state.model(image, mode=mode, train=True, generator=state.generator)
-        loss = seg_loss(logits, batch["label"], cache[dev], ignore_index, num_classes, loss_type)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with data_parallel(mesh):
+            logits = state.model(image, mode=mode, train=True, generator=state.generator)
+            loss, reported = seg_step_loss(logits, batch["label"], cache[dev], ignore_index,
+                                           num_classes, loss_type, mesh)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if mesh is not None:
+            all_reduce_gradients(state.model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
         cm = confusion_matrix(logits.detach().argmax(-1), batch["label"], num_classes,
                               ignore_index)
-        return {"loss": loss.detach().to(torch.float32), "cm": cm}
+        return {"loss": reported.to(torch.float32), "cm": _summed(cm, mesh)}
 
     return step
+
+
+def _summed(cm: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A confusion matrix summed over the data-parallel ranks (int64)."""
+    return mesh.all_reduce(cm) if mesh is not None else cm
 
 
 def make_seg_eval_step(mode: QuantMode, num_classes: int, ignore_index: int,
@@ -193,9 +239,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def evaluate_seg(state, dataset, device, mode: QuantMode, cfg: SegConfig, max_steps=None):
+def evaluate_seg(state, dataset, device, mode: QuantMode, cfg: SegConfig, max_steps=None,
+                 mesh: Optional[Mesh] = None):
     """mIoU of ``mode`` over ``dataset`` (``miou``, per-class ``iou``,
-    ``images_per_sec``). INT8 freezes the model's current state first."""
+    ``images_per_sec``, the confusion matrix ``cm``). INT8 freezes the
+    model's current state first. Under a data-parallel ``mesh`` each rank
+    evaluates its rows and the confusion matrix is summed over the ranks
+    (int64: the one-process matrix, so the same mIoU bit for bit)."""
     eval_step = make_seg_eval_step(mode, cfg.num_classes, cfg.ignore_index)
     cm = torch.zeros((cfg.num_classes, cfg.num_classes), dtype=torch.int64, device=device)
     n_images = 0
@@ -209,16 +259,18 @@ def evaluate_seg(state, dataset, device, mode: QuantMode, cfg: SegConfig, max_st
             state.model.prepare_int8(device)
         cm += eval_step(state, batch)
         n_images += batch["image"].shape[0]
-    cm = cm.cpu()
+    cm = _summed(cm, mesh).cpu()
     _sync(device)
     iou, miou = miou_from_confusion(cm)
+    replicas = mesh.dp if mesh is not None and mesh.distributed else 1
     return {"miou": float(miou), "iou": iou.numpy(), "cm": cm.numpy(),
-            "images_per_sec": n_images / max(time.perf_counter() - t0, 1e-9)}
+            "images_per_sec": n_images * replicas / max(time.perf_counter() - t0, 1e-9)}
 
 
-def _run_epoch(step_fn, state, dataset, device, cfg: SegConfig):
+def _run_epoch(step_fn, state, dataset, device, cfg: SegConfig, replicas: int = 1):
     """One epoch: mean loss, mIoU of the train predictions, images/s (the
-    device synchronized at the end) and each step's host wall ms."""
+    device synchronized at the end; all ``replicas``' images) and each
+    step's host wall ms."""
     losses, step_ms, n_images = [], [], 0
     cm = torch.zeros((cfg.num_classes, cfg.num_classes), dtype=torch.int64, device=device)
     _sync(device)
@@ -238,7 +290,7 @@ def _run_epoch(step_fn, state, dataset, device, cfg: SegConfig):
     _sync(device)
     _, miou = miou_from_confusion(cm)
     return {"loss": float(np.mean(losses)), "losses": losses, "miou": float(miou),
-            "images_per_sec": n_images / max(time.perf_counter() - t0, 1e-9),
+            "images_per_sec": n_images * replicas / max(time.perf_counter() - t0, 1e-9),
             "step_ms": step_ms}
 
 
@@ -247,14 +299,21 @@ def main(cfg: SegConfig):
     and ``int8`` mIoU records, each epoch's summary (``history``) and, on a
     resume, what was restored (``resumed``)."""
     cfg = resolve_dataset_defaults(cfg)
-    device = resolve_device(cfg.device)
+    multihost.initialize(cfg.device)  # torchrun's ranks; a no-op in one process
+    mesh = make_mesh()  # every rank on 'dp', as JAX's make_mesh()
+    if cfg.batch_size % mesh.dp:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {mesh.dp} ranks")
+    device = resolve_device(multihost.local_device(cfg.device))
+    primary = multihost.is_primary()
     os.makedirs(cfg.save_dir, exist_ok=True)
-    logger = MetricLogger(cfg.save_dir, name="seg")
-    with open(os.path.join(cfg.save_dir, "arguments.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    logger = (MetricLogger(cfg.save_dir, name="seg") if primary
+              else MetricLogger(None, name="seg", echo=False))
+    if primary:
+        with open(os.path.join(cfg.save_dir, "arguments.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2)
 
-    train_ds = build_seg_dataset(cfg, True)
-    val_ds = build_seg_dataset(cfg, False)
+    train_ds = build_seg_dataset(cfg, True, mesh)
+    val_ds = build_seg_dataset(cfg, False, mesh)
     steps_per_epoch = cfg.steps_per_epoch or len(train_ds)
     total_steps = (cfg.fp_epochs + cfg.epochs) * steps_per_epoch
     model = get_seg_model(cfg.model, **seg_model_kwargs(cfg))
@@ -275,46 +334,52 @@ def main(cfg: SegConfig):
             meta = json.load(f)
         start_epoch, best = meta["qat_epoch"], meta["best_miou"]
         resumed = {"qat_epoch": start_epoch, "step": int(state.step)}
+    replicate(state.model, mesh)  # rank 0's parameters and buffers on every rank
+    logger.info(f"mesh {mesh.shape}, device {device}")
 
     history = []
 
     def run(step_fn, tag, epoch):
-        summary = _run_epoch(step_fn, state, train_ds, device, cfg)
+        summary = _run_epoch(step_fn, state, train_ds, device, cfg, mesh.dp)
         history.append({"tag": tag, "epoch": epoch, **summary})
         logger.log_scalars({f"{tag}/loss": summary["loss"], f"{tag}/miou": summary["miou"]},
                            step=int(state.step))
         logger.info(f"[{tag} {epoch}] loss={summary['loss']:.4f} miou={summary['miou']:.4f} "
                     f"{summary['images_per_sec']:.1f} images/s")
 
+    step_kw = dict(loss_type=cfg.loss_type, mesh=mesh)
     if resumed:
         logger.info(f"resumed from {ckpt_path} at qat epoch {start_epoch} "
                     f"(step {state.step}, best_miou {best:.4f})")
     else:
         fp_step = make_seg_train_step(FP32, class_weights, cfg.ignore_index, cfg.num_classes,
-                                      loss_type=cfg.loss_type)
+                                      **step_kw)
         for epoch in range(cfg.fp_epochs):
             run(fp_step, "fp_warmup", epoch)
     state.start_qat()  # idempotent on a resume
 
     qat_step = make_seg_train_step(QAT, class_weights, cfg.ignore_index, cfg.num_classes,
-                                   loss_type=cfg.loss_type)
+                                   **step_kw)
     for epoch in range(start_epoch, cfg.epochs):
         run(qat_step, "qat", epoch)
-        val = evaluate_seg(state, val_ds, device, QAT_FROZEN, cfg, cfg.steps_per_epoch)
+        val = evaluate_seg(state, val_ds, device, QAT_FROZEN, cfg, cfg.steps_per_epoch, mesh)
         history[-1]["val"] = val
         logger.log_scalars({"val/miou": val["miou"]}, step=int(state.step))
         logger.info(f"[val {epoch}] miou={val['miou']:.4f}")
-        save_checkpoint(ckpt_path, state)
-        if val["miou"] > best:
-            best = val["miou"]
-            save_checkpoint(os.path.join(cfg.save_dir, "best"), state)
-        with open(meta_path, "w") as f:
-            json.dump({"qat_epoch": epoch + 1, "best_miou": float(best)}, f)
+        improved = val["miou"] > best
+        best = max(best, val["miou"])
+        if primary:
+            save_checkpoint(ckpt_path, state)
+            if improved:
+                save_checkpoint(os.path.join(cfg.save_dir, "best"), state)
+            with open(meta_path, "w") as f:
+                json.dump({"qat_epoch": epoch + 1, "best_miou": float(best)}, f)
 
-    qat = evaluate_seg(state, val_ds, device, QAT_FROZEN, cfg, cfg.steps_per_epoch)
-    int8 = evaluate_seg(state, val_ds, device, INT8, cfg, cfg.steps_per_epoch)
+    qat = evaluate_seg(state, val_ds, device, QAT_FROZEN, cfg, cfg.steps_per_epoch, mesh)
+    int8 = evaluate_seg(state, val_ds, device, INT8, cfg, cfg.steps_per_epoch, mesh)
     logger.info(f"mIoU(QAT sim)={qat['miou']:.4f}  mIoU(INT8 frozen)={int8['miou']:.4f}")
     logger.close()
+    multihost.wait_for_end(mesh)
     return state, {"qat": qat, "int8": int8, "history": history, "resumed": resumed}
 
 

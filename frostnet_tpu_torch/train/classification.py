@@ -20,8 +20,12 @@ Data parallelism: under ``torchrun`` each rank trains on ``cuda:LOCAL_RANK``
 each global batch of ``batch_size`` rows, the state replicated from rank 0,
 the global batch's BN statistics, observers and gradient (``parallel/``);
 evaluation counts are all-reduced, and checkpoints,
-``checkpoint_meta.json`` and the metric log come from rank 0 only. Model
-parallelism (``mp > 1``) is not ported and raises.
+``checkpoint_meta.json`` and the metric log come from rank 0 only.
+``--mp N`` does what JAX's trainer does: a ``dp x mp`` mesh with the
+parameters replicated and the rows split over ``dp`` (the ``mp`` ranks of a
+``dp`` index train the same rows); the sharded tensor-parallel step is
+``parallel.shard_params_for_mp``, which the trainer does not apply, as JAX's
+does not.
 
 Run: python -m frostnet_tpu_torch.train.classification --config cfg.json
      python -m frostnet_tpu_torch.train.classification --dataset synthetic --epochs 1
@@ -42,7 +46,7 @@ from ..data import SyntheticClassification, build_classification_dataset, prefet
 from ..models import create_model
 from ..nn import FP32, INT8, QAT, QAT_FROZEN
 from ..optim import get_lr_scheduler, get_optimizer, grouped_weight_decay, learning_rate
-from ..parallel import Mesh, RankRows, make_mesh, multihost, replicate
+from ..parallel import Mesh, make_mesh, multihost, rank_rows, replicate
 from ..quant.freeze import resolve_device
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
@@ -106,7 +110,7 @@ class ClassificationConfig:
     seed: int = 42
     save_dir: str = "./runs/classification"
     log_every: int = 10
-    mp: int = 1                  # model-parallel axis size: only 1 is ported (Queue A 6.5b)
+    mp: int = 1                  # the mesh's 'mp' axis: a dp x mp mesh, parameters replicated
     resume_path: Optional[str] = None  # an explicit checkpoint directory to restore
     resume: bool = False         # continue from save_dir/checkpoint
     device: str = "cuda"         # "cpu" runs the kernels' plain versions
@@ -157,12 +161,12 @@ def _build_dataset(cfg: ClassificationConfig, train: bool, mesh: Optional[Mesh] 
         return NativeClassificationLoader.from_folder(
             os.path.join(cfg.data_dir, cfg.dataset, "train" if train else "val"),
             batch_size=cfg.batch_size, image_size=cfg.image_size, train=train, seed=seed,
-            output="uint8", rank=mesh.rank if mesh else 0, world=mesh.dp if mesh else 1)
+            output="uint8", rank=mesh.dp_index if mesh else 0, world=mesh.dp if mesh else 1)
     else:
         ds = build_classification_dataset(
             cfg.dataset, cfg.data_dir, train, image_size=cfg.image_size,
             batch_size=cfg.batch_size, seed=seed, aa=cfg.aa)
-    return RankRows(ds, mesh) if mesh is not None and mesh.distributed else ds
+    return rank_rows(ds, mesh)
 
 
 def _schedule(cfg: ClassificationConfig, steps_per_epoch: int):
@@ -288,7 +292,9 @@ def main(cfg: ClassificationConfig):
     final ``qat`` and ``int8`` metrics, each epoch's summary (``history``)
     and, on a resume, what was restored (``resumed``)."""
     multihost.initialize(cfg.device)  # torchrun's ranks; a no-op in one process
-    mesh = make_mesh(mp=cfg.mp)  # every rank on 'dp'; mp > 1 raises
+    # JAX's ('dp', 'mp') mesh: the parameters replicated, the rows over 'dp'
+    # (the ranks of one dp index train the same rows, as JAX's mp pairs do)
+    mesh = make_mesh(mp=cfg.mp)
     if cfg.batch_size % mesh.dp:
         raise ValueError(f"batch_size {cfg.batch_size} does not split over {mesh.dp} ranks")
     device = resolve_device(multihost.local_device(cfg.device))

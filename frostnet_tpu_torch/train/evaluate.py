@@ -29,7 +29,7 @@ from ..data import FolderClassification, SyntheticClassification, prefetch_to_de
 from ..models import create_model
 from ..nn import INT8, QAT, QAT_FROZEN
 from ..optim import get_optimizer
-from ..parallel import RankRows, make_mesh, multihost, replicate
+from ..parallel import make_mesh, multihost, rank_rows, replicate
 from ..quant import export_int8
 from ..quant.freeze import resolve_device
 from ..utils.checkpoint import restore_model_variables
@@ -58,8 +58,7 @@ def main(args):
     else:
         ds = FolderClassification(os.path.join(args.data_dir, args.dataset, "val"),
                                   args.image_size, args.batch_size, train=False)
-    if mesh.distributed:
-        ds = RankRows(ds, mesh)
+    ds = rank_rows(ds, mesh)
     state = create_train_state(model, get_optimizer("QSGD", 1e-3), seed=0, device=device)
     if args.checkpoint:
         restore_model_variables(args.checkpoint, state)

@@ -28,16 +28,33 @@ updates are bit-identical, GradBoost's noise generator is seeded alike on
 every rank (``optim/gradboost.py::_draws``), and ``state.generator`` draws
 the same dropout masks everywhere.
 
-The JAX step's ``remat`` option is not ported: the JAX package measured it
-as a memory lever only.
+``remat`` (JAX's ``train/state.py:116-161``): each child module of the
+model (FrostNet's stem, each block, the head's convs) runs under its own
+``torch.utils.checkpoint`` (non-reentrant), and the backward replays it
+instead of keeping its activations: one child's at a time. (One checkpoint
+over the whole forward would replay it whole at the backward's start and
+hold as much as the plain step.) ``True``/``"full"`` keeps nothing inside a
+child; ``"conv_outs"`` keeps the conv outputs (a selective-checkpoint
+policy, the counterpart of JAX's ``save_only_these_names("conv_out")``) and
+replays the BN, activation and fake-quant chains. The port's BN
+statistics, observers and dropout generator step in place in the forward,
+so a replay (:func:`remat_forward`) runs on copies of the buffers as they
+were before the step and on the generator's state before the child ran:
+it recomputes the first forward's values (its qparams, its running
+variance in the QAT weight fold, its mask) and steps nothing that lasts.
+Under a mesh a replay's collectives (the global BN's sums, the observers'
+min/max, the tensor-parallel sums) run again, in the same order on every
+rank.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..nn.mode import QAT, QuantMode
 from ..ops.requant import fma_f32
@@ -123,16 +140,94 @@ def _metrics(logits, labels, loss, num_classes):
     return out
 
 
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The ``"conv_outs"`` policy: keep what a convolution returns (``F.conv2d``
+    reaches the policy as ``aten.convolution``), replay the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.convolution.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_forward(model: torch.nn.Module, image: torch.Tensor, mode: QuantMode,
+                  generator: Optional[torch.Generator], remat: Union[bool, str] = False):
+    """``model(image, mode, train=True, generator)``, with ``remat``
+    ``True``/``"full"`` or ``"conv_outs"`` each of ``model``'s child modules
+    (FrostNet's stem, each block, the head's convs) under its own
+    checkpoint, so that the backward holds one child's activations at a
+    time (the module docstring). A child's replay swaps every buffer of
+    ``model`` for a copy of its value before the step, and the generator
+    back to its state before that child ran, then restores both; the
+    parent's own ops (pooling, dropout) keep their activations."""
+    if not remat:
+        return model(image, mode=mode, train=True, generator=generator)
+    if remat not in (True, "full", "conv_outs"):
+        raise ValueError(f"remat is False, True, 'full' or 'conv_outs', got {remat!r}")
+    slots = [(m, name) for m in model.modules() for name, b in m._buffers.items()
+             if b is not None]
+    # the replays' copies are made here: no tensor op may run in a
+    # checkpointed function that its first run did not (a selective policy
+    # matches the replay's ops to the first run's, one by one)
+    replay = [m._buffers[name].detach().clone() for m, name in slots]
+    after = {}
+    context = ({"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                _save_conv_outputs)}
+               if remat == "conv_outs" else {})
+
+    def checkpointed(child):
+        run = child.forward
+
+        def forward(*args, **kwargs):
+            before = generator.get_state() if generator is not None else None
+            calls = []
+
+            def segment(*a, **kw):
+                if not calls:
+                    calls.append(1)
+                    return run(*a, **kw)
+                live = [m._buffers[name] for m, name in slots]
+                for (m, name), t in zip(slots, replay):
+                    m._buffers[name] = t
+                if generator is not None:
+                    generator.set_state(before)
+                try:
+                    return run(*a, **kw)
+                finally:
+                    for (m, name), t in zip(slots, live):
+                        m._buffers[name] = t
+                    if generator is not None:
+                        generator.set_state(after["state"])
+
+            return checkpoint(segment, *args, use_reentrant=False, **context, **kwargs)
+        return forward
+
+    children = [c for c in model.children() if any(True for _ in c.parameters())]
+    own = [c.__dict__.get("forward") for c in children]  # an instance's own forward, if set
+    for child in children:
+        child.forward = checkpointed(child)
+    try:
+        out = model(image, mode=mode, train=True, generator=generator)
+    finally:
+        for child, fwd in zip(children, own):
+            if fwd is None:
+                del child.forward
+            else:
+                child.forward = fwd
+    if generator is not None:
+        after["state"] = generator.get_state()
+    return out
+
+
 def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
                     num_classes: Optional[int] = None, label_smoothing: float = 0.0,
                     ema_decay: float = 0.0, input_mean=None, input_std=None,
-                    mesh: Optional[Mesh] = None) -> Callable:
+                    mesh: Optional[Mesh] = None, remat: Union[bool, str] = False) -> Callable:
     """``step(state, batch) -> metrics`` for one phase.
 
     ``batch`` is ``{"image": (B, S, S, 3) uint8 or float, "label": (B,)}``,
     this rank's rows under a data-parallel ``mesh``; ``loss_fn(outputs,
     batch)`` overrides the cross-entropy on labels. Metrics: loss, and
     top1/top5 when ``num_classes`` is given (the global batch's).
+    ``remat``: False, ``True``/``"full"`` or ``"conv_outs"``
+    (:func:`remat_forward`).
     """
     if loss_fn is None:
         def loss_fn(outputs, batch):
@@ -143,7 +238,7 @@ def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         image = prep_image(batch["image"], input_mean, input_std)
         with data_parallel(mesh):
-            logits = state.model(image, mode=mode, train=True, generator=state.generator)
+            logits = remat_forward(state.model, image, mode, state.generator, remat)
             loss = loss_fn(logits, batch)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()

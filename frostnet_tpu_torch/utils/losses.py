@@ -3,7 +3,7 @@ cross-entropy, the segmentation trainer's ``bce`` branch, the SSD
 localization loss (``smooth_l1``) and the GAN's ``l1``."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``logits`` (..., C), ``labels`` integer (...,). Labels outside [0, C)
     read class 0 (and count unless they are ``ignore_index``).
     """
+    num, den = cross_entropy_sums(logits, labels, class_weights, ignore_index, label_smoothing)
+    return num / torch.clamp(den, min=1e-12)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
+                       class_weights: Optional[torch.Tensor] = None,
+                       ignore_index: Optional[int] = None,
+                       label_smoothing: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``sum(nll * w)``, ``sum(w)``) of :func:`cross_entropy`: its loss is
+    the first over the second (at least 1e-12). Under data parallelism the
+    second is the global batch's (``parallel.global_normalizer``)."""
     num_classes = logits.shape[-1]
     labels = labels.to(torch.int64)
     safe = torch.where((labels < 0) | (labels >= num_classes), torch.zeros_like(labels), labels)
@@ -31,7 +42,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     w = torch.ones_like(nll) if class_weights is None else class_weights.to(nll.dtype)[safe]
     if ignore_index is not None:
         w = torch.where(labels == ignore_index, torch.zeros_like(w), w)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (nll * w).sum(), w.sum()
 
 
 def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor,

@@ -223,7 +223,9 @@ def test_cli_help_and_flags(capsys):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A item 6.5b"):
+    # a dp x 2 mesh needs an even number of ranks: one process holds none
+    # (two ranks run it: tests/test_torch_mp.py)
+    with pytest.raises(ValueError, match=r"dp\*mp = 0\*2 != 1"):
         classification.main(classification.ClassificationConfig(
             mp=2, device="cpu", save_dir=str(tmp_path)))
     # the native loader is ported: a missing image folder raises, nothing

@@ -73,8 +73,8 @@ def test_mesh_refusals_and_multihost_without_a_group(monkeypatch):
     assert multihost.choose_backend("cpu")[0] == "gloo"
     mesh = make_mesh()
     assert mesh.dp == 1 and not mesh.distributed and mesh.shape == {"dp": 1, "mp": 1}
-    with pytest.raises(NotImplementedError, match="Queue A item 6.5b"):
-        make_mesh(mp=2)
+    with pytest.raises(ValueError, match=r"dp\*mp = 0\*2 != 1"):
+        make_mesh(mp=2)  # one process holds no dp x 2 mesh
     with pytest.raises(ValueError, match="does not split"):
         shard_rows(7, 2, 0)
 

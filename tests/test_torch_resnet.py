@@ -262,18 +262,23 @@ def test_grouped_conv_int8_bit_equal(case):
 
 
 def test_refused_int8_routes():
-    """A padded 1x1 conv and a dilated grouped conv stay outside the INT8
-    port (a depthwise conv with a channel multiplier is ported: the SSD
-    extras, ``tests/test_torch_det_layers.py``)."""
-    for mod in (tnn.QConvBNAct(8, 8, 1, padding=1),
-                tnn.QConvBNAct(16, 16, 3, padding=2, dilation=2, groups=4)):
+    """A padded 1x1 conv and a dilated grouped conv, once refused, freeze onto
+    the matmul and the grouped routes and run (their codes against JAX
+    ``freeze()``: ``tests/test_torch_int8_routes.py``; a depthwise conv with
+    a channel multiplier: the SSD extras, ``tests/test_torch_det_layers.py``)."""
+    for mod, route, out in ((tnn.QConvBNAct(8, 8, 1, padding=1), "matmul", (1, 7, 7, 8)),
+                            (tnn.QConvBNAct(16, 16, 3, padding=2, dilation=2, groups=4),
+                             "grouped", (1, 5, 5, 16))):
         tree = unflatten_variables({k: (np.full(v.shape, -1.0 if k.endswith("min_val") else 1.0,
                                                 np.float32) if k.startswith("quant/")
                                         else v.detach().numpy())
                                     for k, v in model_variables(mod).items()})
         from_jax_variables(mod, tree)
-        with pytest.raises(ValueError, match="not part of the INT8 port"):
-            mod.prepare_int8(QParams(0.02, 10), "cpu")
+        grid = mod.prepare_int8(QParams(0.02, 10), "cpu")
+        assert mod._route == route
+        q = torch.randint(0, 256, (1, 5, 5, mod.in_features), dtype=torch.uint8)
+        y = mod(QTensor(q, *QParams(0.02, 10).tensors("cpu")), mode=tnn.INT8)
+        assert tuple(y.q.shape) == out and y.q.dtype == torch.uint8 and grid.scale > 0
 
 
 # ---------------------------------------------------------------------------
