@@ -54,6 +54,7 @@ from ..quant.fake_quant import fake_quant_forward, ste_backward
 from ..quant.observer import (ObserverState, calculate_qparams_traced, global_batch_min_max,
                               qparams_range_factor, update_observer)
 from ..quant.qtypes import SCALE_EPS, QSpec
+from ..utils.profiling import span
 from . import cuda_build
 from .frost_block import sm_count
 
@@ -244,51 +245,52 @@ def fake_quant_observe(x: torch.Tensor, min_val: torch.Tensor, max_val: torch.Te
     (``parallel.Mesh`` of several replicas) an observing site observes the
     global batch (the data-parallel route, above).
     """
-    _check(x, min_val, max_val)
-    if observe and mesh is not None and mesh.distributed:
-        return _observe_global(x, min_val, max_val, spec, mesh)
-    if x.device.type == "cpu":
-        y, mask, st, scale, zp = fake_quant_observe_plain(
-            x, ObserverState(min_val, max_val), spec, observe)
+    with span("ops.fake_quant"):
+        _check(x, min_val, max_val)
+        if observe and mesh is not None and mesh.distributed:
+            return _observe_global(x, min_val, max_val, spec, mesh)
+        if x.device.type == "cpu":
+            y, mask, st, scale, zp = fake_quant_observe_plain(
+                x, ObserverState(min_val, max_val), spec, observe)
+            if not observe:
+                return y, mask, None
+            with torch.no_grad():
+                min_val.copy_(st.min_val)
+                max_val.copy_(st.max_val)
+            return y, mask, torch.stack([scale, zp.to(torch.float32)])
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        x = x.contiguous()
+        n = x.numel()
+        aligned = x.data_ptr() % VECTOR_BYTES == 0
+        is_bf16 = int(x.dtype == torch.bfloat16)
+        grid = _grid_args(spec)
+        lib = _bind()
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        y = torch.empty_like(x)
+        mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
         if not observe:
+            err = lib.frost_fq_quantize(
+                x.data_ptr(), y.data_ptr(), mask.data_ptr(), is_bf16, n, int(aligned),
+                min_val.data_ptr(), max_val.data_ptr(), *grid, QUANTIZE_BLOCKS, stream)
+            cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe (QAT_FROZEN)")
+            fake_quant_observe.launches += 1
             return y, mask, None
-        with torch.no_grad():
-            min_val.copy_(st.min_val)
-            max_val.copy_(st.max_val)
-        return y, mask, torch.stack([scale, zp.to(torch.float32)])
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    x = x.contiguous()
-    n = x.numel()
-    aligned = x.data_ptr() % VECTOR_BYTES == 0
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    grid = _grid_args(spec)
-    lib = _bind()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    y = torch.empty_like(x)
-    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
-    if not observe:
-        err = lib.frost_fq_quantize(
-            x.data_ptr(), y.data_ptr(), mask.data_ptr(), is_bf16, n, int(aligned),
-            min_val.data_ptr(), max_val.data_ptr(), *grid, QUANTIZE_BLOCKS, stream)
-        cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe (QAT_FROZEN)")
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        sms = sm_count(index)
+        plan = plan_fake_quant(n, x.element_size(), aligned, sms)
+        _check_fits(plan.cluster, plan.blocks, plan.smem, is_bf16, index)
+        slots, gen = _scratch(x.device, sms)
+        qparams = torch.empty(2, dtype=torch.float32, device=x.device)
+        c = spec.averaging_constant
+        err = lib.frost_fq_observe(
+            x.data_ptr(), y.data_ptr(), mask.data_ptr(), is_bf16, n, plan.nv, plan.schunk,
+            plan.res, int(plan.cluster), plan.blocks, plan.smem, min_val.data_ptr(),
+            max_val.data_ptr(), qparams.data_ptr(), slots, gen,
+            0.0 if c is None else float(c), int(c is not None), *grid, stream)
+        cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe")
         fake_quant_observe.launches += 1
-        return y, mask, None
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    sms = sm_count(index)
-    plan = plan_fake_quant(n, x.element_size(), aligned, sms)
-    _check_fits(plan.cluster, plan.blocks, plan.smem, is_bf16, index)
-    slots, gen = _scratch(x.device, sms)
-    qparams = torch.empty(2, dtype=torch.float32, device=x.device)
-    c = spec.averaging_constant
-    err = lib.frost_fq_observe(
-        x.data_ptr(), y.data_ptr(), mask.data_ptr(), is_bf16, n, plan.nv, plan.schunk,
-        plan.res, int(plan.cluster), plan.blocks, plan.smem, min_val.data_ptr(),
-        max_val.data_ptr(), qparams.data_ptr(), slots, gen,
-        0.0 if c is None else float(c), int(c is not None), *grid, stream)
-    cuda_build.check(err, lib.frost_fq_error_string, "fake_quant_observe")
-    fake_quant_observe.launches += 1
-    return y, mask, qparams
+        return y, mask, qparams
 
 
 fake_quant_observe.launches = 0

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..utils.profiling import span
 from . import cuda_build
 from .int8_matmul import MatmulOperands, conv1x1_operands, int8_matmul_requant_plain
 from .requant import (depthwise_acc, epilogue_constants, qadd_codes, reciprocal,
@@ -688,21 +689,23 @@ def frost_block_int8(x: torch.Tensor, p: FrostBlockParams, spec: FrostBlockSpec)
     outside a CUDA graph's capture. Each launch adds one to
     ``frost_block_int8.launches``.
     """
-    if x.dtype != torch.uint8 or x.dim() != 4 or tuple(x.shape[1:]) != (spec.h, spec.w, spec.cin):
-        raise ValueError(f"x must be (B, {spec.h}, {spec.w}, {spec.cin}) uint8, "
-                         f"got {tuple(x.shape)} {x.dtype}")
-    if x.device != p.rd.wt.device:
-        raise ValueError(f"x on {x.device}, operands on {p.rd.wt.device}")
-    if cuda_build.traced(x):
-        return torch.ops.frostnet.frost_block_int8(x, *op_args(spec, p))
-    if x.device.type == "cpu":
-        return frost_block_int8_plain(x, p, spec)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    launch = p.launches.get(x.shape[0])
-    if launch is None:
-        launch = p.launches[x.shape[0]] = prepare_launch(spec, p, x.shape[0], x.device)
-    return _launch(x, spec, launch)
+    with span("ops.frost_block"):
+        if (x.dtype != torch.uint8 or x.dim() != 4
+                or tuple(x.shape[1:]) != (spec.h, spec.w, spec.cin)):
+            raise ValueError(f"x must be (B, {spec.h}, {spec.w}, {spec.cin}) uint8, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+        if x.device != p.rd.wt.device:
+            raise ValueError(f"x on {x.device}, operands on {p.rd.wt.device}")
+        if cuda_build.traced(x):
+            return torch.ops.frostnet.frost_block_int8(x, *op_args(spec, p))
+        if x.device.type == "cpu":
+            return frost_block_int8_plain(x, p, spec)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        launch = p.launches.get(x.shape[0])
+        if launch is None:
+            launch = p.launches[x.shape[0]] = prepare_launch(spec, p, x.shape[0], x.device)
+        return _launch(x, spec, launch)
 
 
 frost_block_int8.launches = 0

@@ -34,6 +34,7 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 from .requant import conv_acc, epilogue_constants, requant_epilogue
 
@@ -123,19 +124,20 @@ def conv3x3_s1_int8(x: torch.Tensor, op: Conv3x3Operands) -> torch.Tensor:
     (or raises); under ``torch.export`` the call is the op. Each launch adds
     one to ``conv3x3_s1_int8.launches``.
     """
-    if x.dim() != 4 or x.shape[3] != op.cin:
-        raise ValueError(f"x must be (B, H, W, {op.cin}), got {tuple(x.shape)}")
-    if x.dtype != torch.uint8:
-        raise TypeError(f"x must be uint8 codes, got {x.dtype}")
-    if x.device != op.wt.device:
-        raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
-    if cuda_build.traced(x):
-        return torch.ops.frostnet.conv3x3_s1_int8(x, *cuda_build.fields(op))
-    if x.device.type == "cpu":
-        return conv3x3_s1_int8_plain(x, op)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, op)
+    with span("ops.int8_conv"):
+        if x.dim() != 4 or x.shape[3] != op.cin:
+            raise ValueError(f"x must be (B, H, W, {op.cin}), got {tuple(x.shape)}")
+        if x.dtype != torch.uint8:
+            raise TypeError(f"x must be uint8 codes, got {x.dtype}")
+        if x.device != op.wt.device:
+            raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
+        if cuda_build.traced(x):
+            return torch.ops.frostnet.conv3x3_s1_int8(x, *cuda_build.fields(op))
+        if x.device.type == "cpu":
+            return conv3x3_s1_int8_plain(x, op)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        return _launch(x, op)
 
 
 conv3x3_s1_int8.launches = 0

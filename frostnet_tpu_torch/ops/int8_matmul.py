@@ -40,6 +40,7 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_build
 from .requant import epilogue_constants, requant_epilogue
 
@@ -131,20 +132,21 @@ def int8_matmul_requant(x: torch.Tensor, op: MatmulOperands) -> torch.Tensor:
     (or raises); under ``torch.export`` the call is the op. Each launch adds
     one to ``int8_matmul_requant.launches``.
     """
-    if x.dim() != 2 or not op.k <= x.shape[1] <= op.wt.shape[1]:
-        raise ValueError(f"x must be (M, K) with {op.k} <= K <= {op.wt.shape[1]}, "
-                         f"got {tuple(x.shape)}")
-    if x.dtype not in (torch.uint8, torch.int8):
-        raise TypeError(f"x must be uint8 or int8, got {x.dtype}")
-    if x.device != op.wt.device:
-        raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
-    if cuda_build.traced(x):
-        return torch.ops.frostnet.int8_matmul_requant(x, *cuda_build.fields(op))
-    if x.device.type == "cpu":
-        return int8_matmul_requant_plain(x, op)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return _launch(x, op)
+    with span("ops.int8_matmul"):
+        if x.dim() != 2 or not op.k <= x.shape[1] <= op.wt.shape[1]:
+            raise ValueError(f"x must be (M, K) with {op.k} <= K <= {op.wt.shape[1]}, "
+                             f"got {tuple(x.shape)}")
+        if x.dtype not in (torch.uint8, torch.int8):
+            raise TypeError(f"x must be uint8 or int8, got {x.dtype}")
+        if x.device != op.wt.device:
+            raise ValueError(f"x on {x.device}, operands on {op.wt.device}")
+        if cuda_build.traced(x):
+            return torch.ops.frostnet.int8_matmul_requant(x, *cuda_build.fields(op))
+        if x.device.type == "cpu":
+            return int8_matmul_requant_plain(x, op)
+        if x.device.type != "cuda":
+            raise ValueError(f"unsupported device {x.device}")
+        return _launch(x, op)
 
 
 int8_matmul_requant.launches = 0

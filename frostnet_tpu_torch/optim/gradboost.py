@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..ops.requant import fma_f32
+from ..utils.profiling import span
 from .schedules import _pow
 
 DecayRule = Callable[[torch.Tensor], float]
@@ -141,18 +142,21 @@ class _Chain(torch.optim.Optimizer):
             if not params:
                 continue
             dev = params[0].device
-            x = torch.cat([p.reshape(-1) for p in params]).to(torch.float32)
-            g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
-                           .reshape(-1) for p in params]).to(torch.float32)
-            st = self._group_state(gi, group, params, x)
+            with span("optim.flatten"):
+                x = torch.cat([p.reshape(-1) for p in params]).to(torch.float32)
+                g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                               .reshape(-1) for p in params]).to(torch.float32)
+                st = self._group_state(gi, group, params, x)
             lr = learning_rate(group)
             group["count"] += 1
             for stage in self.stages:
-                g = getattr(self, f"_{stage}")(group, st, g, x, params)
-            x = fma_f32(g, _f32(-lr, dev), x)
-            torch._foreach_copy_(params, [t.view_as(p) for t, p in
-                                          zip(torch.split(x, [p.numel() for p in params]),
-                                              params)])
+                with span("optim." + stage):
+                    g = getattr(self, f"_{stage}")(group, st, g, x, params)
+            with span("optim.write_back"):
+                x = fma_f32(g, _f32(-lr, dev), x)
+                torch._foreach_copy_(params, [t.view_as(p) for t, p in
+                                              zip(torch.split(x, [p.numel() for p in params]),
+                                                  params)])
         return loss
 
     # -- stages: (group, state, g, x, params) -> g ---------------------------

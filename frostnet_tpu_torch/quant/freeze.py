@@ -13,6 +13,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; CUDA must be present when asked for."""
@@ -39,8 +41,12 @@ def freeze(model, device="cuda", image_size: int = 224) -> Callable:
 
     @torch.inference_mode()
     def fn(images):
-        x = torch.as_tensor(np.asarray(images, np.float32) if isinstance(images, np.ndarray)
-                            else images)
-        return model(x.to(device=device, dtype=torch.float32), mode=INT8)
+        with span("request"):
+            with span("request.input"):
+                x = torch.as_tensor(np.asarray(images, np.float32)
+                                    if isinstance(images, np.ndarray) else images)
+                x = x.to(device=device, dtype=torch.float32)
+            with span("request.forward"):
+                return model(x, mode=INT8)
 
     return fn

@@ -54,6 +54,7 @@ from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
 from ..utils.losses import binary_cross_entropy_with_logits, cross_entropy_sums
 from ..utils.metrics import confusion_matrix, miou_from_confusion
+from ..utils.profiling import span
 from .data import (CITYSCAPES_CLASS_WEIGHTS, CITYSCAPES_IGNORE, CityscapesSegmentation,
                    CustomSegmentation, SyntheticSegmentation, VOCSegmentation)
 from .models import get_seg_model
@@ -194,23 +195,29 @@ def make_seg_train_step(mode: QuantMode, class_weights, ignore_index: int, num_c
 
     def step(state, batch):
         dev = state.device
-        if dev not in cache:
-            cache[dev] = _weights(class_weights, dev)
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        image = prep_image(batch["image"], input_mean, input_std)
-        with data_parallel(mesh):
-            logits = state.model(image, mode=mode, train=True, generator=state.generator)
-            loss, reported = seg_step_loss(logits, batch["label"], cache[dev], ignore_index,
-                                           num_classes, loss_type, mesh)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if mesh is not None:
-            all_reduce_gradients(state.model.parameters(), mesh)
-        state.optimizer.step()
-        state.step += 1
-        cm = confusion_matrix(logits.detach().argmax(-1), batch["label"], num_classes,
-                              ignore_index)
-        return {"loss": reported.to(torch.float32), "cm": _summed(cm, mesh)}
+        with span("step"):
+            with span("step.input"):
+                if dev not in cache:
+                    cache[dev] = _weights(class_weights, dev)
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+                image = prep_image(batch["image"], input_mean, input_std)
+            with span("step.forward"), data_parallel(mesh):
+                logits = state.model(image, mode=mode, train=True, generator=state.generator)
+                loss, reported = seg_step_loss(logits, batch["label"], cache[dev],
+                                               ignore_index, num_classes, loss_type, mesh)
+            with span("step.backward"):
+                with data_parallel(mesh):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                if mesh is not None:
+                    all_reduce_gradients(state.model.parameters(), mesh)
+            with span("step.optimizer", device=dev):
+                state.optimizer.step()
+            state.step += 1
+            with span("step.metrics"):
+                cm = confusion_matrix(logits.detach().argmax(-1), batch["label"], num_classes,
+                                      ignore_index)
+                return {"loss": reported.to(torch.float32), "cm": _summed(cm, mesh)}
 
     return step
 

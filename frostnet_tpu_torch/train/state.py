@@ -64,6 +64,7 @@ from ..quant.export import from_jax_variables, numpy_init
 from ..quant.freeze import resolve_device
 from ..utils.losses import cross_entropy
 from ..utils.metrics import topk_accuracy
+from ..utils.profiling import span
 
 # the normalization of uint8 batches (data.IMAGENET_MEAN/STD of the JAX package)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -235,21 +236,28 @@ def make_train_step(mode: QuantMode, loss_fn: Optional[Callable] = None,
 
     def step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         dev = state.device
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        image = prep_image(batch["image"], input_mean, input_std)
-        with data_parallel(mesh):
-            logits = remat_forward(state.model, image, mode, state.generator, remat)
-            loss = loss_fn(logits, batch)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if mesh is not None:
-            all_reduce_gradients(state.model.parameters(), mesh)
-        state.optimizer.step()
-        if state.ema is not None and ema_decay > 0:
-            for name, p in state.model.named_parameters():
-                ema_update(state.ema[name], p, ema_decay)
-        state.step += 1
-        return cross_replica_mean(_metrics(logits, batch["label"], loss, num_classes), mesh)
+        with span("step"):
+            with span("step.input"):
+                batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+                image = prep_image(batch["image"], input_mean, input_std)
+            with span("step.forward"), data_parallel(mesh):
+                logits = remat_forward(state.model, image, mode, state.generator, remat)
+                loss = loss_fn(logits, batch)
+            with span("step.backward"):
+                with data_parallel(mesh):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                if mesh is not None:
+                    all_reduce_gradients(state.model.parameters(), mesh)
+            with span("step.optimizer", device=dev):
+                state.optimizer.step()
+                if state.ema is not None and ema_decay > 0:
+                    for name, p in state.model.named_parameters():
+                        ema_update(state.ema[name], p, ema_decay)
+            state.step += 1
+            with span("step.metrics"):
+                return cross_replica_mean(_metrics(logits, batch["label"], loss, num_classes),
+                                          mesh)
 
     return step
 
