@@ -339,14 +339,30 @@ Phases (each raises on failure, and any failure exits non-zero):
      routes the port once refused (padded 1x1s, a dilated grouped 3x3,
      depthwise 3x5 and a valid 5x5 stride 2), frozen on the card and on the
      CPU from the same variables: the codes bit-equal, the padded 1x1 one
-     matmul launch.
+     matmul launch, each depthwise route one depthwise launch.
+ 24. the INT8 depthwise kernel (``depthwise_phase``) against its plain
+     version, bit for bit, at batch 8: on codes one byte into their
+     storage (byte loads where aligned codes take words) and at the SSD
+     extras' channel multiplier 4, then at the 15 depthwise convs of the
+     benchmark's segmentation serving cell (``mobilenetv3_large``, dilated,
+     512x1024; ``scripts/time_depthwise_int8.py``, whose ``run`` checks and
+     times each: profiler device ms where the profiler still records, a
+     CUDA graph's ms, the plain chain's device ms and launches, the bound of
+     ``depthwise_roofline.serve``).
+Every path's launch counts hold the depthwise kernel's beside the others'
+(one launch per INT8 depthwise conv of a forward).
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
 ``library_ms`` are wall times of back-to-back calls, except the fake-quant
-kernel's, which are torch.profiler device time; the block, matmul and conv
-entries add ``device_ms`` and ``library_device_ms``, the fake-quant entry
-``device_ms`` (a replayed CUDA graph of the sites) and ``wall_ms``. A
+kernel's and the depthwise kernel's, which are torch.profiler device time
+(the depthwise kernel's null where the profiler records nothing any more,
+as it may at the end of this long process);
+the block, matmul and conv entries add ``device_ms`` and
+``library_device_ms``, the fake-quant entry ``device_ms`` (a replayed CUDA
+graph of the sites) and ``wall_ms``, the depthwise entry ``device_ms`` (one
+replayed CUDA graph of the 15 segmentation shapes; its launches those of a
+phase 21 seg serving forward). A
 matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
 Each entry also gives ``trainer_launches``, its launches in phase 14,
@@ -370,7 +386,7 @@ layout, each ``remat`` step, each INT8 route).
 Phase 20 alone, after the build: ``python3 -c "import torch, chip_smoke as c;
 c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``
 (``tools_phase`` for phase 21, ``dp_phase`` for phase 22, ``last_configs_phase``
-for phase 23).
+for phase 23); phase 24 alone: ``python3 scripts/time_depthwise_int8.py``.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -398,6 +414,8 @@ from frostnet_tpu_torch.models import CascadePreExBottleneck, create_model
 from frostnet_tpu_torch.nn import (FP32, INT8, QAT, QAT_FROZEN, Observer, QConvBNAct, QHswish,
                                    QSEModule, quant_ops)
 from frostnet_tpu_torch.ops import cuda_build
+from frostnet_tpu_torch.ops.depthwise_int8 import (depthwise_int8, depthwise_int8_plain,
+                                                   depthwise_operands)
 from frostnet_tpu_torch.ops.fake_quant import (ObservedFakeQuant, fake_quant_observe,
                                                fake_quant_observe_plain, plan_fake_quant)
 from frostnet_tpu_torch.ops.frost_block import (frost_block_int8, frost_block_int8_plain,
@@ -439,12 +457,14 @@ MATMUL_REPLACES = "frostnet_tpu/ops/pallas_int8_matmul.py:42"
 FQ_REPLACES = "frostnet_tpu/ops/pallas_fake_quant.py:80"
 CONV_SOURCE = "frostnet_tpu_torch/csrc/int8_conv.cu"
 CONV_REPLACES = "frostnet_tpu/ops/pallas_int8_conv.py:145"
+DW_SOURCE = "frostnet_tpu_torch/csrc/depthwise_int8.cu"
+DW_REPLACES = "frostnet_tpu/nn/conv.py:423 (XLA code; no TPU kernel)"
 GAN = "resnet_9blocks"
 GAN_ARTIFACT = os.path.join(TESTDATA, f"{GAN}_int8.npz")
 GAN_REFERENCE = os.path.join(TESTDATA, f"{GAN}_reference.npz")
 GAN_IMAGE, GAN_BATCH = 256, 4
 GAN_LAUNCHES = {"int8_matmul_requant": 3, "frost_block_int8": 0, "fake_quant_observe": 0,
-                "int8_conv": 20}
+                "int8_conv": 20, "depthwise_int8": 0}
 # The GAN's float32 tail after tanh against the committed JAX output,
 # absolute: XLA's space-to-depth route and cuDNN sum the 7x7 conv in other
 # orders. Measured 5.8e-6 on the CPU (tests/test_torch_gan_fixture.py, the
@@ -963,7 +983,7 @@ def serve_trained(state, dev):
         torch.cuda.synchronize()
         counts[fuse] = ops.launch_counts()
     want = {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-            "int8_conv": 0}
+            "int8_conv": 0, "depthwise_int8": 0}
     if counts[True] != want:
         raise AssertionError(f"trained model, fused: launches {counts[True]} != {want}")
     lg = logits[True]
@@ -1429,7 +1449,8 @@ MODE_NAMES = {FP32: "FP32", QAT: "QAT", QAT_FROZEN: "QAT_FROZEN", INT8: "INT8"}
 STEP_LAUNCHES = {("train", FP32): {"fake_quant_observe": 0, "int8_matmul_requant": 0},
                  ("train", QAT): {"fake_quant_observe": N_SITES, "int8_matmul_requant": 0},
                  ("eval", QAT_FROZEN): {"fake_quant_observe": N_SITES, "int8_matmul_requant": 0},
-                 ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": 52}}
+                 ("eval", INT8): {"fake_quant_observe": 0, "int8_matmul_requant": 52,
+                                  "depthwise_int8": 18}}
 
 
 def check_step_launches(rows, what, expect=None):
@@ -1587,13 +1608,20 @@ PHASE15_DIR = os.path.join(ROOT, "build", "phase15")
 # histogram moves by at most this share of its codes, and the logits
 # (cls_conv2's grid) by at most one step.
 MB_FLIP_SHARE = 1e-3
-MB_KERNELS = {"int8_matmul_requant": "int8_matmul_requant"}
+MB_KERNELS = {"int8_matmul_requant": "int8_matmul_requant",
+              "depthwise_int8": "depthwise_int8_kernel"}
 
 
 def matmul_convs(model):
     """The convs of a frozen model that run the matmul kernel (1x1 and im2col)."""
     return [m for m in model.modules()
             if isinstance(m, QConvBNAct) and getattr(m, "_route", None) in ("matmul", "im2col")]
+
+
+def depthwise_convs(model):
+    """The convs of a frozen model that run the INT8 depthwise kernel."""
+    return [m for m in model.modules()
+            if isinstance(m, QConvBNAct) and getattr(m, "_route", None) == "depthwise"]
 
 
 def observers(model) -> int:
@@ -1656,13 +1684,13 @@ def serve_mobilenets(dev):
     for name in MOBILENETS:
         ref = np.load(os.path.join(TESTDATA, f"{name}_reference.npz"))
         pred = preds[name] = mobilenet_predictor(name, dev, PHASE15_DIR)
-        n_mm = len(matmul_convs(pred.model))
+        n_mm, n_dw = len(matmul_convs(pred.model)), len(depthwise_convs(pred.model))
         ops.reset_launch_counts()
         logits, codes = layer_codes(pred, images)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0}
+                  "int8_conv": 0, "depthwise_int8": n_dw}
         if counts != expect:
             raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
         v3 = "v3" in name
@@ -1741,11 +1769,13 @@ def trainer_path(dev, run_cfg, root, what="mobilenet"):
     n_sites = observers(probe)
     probe.prepare_int8("cpu", IMAGE)
     n_mm, n_conv = len(matmul_convs(probe)), len(dense_convs(probe))
-    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
+            "depthwise_int8": 0}
     expect = {("train", FP32): zero,
               ("train", QAT): {**zero, "fake_quant_observe": n_sites},
               ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
-              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm, "int8_conv": n_conv}}
+              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm, "int8_conv": n_conv,
+                               "depthwise_int8": len(depthwise_convs(probe))}}
     rep = {}
     torch.cuda.reset_peak_memory_stats()
     cfg = classification.ClassificationConfig(save_dir=save_dir, **run_cfg)
@@ -1792,7 +1822,7 @@ def trainer_path(dev, run_cfg, root, what="mobilenet"):
 
 def group_inputs(model, x):
     """``{group: [(module, input)]}`` of one INT8 forward: the depthwise
-    convs (torch ops), the hard-swishes and the squeeze-excites."""
+    convs (the depthwise kernel), the hard-swishes and the squeeze-excites."""
     groups, hooks = {"depthwise": [], "hswish": [], "se": []}, []
 
     def keep(group):
@@ -1891,7 +1921,7 @@ def mobilenet_phase(dev):
     ops.reset_launch_counts()
     rep["trainer"] = trainer_path(dev, MB_TRAINER_CFG, os.path.join(PHASE15_DIR, "trainer"))
     launches["trainer"] = ops.launch_counts()
-    for k in ("fake_quant_observe", "int8_matmul_requant"):
+    for k in ("fake_quant_observe", "int8_matmul_requant", "depthwise_int8"):
         if launches["trainer"][k] == 0:
             raise AssertionError(f"phase 15's trainer path launched no {k}")
     rep["timing"] = time_mobilenets(preds, dev)
@@ -1906,9 +1936,9 @@ PHASE16_DIR = os.path.join(ROOT, "build", "phase16")
 # non-strided 3x3s on the dense conv kernel; the stem, the strided 3x3s, the
 # 1x1s and the downsamples on the matmul kernel
 RESNET_LAUNCHES = {"qresnet18": {"int8_matmul_requant": 7, "frost_block_int8": 0,
-                                 "fake_quant_observe": 0, "int8_conv": 13},
+                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0},
                    "qresnet50": {"int8_matmul_requant": 40, "frost_block_int8": 0,
-                                 "fake_quant_observe": 0, "int8_conv": 13}}
+                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0}}
 RESNET_SITES = {"qresnet18": 51, "qresnet50": 125}
 RESNET_KERNELS = {"int8_conv": "conv3x3_s1_int8", "int8_matmul_requant": "int8_matmul_requant"}
 # ResNeXt-101 32x8d's grouped 3x3s, one per stage: (H in, width, stride)
@@ -2317,13 +2347,13 @@ def serve_segs(dev):
         ref = np.load(os.path.join(TESTDATA, f"seg_{name}_reference.npz"))
         model, fn = seg_served_model(name, dev, PHASE17_DIR)
         served[name] = (model, fn)
-        n_mm = len(matmul_convs(model))
+        n_mm, n_dw = len(matmul_convs(model)), len(depthwise_convs(model))
         ops.reset_launch_counts()
         logits, codes = seg_layer_codes(model, fn, images)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0}
+                  "int8_conv": 0, "depthwise_int8": n_dw}
         if counts != expect:
             raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
         layers, moved, images_moved = check_seg_layers(name, codes, ref, se_layers(model))
@@ -2496,11 +2526,13 @@ def seg_trainer_path(dev):
     n_sites = observers(probe)
     probe.prepare_int8("cpu")
     n_mm = len(matmul_convs(probe))
-    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
+            "depthwise_int8": 0}
     expect = {("train", FP32): zero,
               ("train", QAT): {**zero, "fake_quant_observe": n_sites},
               ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
-              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm}}
+              ("eval", INT8): {**zero, "int8_matmul_requant": n_mm,
+                               "depthwise_int8": len(depthwise_convs(probe))}}
     names = ("make_seg_train_step", "make_seg_eval_step")
     rep = {}
     torch.cuda.reset_peak_memory_stats()
@@ -2702,7 +2734,7 @@ def seg_phase(dev):
     ops.reset_launch_counts()
     rep["trainer"] = seg_trainer_path(dev)
     launches["trainer"] = ops.launch_counts()
-    for k in ("fake_quant_observe", "int8_matmul_requant"):
+    for k in ("fake_quant_observe", "int8_matmul_requant", "depthwise_int8"):
         if launches["trainer"][k] == 0:
             raise AssertionError(f"phase 17's trainer path launched no {k}")
     torch.cuda.empty_cache()
@@ -2988,13 +3020,13 @@ def serve_dets(dev):
         ref = np.load(os.path.join(TESTDATA, f"det_{net}_reference.npz"))
         pred = det_served(net, dev, PHASE18_DIR)
         served[net] = pred
-        n_mm = len(matmul_convs(pred.feat))
+        n_mm, n_dw = len(matmul_convs(pred.feat)), len(depthwise_convs(pred.feat))
         ops.reset_launch_counts()
         (loc, conf), sources, codes = det_layer_codes(pred, images)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0}
+                  "int8_conv": 0, "depthwise_int8": n_dw}
         if counts != expect:
             raise AssertionError(f"{net}: launches per forward {counts} != {expect}")
         layers = check_det_layers(net, codes, sources, ref)
@@ -3126,7 +3158,8 @@ def det_trainer_path(dev):
     save_dir = os.path.join(root, "run")
     probe = det_train.build_net("qssd", DET_CLASSES)[0]
     n_sites = observers(probe)
-    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
+            "depthwise_int8": 0}
     expect = {("train", FP32): zero, ("train", QAT): {**zero, "fake_quant_observe": n_sites}}
     names = ("make_det_train_step", "make_det_eval_step")
     rep = {}
@@ -3160,7 +3193,8 @@ def det_trainer_path(dev):
     after = ops.launch_counts()
     rep["evaluator_launches"] = {k: after[k] - before[k] for k in after}
     if rep["evaluator_launches"]["fake_quant_observe"] == 0 or \
-            rep["evaluator_launches"]["int8_matmul_requant"] == 0:
+            rep["evaluator_launches"]["int8_matmul_requant"] == 0 or \
+            rep["evaluator_launches"]["depthwise_int8"] == 0:
         raise AssertionError(f"qeval launched {rep['evaluator_launches']}")
     pred = serve.DetPredictor("qssd", artifact=base, device=dev)
     ds = qeval.eval_dataset("synthetic", "", DET_CLASSES, 8)
@@ -3941,7 +3975,8 @@ def route_counts(model):
     convs = [m for m in model.modules() if isinstance(m, QConvBNAct) and hasattr(m, "_route")]
     return {"int8_matmul_requant": sum(m._route in ("matmul", "im2col") for m in convs),
             "frost_block_int8": 0, "fake_quant_observe": 0,
-            "int8_conv": sum(m._route == "dense3x3" for m in convs)}
+            "int8_conv": sum(m._route == "dense3x3" for m in convs),
+            "depthwise_int8": sum(m._route == "depthwise" for m in convs)}
 
 
 def serve_zoo_classifiers(dev):
@@ -4086,7 +4121,8 @@ def serve_zoo_segs(dev):
                 and (m.in_features % 4 or m.features % 4)]
         try:
             rec["profile"] = profile_forward(fn, x, {"int8_matmul_requant": "matmul",
-                                                     "int8_conv": "conv3x3_s1_int8"})
+                                                     "int8_conv": "conv3x3_s1_int8",
+                                                     "depthwise_int8": "depthwise_int8_kernel"})
             log_profile(f"{name} INT8 forward at {SEG_CROP}x{SEG_CROP}, batch {ZOO_SEG_BATCH}",
                         rec["profile"])
         except RuntimeError as e:
@@ -4269,12 +4305,14 @@ def zoo_seg_trainer_path(dev):
     n_sites = observers(probe)
     probe.prepare_int8("cpu")
     n_int8 = route_counts(probe)
-    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0}
+    zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
+            "depthwise_int8": 0}
     expect = {("train", FP32): zero,
               ("train", QAT): {**zero, "fake_quant_observe": n_sites},
               ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
               ("eval", INT8): {**zero, "int8_matmul_requant": n_int8["int8_matmul_requant"],
-                               "int8_conv": n_int8["int8_conv"]}}
+                               "int8_conv": n_int8["int8_conv"],
+                               "depthwise_int8": n_int8["depthwise_int8"]}}
     names = ("make_seg_train_step", "make_seg_eval_step")
     rep = {}
     with StepCounter(seg_train, *names) as counter:
@@ -4328,7 +4366,7 @@ def zoo_phase(dev):
     ops.reset_launch_counts()
     rep["trainer"] = zoo_seg_trainer_path(dev)
     launches["espnetv2 trainer"] = ops.launch_counts()
-    for k in ("fake_quant_observe", "int8_matmul_requant", "int8_conv"):
+    for k in ("fake_quant_observe", "int8_matmul_requant", "int8_conv", "depthwise_int8"):
         if sum(c[k] for c in launches.values()) == 0:
             raise AssertionError(f"phase 20 launched no {k}")
     seen = {r["shape"].split(" ")[-1] for r in odd_rows}
@@ -4359,6 +4397,7 @@ class plain_kernels:
 
         self.saved = [(conv_mod, "int8_matmul_requant", int8_matmul_requant_plain),
                       (conv_mod, "conv3x3_s1_int8", conv3x3_s1_int8_plain),
+                      (conv_mod, "depthwise_int8", depthwise_int8_plain),
                       (frostnet_mod, "frost_block_int8", frost_block_int8_plain)]
         self.saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
@@ -4409,10 +4448,11 @@ def serve_seg_phase(dev):
     if pngs != [f"pred_{i:05d}.png" for i in range(b)]:
         raise AssertionError(f"seg serving wrote {pngs}, not {b} class maps")
     pred = serve.seg_predictor(name, artifact, SEG_CLASSES, h, dev)
-    n_mm = len(matmul_convs(pred.model))
+    n_mm, n_dw = len(matmul_convs(pred.model)), len(depthwise_convs(pred.model))
     if launches != {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                    "int8_conv": 0}:
-        raise AssertionError(f"seg serving: launches a forward {launches}, {n_mm} matmuls expected")
+                    "int8_conv": 0, "depthwise_int8": n_dw}:
+        raise AssertionError(f"seg serving: launches a forward {launches}, {n_mm} matmuls and "
+                             f"{n_dw} depthwise convs expected")
     x = torch.as_tensor(np.random.RandomState(21).randn(b, h, w, 3).astype(np.float32),
                         device=dev)
     logits, codes = seg_layer_codes(pred.model, pred, x)
@@ -4434,7 +4474,8 @@ def serve_seg_phase(dev):
     log(f"[tools] serve --workload seg {name} {h}x{w} batch {b}: "
         f"{rep['request_images_per_sec']} images/s a request (p50 {rep['latency_ms']['p50']} ms, "
         f"p95 {rep['latency_ms']['p95']} ms), {rep['pipeline_images_per_sec']} pipelined; "
-        f"{launches['int8_matmul_requant']} matmul launches a forward; {len(pngs)} PNGs; "
+        f"{launches['int8_matmul_requant']} matmul and {launches['depthwise_int8']} depthwise "
+        f"launches a forward; {len(pngs)} PNGs; "
         f"codes at {len(codes)} layers, logits and class maps == the plain path on the card")
     return out, ops.launch_counts()
 
@@ -4443,7 +4484,8 @@ def program_phase(dev):
     """Phase 21b: the serialized program of the committed INT8 fixture, fused
     and unfused: exported once on a symbolic batch, served by ``serve.main
     --program`` at batch 8 and 128 (logits bit-equal to the in-process
-    ``Int8Predictor``, the same launches a forward); the program loaded in
+    ``Int8Predictor``, and the same launches a forward, the depthwise kernel's
+    among them); the program loaded in
     this process and the in-process model timed with CUDA events, as phase 6
     times serving. The block op's launch plans go with the dropped
     programs."""
@@ -4451,9 +4493,9 @@ def program_phase(dev):
 
     out, launches = {}, {}
     expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-                     "int8_conv": 0},
+                     "int8_conv": 0, "depthwise_int8": 0},
               False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
-                      "int8_conv": 0}}
+                      "int8_conv": 0, "depthwise_int8": 18}}
     for fuse in (True, False):
         what = "fused" if fuse else "unfused"
         pred = Int8Predictor(MODEL, artifact=ARTIFACT, image_size=IMAGE, fuse_int8=fuse,
@@ -4481,7 +4523,11 @@ def program_phase(dev):
                                      f"{expect[fuse]}")
             x = torch.as_tensor(np.random.RandomState(0).randn(b, IMAGE, IMAGE, 3)
                                 .astype(np.float32), device=dev)
+            ops.reset_launch_counts()
             want = pred(x).cpu()
+            if ops.launch_counts() != got:
+                raise AssertionError(f"program {what} batch {b}: launches a forward {got} != "
+                                     f"the in-process predictor's {ops.launch_counts()}")
             if not (torch.equal(torch.as_tensor(np.load(saved)), want)
                     and torch.equal(prog(x).cpu(), want)):
                 raise AssertionError(f"program {what} batch {b}: logits != the in-process "
@@ -4511,7 +4557,7 @@ def dilated_phase(dev):
     the fixture's variables, INT8 with ``fuse_int8``: the four features
     bit-equal to the plain path on the card; the block kernel only at the
     undilated blocks, the matmul kernel at the stem and the dilated blocks'
-    1x1s."""
+    1x1s, the depthwise kernel at the dilated blocks' depthwise convs."""
     from frostnet_tpu_torch.quant import load_int8
     from frostnet_tpu_torch.quant.export import artifact_qconfig
 
@@ -4525,7 +4571,7 @@ def dilated_phase(dev):
         expect = {"frost_block_int8": len(model.block_specs(size)),
                   "int8_matmul_requant": 1 + sum(blk.has_squeeze + blk.has_expand + 1
                                                  for blk in dilated),
-                  "fake_quant_observe": 0, "int8_conv": 0}
+                  "fake_quant_observe": 0, "int8_conv": 0, "depthwise_int8": len(dilated)}
         x = torch.as_tensor(np.random.RandomState(os_ + size).randn(b, size, size, 3)
                             .astype(np.float32), device=dev)
         ops.reset_launch_counts()
@@ -4566,9 +4612,10 @@ def numeric_suite_phase(dev):
     rows = {"card": compare_modes(pred.model, x)}
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    if counts["fake_quant_observe"] != N_SITES or counts["int8_matmul_requant"] != 52:
-        raise AssertionError(f"numeric suite launches {counts}: {N_SITES} fake-quant sites "
-                             "and 52 matmuls expected")
+    if counts["fake_quant_observe"] != N_SITES or counts["int8_matmul_requant"] != 52 or \
+            counts["depthwise_int8"] != 18:
+        raise AssertionError(f"numeric suite launches {counts}: {N_SITES} fake-quant sites, "
+                             "52 matmuls and 18 depthwise convs expected")
     ops.reset_launch_counts()
     if not torch.equal(pred(x), served) or ops.launch_counts()["frost_block_int8"] != 18:
         raise AssertionError("numeric suite: the predictor no longer serves as before")
@@ -4637,7 +4684,7 @@ DP_STEPS = ("FP32", "QAT", "QAT")
 DP_TIMEOUT = 150  # seconds the ranks may take, their start included
 # launches of fused serving at batch 8 on two replicas: 18 blocks + 3 matmuls each
 DP_SERVE_LAUNCHES = {"frost_block_int8": 36, "int8_matmul_requant": 6, "fake_quant_observe": 0,
-                     "int8_conv": 0}
+                     "int8_conv": 0, "depthwise_int8": 0}
 
 
 def native_phase(dev):
@@ -5846,8 +5893,8 @@ def _route_layer(cfg, device):
 def p23_routes(dev, launches):
     """Phase 23 (d): the INT8 routes the port once refused, on the card
     against the plain version on the CPU (the same layer frozen on each):
-    the padded 1x1's matmul kernel and the depthwise and grouped routes'
-    torch ops, codes bit-equal."""
+    the padded 1x1's matmul kernel, the depthwise kernel and the grouped
+    route's torch ops, codes bit-equal."""
     rep = {}
     for cfg in P23_ROUTES:
         layer, x = _route_layer(cfg, dev)
@@ -5863,6 +5910,9 @@ def p23_routes(dev, launches):
         launches[f"p23 route {cfg[0]}"] = counts
     if rep["padded 1x1"]["launches"]["int8_matmul_requant"] != 1:
         raise AssertionError(f"[p23] the padded 1x1 launched {rep['padded 1x1']['launches']}")
+    for name, r in rep.items():
+        if r["route"] == "depthwise" and r["launches"]["depthwise_int8"] != 1:
+            raise AssertionError(f"[p23] the {name} launched {r['launches']}")
     log(f"[p23] INT8 routes on the card == plain, codes bit for bit: "
         + "; ".join(f"{n} ({r['route']}, {r['shape']}, {r['distinct_codes']} codes)"
                     for n, r in rep.items()))
@@ -5899,6 +5949,43 @@ def last_configs_phase(dev):
     if errors:
         raise AssertionError("phase 23: " + " | ".join(errors))
     return rep, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the INT8 depthwise kernel
+# ---------------------------------------------------------------------------
+
+
+def depthwise_phase(dev):
+    """Phase 24: the depthwise kernel against its plain version at batch 8 on
+    codes at an odd byte offset and at a channel multiplier of 4, then
+    checked and timed at the segmentation cell's 15 shapes. Returns (report,
+    max error)."""
+    from scripts.time_depthwise_int8 import case, run
+
+    err, extra = 0, []
+    for shape, m in (((64, 128, 120, 5, 1, 1), 1), ((32, 64, 672, 5, 1, 2), 1),
+                     ((19, 19, 32, 3, 2, 1), 4)):
+        x, op = case(shape, 7, dev)
+        if m > 1:  # the SSD extras' 3x3 maps: output channel oc reads input oc // 4
+            g = torch.Generator().manual_seed(8)
+            qw = torch.randint(-128, 128, (3, 3, 1, 4 * shape[2]), generator=g,
+                               dtype=torch.int8)
+            op = depthwise_operands(qw, torch.full((4 * shape[2],), 1e-4), torch.zeros(
+                4 * shape[2]), 97, 0.05, 128, False, 0, 255, 2, 1, (1, 1), dev)
+        buf = torch.empty(x.numel() + 1, dtype=torch.uint8, device=dev)
+        odd = buf[1:].view(x.shape)
+        odd.copy_(x)
+        want = depthwise_int8_plain(x, op)
+        err = max(err, check_equal(f"depthwise {shape} m {m}", depthwise_int8(x, op), want),
+                  check_equal(f"depthwise {shape} m {m}, one byte in", depthwise_int8(odd, op),
+                              want))
+        extra.append(f"{'x'.join(map(str, shape))} m {m}")
+    torch.cuda.synchronize()
+    log(f"[depthwise] depthwise_int8 == plain at batch 8, aligned and one byte into the "
+        f"storage: {extra}")
+    rep = run(dev, log=lambda line: log(f"[time] depthwise_int8 {line.strip()}"))
+    return {"checked": extra, **rep}, err
 
 
 def main(argv=None):
@@ -6030,9 +6117,9 @@ def main(argv=None):
         log(f"[serve] {what} launches per forward: {counts[fuse]}; codes == JAX reference "
             f"at {len(layers)} layers x {BATCH} images")
     expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-                     "int8_conv": 0},
+                     "int8_conv": 0, "depthwise_int8": 0},
               False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
-                      "int8_conv": 0}}
+                      "int8_conv": 0, "depthwise_int8": 18}}
     for fuse in (True, False):
         if counts[fuse] != expect[fuse]:
             raise AssertionError(f"launch counts {counts[fuse]} != {expect[fuse]}")
@@ -6228,6 +6315,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     report["last_configs"], last_counts = last_configs_phase(dev)
 
+    # 24. the INT8 depthwise kernel at the segmentation cell's 15 shapes
+    torch.cuda.empty_cache()
+    report["depthwise"], max_err["depthwise_int8"] = depthwise_phase(dev)
+    dw = report["depthwise"]["total"]
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -6260,7 +6352,14 @@ def main(argv=None):
          "plain_ms": fq_time["plain_ms"], "bound_ms": fq_time["bound_ms"],
          "bound_by": fq_time["bound_by"], "library_ms": fq_time["library_ms"],
          "device_ms": fq_time["graph_ms"], "wall_ms": fq_time["wall_ms"]},
-        summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"])]}
+        summary("int8_conv", CONV_SOURCE, CONV_REPLACES, (None,), gan_counts["int8_conv"]),
+        {"name": "depthwise_int8", "route": "cuda", "source": DW_SOURCE,
+         "replaces": DW_REPLACES,
+         "launches": report["tools"]["seg_serving"]["launches"]["depthwise_int8"],
+         "max_abs_err": max_err["depthwise_int8"], "ms": dw["device_ms"],
+         "plain_ms": dw["plain_ms"], "bound_ms": dw["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "device_ms": dw["graph_all_ms"],
+         "plain_launches": dw["plain_launches"]}]}
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
         for key, path_counts in (("mobilenet_launches", mb_counts),

@@ -43,10 +43,11 @@ takes one of five routes:
 * depthwise kh x kw, dilated or not (the segmentation trunks' last stage
   runs dilation 2), with or without a channel multiplier (the SSD extras'
   3x3 maps 32 -> 128 channels, output channel ``oc`` reading input
-  ``oc // 4``), at any kernel shape and padding: kh*kw shifted integer
-  multiply-adds in torch over (kh*kw, Cout) taps, tap ``(dy, dx)`` at
-  ``dilation * (dy, dx)`` of the zero-point-padded codes (JAX runs the same
-  multiply-adds as XLA code, not a TPU kernel);
+  ``oc // 4``), at any kernel shape and padding: the INT8 depthwise kernel
+  with its epilogue (``ops/depthwise_int8``; its plain version, kh*kw
+  shifted integer multiply-adds over (kh*kw, Cout) taps, tap ``(dy, dx)`` at
+  ``dilation * (dy, dx)`` of the zero-point-padded codes, on the CPU; JAX
+  runs the same multiply-adds as XLA code, not a TPU kernel);
 * dense 3x3 stride 1 dilation 1 with 'same' padding (the GAN's ResnetBlock
   and up convs): the dense 3x3 INT8 conv kernel (``ops/int8_conv``);
 * any other dense kxk (the stems, strided convs, R-ASPP's atrous 3x3s):
@@ -82,10 +83,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from ..ops.depthwise_int8 import depthwise_int8, depthwise_operands
 from ..ops.int8_conv import conv3x3_operands, conv3x3_s1_int8
 from ..ops.int8_matmul import conv1x1_operands, int8_matmul_requant
-from ..ops.requant import (conv_acc, depthwise_acc, epilogue_constants, reciprocal,
-                           requant_epilogue)
+from ..ops.requant import conv_acc, epilogue_constants, reciprocal, requant_epilogue
 from ..parallel.mesh import Mesh, active_mesh, mp_enter, mp_slice, mp_sum
 from ..quant import QConfig, QNNPACK, bn_scale_factor, calculate_qparams_folded, fold_bn, quantize
 from ..quant.qtensor import QParams, QTensor
@@ -323,9 +324,9 @@ class QConvBNAct(nn.Module):
                                         relu, qmin, qmax, device)
         elif self.depthwise:  # channel multiplier features // groups, 1 or more
             self._route = "depthwise"
-            self._taps = qw.reshape(kh * kw, self.features).to(device)
-            scale, bias, mult = epilogue_constants(comb, bf, out_s, relu)
-            self._epilogue = (scale.to(device), bias.to(device), mult, qmin, qmax)
+            self._op = depthwise_operands(qw, comb, bf, x.zero_point, out_s, out_zp, relu,
+                                          qmin, qmax, self.strides, self.dilation, (ph, pw),
+                                          device)
         elif ((kh, kw) == (3, 3) and self.strides == 1 and (ph, pw) == (1, 1)
               and self.dilation == 1 and self.groups == 1):
             self._route = "dense3x3"
@@ -480,13 +481,12 @@ class QConvBNAct(nn.Module):
         QTensor into a quantized block in INT8 (frozen)."""
         if not mode.int8 or not self.quantized:
             return self._float_forward(x, mode, train)
-        if self._route in ("depthwise", "grouped"):
-            if self._route == "depthwise":
-                acc = depthwise_acc(x.q, self._taps, self.kernel_size, self.strides,
-                                    self._in.zero_point, self.dilation, _pair(self.padding))
-            else:
-                acc = conv_acc(x.q, self._w64, self._in.zero_point, self.strides,
-                               _pair(self.padding), self.groups, self.dilation)
+        if self._route == "depthwise":
+            # (a channel split, ShuffleNetV2's, hands over a strided view)
+            return QTensor(depthwise_int8(x.q.contiguous(), self._op), *self._out_t)
+        if self._route == "grouped":
+            acc = conv_acc(x.q, self._w64, self._in.zero_point, self.strides,
+                           _pair(self.padding), self.groups, self.dilation)
             scale, bias, mult, qmin, qmax = self._epilogue
             q = requant_epilogue(acc, scale, bias, mult, self._out.zero_point,
                                  self.act in ("relu", "relu6"), qmin, qmax)

@@ -32,7 +32,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "frostnet_tpu_torch"
-SOURCES = ("int8_matmul", "frost_block", "fake_quant", "int8_conv")
+SOURCES = ("int8_matmul", "frost_block", "fake_quant", "int8_conv", "depthwise_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -25,8 +25,9 @@ own and of no unit that the benchmark counts):
   ``optim.flatten``, ``optim.<stage>`` for each stage, ``optim.write_back``;
 * ``request`` of ``quant/freeze.py::freeze``'s predictor: ``request.input``
   (the images to the device) and ``request.forward``;
-* ``ops.fake_quant``, ``ops.int8_matmul``, ``ops.frost_block`` and
-  ``ops.int8_conv``: the whole call of each kernel wrapper.
+* ``ops.fake_quant``, ``ops.int8_matmul``, ``ops.frost_block``,
+  ``ops.int8_conv`` and ``ops.depthwise``: the whole call of each kernel
+  wrapper.
 
 The JAX package's ``FROSTNET_COMPILE_ONLY`` prewarm has no counterpart:
 nothing here compiles.

@@ -123,7 +123,8 @@ def test_int8_matmul_kernel_relu6_clamp(cuda_device):
 @pytest.mark.parametrize("name", ["qmobilenet_v2_ReLU", "qmobilenet_v3_large_HS"])
 def test_mobilenet_predictor_launches(cuda_device, name, tmp_path):
     """The full-width MobileNet fixture served on the card: one matmul launch
-    per 1x1 or im2col conv and nothing else, every layer's codes and the
+    per 1x1 or im2col conv, one depthwise launch per depthwise conv and
+    nothing else, every layer's codes and the
     logits equal to the committed JAX reference (first two images)."""
     from chip_smoke import TESTDATA, code_digests, layer_codes, mobilenet_predictor
     from frostnet_tpu_torch.nn import QConvBNAct
@@ -132,12 +133,15 @@ def test_mobilenet_predictor_launches(cuda_device, name, tmp_path):
     pred = mobilenet_predictor(name, cuda_device, str(tmp_path))
     n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in pred.model.modules()
                if isinstance(m, QConvBNAct))
+    n_dw = sum(getattr(m, "_route", None) == "depthwise" for m in pred.model.modules()
+               if isinstance(m, QConvBNAct))
     images = np.random.RandomState(0).randn(2, 224, 224, 3).astype(np.float32)
     ops.reset_launch_counts()
     logits, codes = layer_codes(pred, images)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
-                                   "fake_quant_observe": 0, "int8_conv": 0}
+    assert n_dw > 0 and ops.launch_counts() == {
+        "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+        "int8_conv": 0, "depthwise_int8": n_dw}
     for k in ref.files:
         if k.startswith("sha256/"):
             assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
@@ -331,7 +335,8 @@ def test_gan_predictor_launches(cuda_device):
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 0,
-                                   "fake_quant_observe": 0, "int8_conv": 20}
+                                   "fake_quant_observe": 0, "int8_conv": 20,
+                                   "depthwise_int8": 0}
     assert out.shape == (4, 256, 256, 3) and bool(torch.isfinite(out).all())
     want = ref["output"]
     assert float(np.abs(out[:len(want)].cpu().numpy() - want).max()) <= GAN_TAIL_BAND
@@ -353,7 +358,7 @@ def test_resnet_predictor_launches(cuda_device, name, tmp_path):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"int8_matmul_requant": 7 if name == "qresnet18" else 40,
                                    "frost_block_int8": 0, "fake_quant_observe": 0,
-                                   "int8_conv": 13}
+                                   "int8_conv": 13, "depthwise_int8": 0}
     for k in ref.files:
         if k.startswith("sha256/"):
             assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
@@ -426,7 +431,8 @@ def test_fake_quant_kernel_seg_largest_sites(cuda_device, shape):
 @pytest.mark.parametrize("name", ["mobilenetv3_RE_small", "mobilenetv3_large"])
 def test_seg_fixture_served_on_the_card(cuda_device, name, tmp_path):
     """The full-width segmentation fixture (768x768) served on the card: one
-    matmul launch per 1x1 or im2col conv and nothing else; every layer's
+    matmul launch per 1x1 or im2col conv, one depthwise launch per depthwise
+    conv and nothing else; every layer's
     codes equal to the committed JAX digests, the sampled logits and the
     argmax within the bands of ``tests/test_torch_seg_fixture.py`` (first
     image)."""
@@ -437,12 +443,15 @@ def test_seg_fixture_served_on_the_card(cuda_device, name, tmp_path):
     model, fn = seg_served_model(name, cuda_device, str(tmp_path))
     n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in model.modules()
                if isinstance(m, QConvBNAct))
+    n_dw = sum(getattr(m, "_route", None) == "depthwise" for m in model.modules()
+               if isinstance(m, QConvBNAct))
     images = np.random.RandomState(0).randn(1, 768, 768, 3).astype(np.float32)
     ops.reset_launch_counts()
     logits, codes = seg_layer_codes(model, fn, images)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
-                                   "fake_quant_observe": 0, "int8_conv": 0}
+    assert n_dw > 0 and ops.launch_counts() == {
+        "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+        "int8_conv": 0, "depthwise_int8": n_dw}
     check_against_reference(name, model, logits, codes, 1)
 
 
@@ -490,8 +499,8 @@ def test_int8_matmul_kernel_det_shapes(cuda_device, m, k, n):
 @pytest.mark.parametrize("net", ["qssd", "qtdsod"])
 def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
     """The full-width detection fixture (300x300) served on the card through
-    ``serve.DetPredictor``: one matmul launch per 1x1 or im2col conv and
-    nothing else; every layer's codes and each source equal to the
+    ``serve.DetPredictor``: one matmul launch per 1x1 or im2col conv, one
+    depthwise launch per depthwise conv and nothing else; every layer's codes and each source equal to the
     committed JAX digests; loc, conf and the kept boxes within the bands of
     ``tests/test_torch_det_fixture.py`` (first image)."""
     from chip_smoke import (TESTDATA, check_det_layers, det_layer_codes, det_outputs_check,
@@ -501,12 +510,15 @@ def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
     pred = det_served(net, cuda_device, str(tmp_path))
     n_mm = sum(getattr(m, "_route", None) in ("matmul", "im2col") for m in pred.feat.modules()
                if isinstance(m, QConvBNAct))
+    n_dw = sum(getattr(m, "_route", None) == "depthwise" for m in pred.feat.modules()
+               if isinstance(m, QConvBNAct))
     images = np.random.RandomState(0).randn(1, 300, 300, 3).astype(np.float32)
     ops.reset_launch_counts()
     (loc, conf), sources, codes = det_layer_codes(pred, images)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"int8_matmul_requant": n_mm, "frost_block_int8": 0,
-                                   "fake_quant_observe": 0, "int8_conv": 0}
+    assert n_dw > 0 and ops.launch_counts() == {
+        "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
+        "int8_conv": 0, "depthwise_int8": n_dw}
     ref = np.load(f"{TESTDATA}/det_{net}_reference.npz")
     check_det_layers(net, codes, sources, ref)
     det_outputs_check(net, loc, conf, pred.priors, ref)
@@ -514,8 +526,8 @@ def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
 
 def test_channel_multiplier_depthwise_matches_cpu(cuda_device):
     """The SSD extras' INT8 depthwise conv with a channel multiplier (32 ->
-    128, stride 2; torch ops) gives the same codes on the card as on the
-    CPU."""
+    128, stride 2; the depthwise kernel) gives the same codes on the card as
+    on the CPU."""
     from frostnet_tpu_torch.nn import INT8, QConvBNAct
     from frostnet_tpu_torch.quant import QParams, QTensor
 
@@ -565,7 +577,8 @@ def test_serving_program_launches_the_kernels(cuda_device, tmp_path):
         got = prog(x)
         torch.cuda.synchronize()
         assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 18,
-                                       "fake_quant_observe": 0, "int8_conv": 0}
+                                       "fake_quant_observe": 0, "int8_conv": 0,
+                                       "depthwise_int8": 0}
         assert got.device.type == "cuda" and torch.equal(got, pred(x))
     assert len(frost_block._PLANS) >= 18
     plans = len(frost_block._PLANS)

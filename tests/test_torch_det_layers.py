@@ -68,7 +68,7 @@ def test_channel_multiplier_int8_codes_bit_equal(cfg):
     q, grid, xf = _block_input(cfg[1], 101, size=19)
     tree = _calibrate_jax(jmod, _block_tree(port, 102), xf, {"train": False})
     flips, worst, _ = _int8_compare(jmod, port, tree, q, grid, {"train": False})
-    assert port._route == "depthwise" and port._taps.shape == (9, cfg[2])
+    assert port._route == "depthwise" and port._op.taps.shape == (9, cfg[2])
     assert flips == 0, (flips, worst)
     per_channel = cfg[5] == "fbgemm"
     assert tuple(port.w_obs.min_val.shape) == ((cfg[2],) if per_channel else ())
