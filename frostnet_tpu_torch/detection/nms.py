@@ -13,8 +13,12 @@ boxes, written by hand in torch ops (no library NMS), batched over every
   ``fori_loop`` is: ``top_k`` steps, each one masked update of the whole
   (B, C-1, K) keep mask on the device. NMS is XLA code in the JAX package,
   not a Pallas kernel, so torch ops are its port. A ``detect`` call's
-  launches grow with ``top_k`` (four ops a greedy step) and not with the
-  batch; ``chip_smoke.py`` phase 18 counts them on the card.
+  kernels grow with ``top_k`` (three a greedy step) and not with the
+  batch: ``nms_fixed`` ran 636 kernels at ``top_k`` 200 on an H100, at
+  batch 32 and at 256 alike (the detection cell's ``nms_launches.serve``,
+  read from the device trace). On the card the greedy pass is one CUDA
+  graph per shape (``utils/cuda_graphs.py::Replay``): the host issues one
+  launch for its 600 kernels, which it took some 8 ms to issue one by one.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.cuda_graphs import Replay
+from ..utils.profiling import span
 from .boxes import decode
 
 
@@ -44,6 +50,19 @@ def top_k_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tens
     return v[..., :k], i[..., :k]
 
 
+def _greedy(cand: torch.Tensor) -> torch.Tensor:
+    """The keep mask of the greedy pass over (..., K, K) ``cand`` (row i:
+    the later candidates that i suppresses), one masked step a candidate."""
+    keep = torch.ones(cand.shape[:-1], dtype=torch.bool, device=cand.device)
+    for i in range(cand.shape[-1]):
+        # suppress j > i overlapping i, if i is still kept
+        keep = keep & ~(cand[..., i, :] & keep[..., i:i + 1])
+    return keep
+
+
+_GREEDY = Replay(_greedy)
+
+
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 0.45,
               top_k: int = 200) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Greedy NMS over the ``top_k`` highest scores.
@@ -60,11 +79,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float = 
     above = iou > iou_threshold
     later = torch.triu(torch.ones(k, k, dtype=torch.bool, device=boxes.device), diagonal=1)
     cand = above & later
-    keep = torch.ones(top_scores.shape, dtype=torch.bool, device=boxes.device)
-    for i in range(k):
-        # suppress j > i overlapping i, if i is still kept
-        keep = keep & ~(cand[..., i, :] & keep[..., i:i + 1])
-    keep = keep & (top_scores > 0)
+    keep = _GREEDY(cand) & (top_scores > 0)
     return top_boxes, top_scores, keep
 
 
@@ -73,12 +88,16 @@ def detect(loc_pred: torch.Tensor, conf_pred: torch.Tensor, priors: torch.Tensor
            variances=(0.1, 0.2)) -> torch.Tensor:
     """Test-time decode (``nms.py:52-80``): per class, threshold, NMS, into
     a fixed (B, C, top_k, 5) tensor of (score, x1, y1, x2, y2); class 0, the
-    background, stays empty. ``conf_pred`` are softmax scores."""
-    boxes = decode(loc_pred, priors, variances)                        # (B, P, 4)
-    scores = conf_pred[..., 1:].transpose(1, 2)                        # (B, C-1, P)
-    s = torch.where(scores > conf_thresh, scores, torch.zeros_like(scores))
+    background, stays empty. ``conf_pred`` are softmax scores. Spans:
+    ``det.decode`` (the boxes and the thresholded scores) and ``det.nms``
+    (``nms_fixed``, with the device's CUDA events)."""
+    with span("det.decode"):
+        boxes = decode(loc_pred, priors, variances)                    # (B, P, 4)
+        scores = conf_pred[..., 1:].transpose(1, 2)                    # (B, C-1, P)
+        s = torch.where(scores > conf_thresh, scores, torch.zeros_like(scores))
     n_cls = s.shape[1]
-    b, sc, keep = nms_fixed(boxes[:, None].expand(-1, n_cls, -1, -1), s, nms_thresh, top_k)
+    with span("det.nms", boxes.device):
+        b, sc, keep = nms_fixed(boxes[:, None].expand(-1, n_cls, -1, -1), s, nms_thresh, top_k)
     sc = torch.where(keep, sc, torch.zeros_like(sc))
     out = torch.cat([sc[..., None], b], dim=-1)                        # (B, C-1, K, 5)
     return torch.cat([torch.zeros_like(out[:, :1]), out], dim=1)

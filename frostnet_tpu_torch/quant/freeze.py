@@ -8,7 +8,7 @@ the small torch ops between them.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,12 +26,15 @@ def resolve_device(device) -> torch.device:
 
 
 def freeze(model, device="cuda", image_size: int = 224) -> Callable:
-    """Return ``fn(images) -> output`` running ``model``'s frozen INT8 graph.
+    """Return ``fn(images, post=None) -> output`` running ``model``'s frozen
+    INT8 graph.
 
     ``images`` are (B, S, S, 3) float NHWC (numpy or torch); the model's
-    float32 output (a classifier's logits, a generator's images) comes back
-    as a tensor on ``device``. ``image_size`` fixes the fused blocks' launch
-    plans.
+    float32 output (a classifier's logits, a generator's images, a
+    detector's ``(loc, conf)``) comes back as a tensor on ``device``.
+    ``post`` runs on that output inside the same ``request`` span, and
+    ``fn`` returns what it returns (``serve.DetPredictor.detect``).
+    ``image_size`` fixes the fused blocks' launch plans.
     """
     from ..nn.mode import INT8
 
@@ -40,13 +43,14 @@ def freeze(model, device="cuda", image_size: int = 224) -> Callable:
     model.prepare_int8(device, image_size)
 
     @torch.inference_mode()
-    def fn(images):
+    def fn(images, post: Optional[Callable] = None):
         with span("request"):
             with span("request.input"):
                 x = torch.as_tensor(np.asarray(images, np.float32)
                                     if isinstance(images, np.ndarray) else images)
                 x = x.to(device=device, dtype=torch.float32)
             with span("request.forward"):
-                return model(x, mode=INT8)
+                out = model(x, mode=INT8)
+            return out if post is None else post(out)
 
     return fn

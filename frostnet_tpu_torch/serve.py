@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import time
@@ -68,10 +69,13 @@ import torch
 
 from .gan import define_g
 from .models import create_model
+from .nn import FP32, INT8
 from .parallel import make_dp_mesh, shard_rows
 from .quant import freeze, from_jax_variables, load_int8
 from .quant.export import artifact_qconfig
 from .quant.freeze import resolve_device
+from .utils.cuda_graphs import Replay
+from .utils.profiling import span
 
 _CLS_DEFAULT = "frostnet_quant_large_1_0"
 _DEFAULTS = {"cls": (_CLS_DEFAULT, 224), "seg": ("mobilenetv3_large", 512),
@@ -98,17 +102,18 @@ class Replicated:
     Each request batch is split over the largest divisor of its size that
     fits the replicas (``make_dp_mesh``), replica ``i`` takes its contiguous
     block of rows (``shard_rows``), and the outputs (a tensor or a tuple of
-    tensors) are gathered in order on the first device."""
+    tensors) are gathered in order on the first device. Keyword arguments
+    go to every replica's call (``freeze``'s ``post``)."""
 
     def __init__(self, fns: List[Callable], devices: Sequence[torch.device]):
         self.fns, self.devices = list(fns), list(devices)
 
-    def __call__(self, images):
+    def __call__(self, images, **kw):
         if len(self.fns) == 1:
-            return self.fns[0](images)
+            return self.fns[0](images, **kw)
         n = len(images)
         dp = make_dp_mesh(n, self.devices).dp
-        outs = [self.fns[i](images[shard_rows(n, dp, i)]) for i in range(dp)]
+        outs = [self.fns[i](images[shard_rows(n, dp, i)], **kw) for i in range(dp)]
         first = self.devices[0]
         if isinstance(outs[0], tuple):
             return tuple(torch.cat([o[k].to(first) for o in outs]) for k in range(len(outs[0])))
@@ -229,17 +234,46 @@ def seg_predictor(name: str, artifact: str, num_classes: int, image_size: int,
     return FrozenPredictor(model, artifact, image_size, devices=devices)
 
 
+class _Replayed(torch.nn.Module):
+    """``model`` whose frozen INT8 forward on the card replays a CUDA graph
+    captured per batch shape (``utils/cuda_graphs.py::Replay``): a
+    detector's feature net and float head are some 300 launches, which the
+    host took longer to issue than the card to run."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+        self._replay = Replay(self._int8)
+
+    def _int8(self, x):
+        return self.model(x, mode=INT8)
+
+    def prepare_int8(self, device, image_size: Optional[int] = None) -> None:
+        self.model.prepare_int8(device, image_size)
+
+    def forward(self, x, mode=FP32, train: bool = False):
+        if mode is INT8 and not train:
+            return self._replay(x)
+        return self.model(x, mode=mode, train=train)
+
+
 class DetPredictor:
     """SSD / Tiny-DSOD serving (``frostnet_tpu/serve.py:198-257``): the frozen
     INT8 feature net, then the float head, over ``BASE_feat.npz`` and
-    ``BASE_head.npz``; :meth:`detect` adds the softmax and ``detect``.
-    ``dp`` or ``devices`` replicate the two nets (``Replicated``)."""
+    ``BASE_head.npz``, as one ``freeze`` of ``detection.models.Detector``;
+    :meth:`detect` adds the softmax and ``detect`` inside the request
+    (``request.detect``). ``dp`` or ``devices`` replicate the two nets
+    (``Replicated``); each replica detects its own rows. On the card the
+    NMS's greedy pass, and SSD's forward, replay CUDA graphs, one a batch
+    shape (``utils/cuda_graphs.py::Replay``), captured at a shape's second
+    request."""
 
     def __init__(self, net_type: str = "qssd", artifact: Optional[str] = None,
                  num_classes: Optional[int] = None, dataset: str = "voc",
                  image_size: Optional[int] = None, device="cuda", dp: int = 1,
                  devices: Optional[Sequence] = None):
         from .detection.anchors import make_priors
+        from .detection.models import Detector
         from .detection.train import build_net, select_config
 
         if net_type not in ("qssd", "qtdsod"):
@@ -261,27 +295,13 @@ class DetPredictor:
                                          qconfig=artifact_qconfig(base + "_feat.npz"))
         from_jax_variables((self.feat, self.head),
                            (load_int8(base + "_feat.npz"), load_int8(base + "_head.npz")))
-        nets = [(self.feat, self.head)] + [copy.deepcopy((self.feat, self.head))
-                                           for _ in self.devices[1:]]
-        self._apply = Replicated([self._frozen(f, h, d) for (f, h), d in
-                                  zip(nets, self.devices)], self.devices)
-        self.priors = torch.as_tensor(make_priors(det_cfg), device=self.device)
-
-    @staticmethod
-    def _frozen(feat, head, device) -> Callable:
-        """The INT8 feature net and the float head on ``device``."""
-        from .nn import INT8
-
-        feat.to(device).eval()
-        head.to(device).eval()
-        feat.prepare_int8(device)
-
-        def fn(images):
-            x = torch.as_tensor(np.asarray(images, np.float32) if isinstance(images, np.ndarray)
-                                else images).to(device=device, dtype=torch.float32)
-            return head(feat(x, mode=INT8))
-
-        return fn
+        model = Detector(self.feat, self.head)
+        if net_type == "qssd":  # Tiny-DSOD's upsampling copies index tables from the host
+            model = _Replayed(model)  # (ops/resize.py) at each call: no capture holds that
+        self._apply = _frozen_replicas(model, self.devices, self.image_size)
+        on = [torch.as_tensor(make_priors(det_cfg)).to(d) for d in self.devices]
+        self._priors = {p.device: p for p in on}  # keyed as the outputs name their device
+        self.priors = on[0]
 
     @torch.inference_mode()
     def __call__(self, images):
@@ -292,11 +312,20 @@ class DetPredictor:
     @torch.inference_mode()
     def detect(self, images, conf_thresh: float = 0.25, top_k: int = 50) -> torch.Tensor:
         """(B, C, top_k, 5) rows (score, x1, y1, x2, y2) per class."""
+        step = functools.partial(self._detect, conf_thresh=conf_thresh, top_k=top_k)
+        return self._apply(images, post=step)
+
+    def _detect(self, out, conf_thresh: float, top_k: int) -> torch.Tensor:
+        """The softmax and ``detect`` of one replica's ``(loc, conf)``, on its
+        device, under the span ``request.detect``. The detection benchmark
+        (``portbench/drivers/serve_det.py``) wraps this method to keep the
+        logits behind each response."""
         from .detection.nms import detect
 
-        loc, conf = self(images)
-        return detect(loc, torch.softmax(conf, dim=-1), self.priors, conf_thresh=conf_thresh,
-                      top_k=top_k)
+        loc, conf = out
+        with span("request.detect"):
+            return detect(loc, torch.softmax(conf, dim=-1), self._priors[loc.device],
+                          conf_thresh=conf_thresh, top_k=top_k)
 
     def write_detections(self, path: str, images, start: int) -> None:
         """Append one JSON line per image (truncating on ``start == 0``):

@@ -24,7 +24,10 @@ own and of no unit that the benchmark counts):
 * under ``step.optimizer``, ``optim/gradboost.py``'s chain:
   ``optim.flatten``, ``optim.<stage>`` for each stage, ``optim.write_back``;
 * ``request`` of ``quant/freeze.py::freeze``'s predictor: ``request.input``
-  (the images to the device) and ``request.forward``;
+  (the images to the device), ``request.forward`` and, where the request
+  has a post-processing step, that step's span (``request.detect`` of
+  ``serve.DetPredictor``: the softmax and ``detection/nms.py::detect``,
+  inside it ``det.decode`` and ``det.nms``, the latter with CUDA events);
 * ``ops.fake_quant``, ``ops.int8_matmul``, ``ops.frost_block``,
   ``ops.int8_conv`` and ``ops.depthwise``: the whole call of each kernel
   wrapper.
