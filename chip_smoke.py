@@ -349,8 +349,14 @@ Phases (each raises on failure, and any failure exits non-zero):
      times each: profiler device ms where the profiler still records, a
      CUDA graph's ms, the plain chain's device ms and launches, the bound of
      ``depthwise_roofline.serve``).
+ 25. the bilinear resize kernel (``resize_phase``) at the segmentation
+     cell's three resizes at batch 8 (``scripts/time_resize_bilinear.py``:
+     bit for bit against its plain version, then profiler device ms, a CUDA
+     graph's ms, the plain chain's device ms and launches,
+     a graph's ms of ``F.interpolate``, the bound of ``resize_roofline.serve``).
 Every path's launch counts hold the depthwise kernel's beside the others'
-(one launch per INT8 depthwise conv of a forward).
+(one launch per INT8 depthwise conv of a forward), and the resize kernel's
+(one launch per resize of a forward, training steps included).
 The ``kernels`` line sums each kernel over its main paths: the matmul
 kernel over the fused FrostNet forward (batch 8) and the GAN forward
 (batch 8 for times, one forward each for launches). Its ``ms`` and
@@ -362,7 +368,8 @@ the block, matmul and conv entries add ``device_ms`` and
 ``library_device_ms``, the fake-quant entry ``device_ms`` (a replayed CUDA
 graph of the sites) and ``wall_ms``, the depthwise entry ``device_ms`` (one
 replayed CUDA graph of the 15 segmentation shapes; its launches those of a
-phase 21 seg serving forward). A
+phase 21 seg serving forward), the resize entry the same over its 3 shapes
+(``library_ms`` a CUDA graph's ms of ``F.interpolate``, which rounds otherwise). A
 matmul's bound counts its own K, not the zero columns the im2col route pads
 rows with.
 Each entry also gives ``trainer_launches``, its launches in phase 14,
@@ -386,7 +393,8 @@ layout, each ``remat`` step, each INT8 route).
 Phase 20 alone, after the build: ``python3 -c "import torch, chip_smoke as c;
 c.cuda_build.build(c.cuda_build.SOURCES); print(c.zoo_phase(torch.device('cuda'))[1])"``
 (``tools_phase`` for phase 21, ``dp_phase`` for phase 22, ``last_configs_phase``
-for phase 23); phase 24 alone: ``python3 scripts/time_depthwise_int8.py``.
+for phase 23); phase 24 alone: ``python3 scripts/time_depthwise_int8.py``;
+phase 25 alone: ``python3 scripts/time_resize_bilinear.py``.
 It prints a ``kernels`` JSON line, the card line, and last the device JSON.
 Details go to ``build/chip_smoke.json`` (``--out`` puts them elsewhere).
 """
@@ -424,6 +432,7 @@ from frostnet_tpu_torch.ops.int8_conv import (conv3x3_operands, conv3x3_s1_int8,
                                               conv3x3_s1_int8_plain)
 from frostnet_tpu_torch.ops.int8_matmul import (conv1x1_operands, int8_matmul_requant,
                                                 int8_matmul_requant_plain)
+from frostnet_tpu_torch.ops.resize import resize_bilinear_plain
 from frostnet_tpu_torch.optim import get_optimizer, grouped_weight_decay
 from frostnet_tpu_torch.quant import (ObserverState, QParams, QTensor, export_int8, freeze,
                                       from_jax_variables, get_qconfig, model_variables, numpy_init)
@@ -459,12 +468,14 @@ CONV_SOURCE = "frostnet_tpu_torch/csrc/int8_conv.cu"
 CONV_REPLACES = "frostnet_tpu/ops/pallas_int8_conv.py:145"
 DW_SOURCE = "frostnet_tpu_torch/csrc/depthwise_int8.cu"
 DW_REPLACES = "frostnet_tpu/nn/conv.py:423 (XLA code; no TPU kernel)"
+RESIZE_SOURCE = "frostnet_tpu_torch/csrc/resize_bilinear.cu"
+RESIZE_REPLACES = "frostnet_tpu/ops/resize.py:36 (XLA code; no TPU kernel)"
 GAN = "resnet_9blocks"
 GAN_ARTIFACT = os.path.join(TESTDATA, f"{GAN}_int8.npz")
 GAN_REFERENCE = os.path.join(TESTDATA, f"{GAN}_reference.npz")
 GAN_IMAGE, GAN_BATCH = 256, 4
 GAN_LAUNCHES = {"int8_matmul_requant": 3, "frost_block_int8": 0, "fake_quant_observe": 0,
-                "int8_conv": 20, "depthwise_int8": 0}
+                "int8_conv": 20, "depthwise_int8": 0, "resize_bilinear": 2}
 # The GAN's float32 tail after tanh against the committed JAX output,
 # absolute: XLA's space-to-depth route and cuDNN sum the 7x7 conv in other
 # orders. Measured 5.8e-6 on the CPU (tests/test_torch_gan_fixture.py, the
@@ -983,7 +994,7 @@ def serve_trained(state, dev):
         torch.cuda.synchronize()
         counts[fuse] = ops.launch_counts()
     want = {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-            "int8_conv": 0, "depthwise_int8": 0}
+            "int8_conv": 0, "depthwise_int8": 0, "resize_bilinear": 0}
     if counts[True] != want:
         raise AssertionError(f"trained model, fused: launches {counts[True]} != {want}")
     lg = logits[True]
@@ -1690,7 +1701,7 @@ def serve_mobilenets(dev):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0, "depthwise_int8": n_dw}
+                  "int8_conv": 0, "depthwise_int8": n_dw, "resize_bilinear": 0}
         if counts != expect:
             raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
         v3 = "v3" in name
@@ -1770,7 +1781,7 @@ def trainer_path(dev, run_cfg, root, what="mobilenet"):
     probe.prepare_int8("cpu", IMAGE)
     n_mm, n_conv = len(matmul_convs(probe)), len(dense_convs(probe))
     zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
-            "depthwise_int8": 0}
+            "depthwise_int8": 0, "resize_bilinear": 0}
     expect = {("train", FP32): zero,
               ("train", QAT): {**zero, "fake_quant_observe": n_sites},
               ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
@@ -1936,9 +1947,11 @@ PHASE16_DIR = os.path.join(ROOT, "build", "phase16")
 # non-strided 3x3s on the dense conv kernel; the stem, the strided 3x3s, the
 # 1x1s and the downsamples on the matmul kernel
 RESNET_LAUNCHES = {"qresnet18": {"int8_matmul_requant": 7, "frost_block_int8": 0,
-                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0},
+                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0,
+                                 "resize_bilinear": 0},
                    "qresnet50": {"int8_matmul_requant": 40, "frost_block_int8": 0,
-                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0}}
+                                 "fake_quant_observe": 0, "int8_conv": 13, "depthwise_int8": 0,
+                                 "resize_bilinear": 0}}
 RESNET_SITES = {"qresnet18": 51, "qresnet50": 125}
 RESNET_KERNELS = {"int8_conv": "conv3x3_s1_int8", "int8_matmul_requant": "int8_matmul_requant"}
 # ResNeXt-101 32x8d's grouped 3x3s, one per stage: (H in, width, stride)
@@ -2353,7 +2366,7 @@ def serve_segs(dev):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0, "depthwise_int8": n_dw}
+                  "int8_conv": 0, "depthwise_int8": n_dw, "resize_bilinear": resize_sites(model)}
         if counts != expect:
             raise AssertionError(f"{name}: launches per forward {counts} != {expect}")
         layers, moved, images_moved = check_seg_layers(name, codes, ref, se_layers(model))
@@ -2527,12 +2540,14 @@ def seg_trainer_path(dev):
     probe.prepare_int8("cpu")
     n_mm = len(matmul_convs(probe))
     zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
-            "depthwise_int8": 0}
-    expect = {("train", FP32): zero,
-              ("train", QAT): {**zero, "fake_quant_observe": n_sites},
-              ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
+            "depthwise_int8": 0, "resize_bilinear": 0}
+    rz = {**zero, "resize_bilinear": resize_sites(probe)}
+    expect = {("train", FP32): rz,
+              ("train", QAT): {**rz, "fake_quant_observe": n_sites},
+              ("eval", QAT_FROZEN): {**rz, "fake_quant_observe": n_sites},
               ("eval", INT8): {**zero, "int8_matmul_requant": n_mm,
-                               "depthwise_int8": len(depthwise_convs(probe))}}
+                               "depthwise_int8": len(depthwise_convs(probe)),
+                               "resize_bilinear": resize_sites(probe)}}
     names = ("make_seg_train_step", "make_seg_eval_step")
     rep = {}
     torch.cuda.reset_peak_memory_stats()
@@ -3026,7 +3041,8 @@ def serve_dets(dev):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         expect = {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                  "int8_conv": 0, "depthwise_int8": n_dw}
+                  "int8_conv": 0, "depthwise_int8": n_dw,
+                  "resize_bilinear": resize_sites(pred.feat)}
         if counts != expect:
             raise AssertionError(f"{net}: launches per forward {counts} != {expect}")
         layers = check_det_layers(net, codes, sources, ref)
@@ -3159,7 +3175,7 @@ def det_trainer_path(dev):
     probe = det_train.build_net("qssd", DET_CLASSES)[0]
     n_sites = observers(probe)
     zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
-            "depthwise_int8": 0}
+            "depthwise_int8": 0, "resize_bilinear": 0}
     expect = {("train", FP32): zero, ("train", QAT): {**zero, "fake_quant_observe": n_sites}}
     names = ("make_det_train_step", "make_det_eval_step")
     rep = {}
@@ -3976,7 +3992,28 @@ def route_counts(model):
     return {"int8_matmul_requant": sum(m._route in ("matmul", "im2col") for m in convs),
             "frost_block_int8": 0, "fake_quant_observe": 0,
             "int8_conv": sum(m._route == "dense3x3" for m in convs),
-            "depthwise_int8": sum(m._route == "depthwise" for m in convs)}
+            "depthwise_int8": sum(m._route == "depthwise" for m in convs),
+            "resize_bilinear": resize_sites(model)}
+
+
+def resize_sites(model) -> int:
+    """The resizes of one forward of ``model`` on the card, one launch each
+    with or without a gradient (``ops/resize.py``): a MobileNet segmenter's
+    LR-ASPP gate and head and its tail, the pooled ASPP branch and the
+    R-ASPP head's c4 to c1, the GAN generator's two 2x upsamplings,
+    Tiny-DSOD's five ``requant_up`` joins, each stage of a PSP module,
+    ESPNetv2's three ``_up`` steps and its tail, ESPNet's two and its tail.
+    The modules that call ``ops.resize`` are these alone."""
+    from frostnet_tpu_torch.detection.tdsod import TDSODFeat
+    from frostnet_tpu_torch.gan.networks import ResnetGenerator
+    from frostnet_tpu_torch.segmentation.espnet import ESPNetSeg, ESPNetv2Seg, PSPModule
+    from frostnet_tpu_torch.segmentation.heads import ASPPPooling, LRASPP, LRASPPHead, RASPPHead
+    from frostnet_tpu_torch.segmentation.models import _SegModel
+
+    per = ((LRASPP, 1), (LRASPPHead, 1), (ASPPPooling, 1), (RASPPHead, 1), (_SegModel, 1),
+           (ResnetGenerator, 2), (TDSODFeat, 5), (ESPNetv2Seg, 4), (ESPNetSeg, 3))
+    return sum(n for m in model.modules() for cls, n in per if isinstance(m, cls)) + \
+        sum(len(m.stages) for m in model.modules() if isinstance(m, PSPModule))
 
 
 def serve_zoo_classifiers(dev):
@@ -4306,13 +4343,15 @@ def zoo_seg_trainer_path(dev):
     probe.prepare_int8("cpu")
     n_int8 = route_counts(probe)
     zero = {"fake_quant_observe": 0, "int8_matmul_requant": 0, "int8_conv": 0,
-            "depthwise_int8": 0}
-    expect = {("train", FP32): zero,
-              ("train", QAT): {**zero, "fake_quant_observe": n_sites},
-              ("eval", QAT_FROZEN): {**zero, "fake_quant_observe": n_sites},
+            "depthwise_int8": 0, "resize_bilinear": 0}
+    rz = {**zero, "resize_bilinear": n_int8["resize_bilinear"]}
+    expect = {("train", FP32): rz,
+              ("train", QAT): {**rz, "fake_quant_observe": n_sites},
+              ("eval", QAT_FROZEN): {**rz, "fake_quant_observe": n_sites},
               ("eval", INT8): {**zero, "int8_matmul_requant": n_int8["int8_matmul_requant"],
                                "int8_conv": n_int8["int8_conv"],
-                               "depthwise_int8": n_int8["depthwise_int8"]}}
+                               "depthwise_int8": n_int8["depthwise_int8"],
+                               "resize_bilinear": n_int8["resize_bilinear"]}}
     names = ("make_seg_train_step", "make_seg_eval_step")
     rep = {}
     with StepCounter(seg_train, *names) as counter:
@@ -4389,16 +4428,19 @@ LATENCY_MODELS = ("qmobilenet_v2_ReLU", MODEL)
 class plain_kernels:
     """Within the block, the INT8 graph's kernel calls go to their plain
     versions: the comparison path, on the card as on the CPU (the modules
-    look the wrappers up by name when they run)."""
+    look the wrappers up by name when they run; every resize goes through
+    ``ops.resize``)."""
 
     def __enter__(self):
         import frostnet_tpu_torch.models.frostnet as frostnet_mod
         import frostnet_tpu_torch.nn.conv as conv_mod
+        import frostnet_tpu_torch.ops.resize as resize_mod
 
         self.saved = [(conv_mod, "int8_matmul_requant", int8_matmul_requant_plain),
                       (conv_mod, "conv3x3_s1_int8", conv3x3_s1_int8_plain),
                       (conv_mod, "depthwise_int8", depthwise_int8_plain),
-                      (frostnet_mod, "frost_block_int8", frost_block_int8_plain)]
+                      (frostnet_mod, "frost_block_int8", frost_block_int8_plain),
+                      (resize_mod, "resize_bilinear", resize_bilinear_plain)]
         self.saved = [(mod, name, getattr(mod, name), plain) for mod, name, plain in self.saved]
         for mod, name, _, plain in self.saved:
             setattr(mod, name, plain)
@@ -4450,7 +4492,8 @@ def serve_seg_phase(dev):
     pred = serve.seg_predictor(name, artifact, SEG_CLASSES, h, dev)
     n_mm, n_dw = len(matmul_convs(pred.model)), len(depthwise_convs(pred.model))
     if launches != {"int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-                    "int8_conv": 0, "depthwise_int8": n_dw}:
+                    "int8_conv": 0, "depthwise_int8": n_dw,
+                    "resize_bilinear": resize_sites(pred.model)}:
         raise AssertionError(f"seg serving: launches a forward {launches}, {n_mm} matmuls and "
                              f"{n_dw} depthwise convs expected")
     x = torch.as_tensor(np.random.RandomState(21).randn(b, h, w, 3).astype(np.float32),
@@ -4493,9 +4536,9 @@ def program_phase(dev):
 
     out, launches = {}, {}
     expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-                     "int8_conv": 0, "depthwise_int8": 0},
+                     "int8_conv": 0, "depthwise_int8": 0, "resize_bilinear": 0},
               False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
-                      "int8_conv": 0, "depthwise_int8": 18}}
+                      "int8_conv": 0, "depthwise_int8": 18, "resize_bilinear": 0}}
     for fuse in (True, False):
         what = "fused" if fuse else "unfused"
         pred = Int8Predictor(MODEL, artifact=ARTIFACT, image_size=IMAGE, fuse_int8=fuse,
@@ -4571,7 +4614,8 @@ def dilated_phase(dev):
         expect = {"frost_block_int8": len(model.block_specs(size)),
                   "int8_matmul_requant": 1 + sum(blk.has_squeeze + blk.has_expand + 1
                                                  for blk in dilated),
-                  "fake_quant_observe": 0, "int8_conv": 0, "depthwise_int8": len(dilated)}
+                  "fake_quant_observe": 0, "int8_conv": 0, "depthwise_int8": len(dilated),
+                  "resize_bilinear": 0}
         x = torch.as_tensor(np.random.RandomState(os_ + size).randn(b, size, size, 3)
                             .astype(np.float32), device=dev)
         ops.reset_launch_counts()
@@ -4684,7 +4728,7 @@ DP_STEPS = ("FP32", "QAT", "QAT")
 DP_TIMEOUT = 150  # seconds the ranks may take, their start included
 # launches of fused serving at batch 8 on two replicas: 18 blocks + 3 matmuls each
 DP_SERVE_LAUNCHES = {"frost_block_int8": 36, "int8_matmul_requant": 6, "fake_quant_observe": 0,
-                     "int8_conv": 0, "depthwise_int8": 0}
+                     "int8_conv": 0, "depthwise_int8": 0, "resize_bilinear": 0}
 
 
 def native_phase(dev):
@@ -5988,6 +6032,21 @@ def depthwise_phase(dev):
     return {"checked": extra, **rep}, err
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the bilinear resize kernel
+# ---------------------------------------------------------------------------
+
+
+def resize_phase(dev):
+    """Phase 25: the resize kernel checked and timed at the segmentation
+    cell's three resizes (``scripts/time_resize_bilinear.py``), beside the
+    plain chain and ``F.interpolate``. Returns (report, max error): the
+    script raises where a bit differs."""
+    from scripts.time_resize_bilinear import run
+
+    return run(dev, log=lambda line: log(f"[time] resize_bilinear {line.strip()}")), 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -6117,9 +6176,9 @@ def main(argv=None):
         log(f"[serve] {what} launches per forward: {counts[fuse]}; codes == JAX reference "
             f"at {len(layers)} layers x {BATCH} images")
     expect = {True: {"frost_block_int8": 18, "int8_matmul_requant": 3, "fake_quant_observe": 0,
-                     "int8_conv": 0, "depthwise_int8": 0},
+                     "int8_conv": 0, "depthwise_int8": 0, "resize_bilinear": 0},
               False: {"frost_block_int8": 0, "int8_matmul_requant": 52, "fake_quant_observe": 0,
-                      "int8_conv": 0, "depthwise_int8": 18}}
+                      "int8_conv": 0, "depthwise_int8": 18, "resize_bilinear": 0}}
     for fuse in (True, False):
         if counts[fuse] != expect[fuse]:
             raise AssertionError(f"launch counts {counts[fuse]} != {expect[fuse]}")
@@ -6320,6 +6379,11 @@ def main(argv=None):
     report["depthwise"], max_err["depthwise_int8"] = depthwise_phase(dev)
     dw = report["depthwise"]["total"]
 
+    # 25. the bilinear resize kernel at the segmentation cell's 3 resizes
+    torch.cuda.empty_cache()
+    report["resize"], max_err["resize_bilinear"] = resize_phase(dev)
+    rz = report["resize"]["total"]
+
     def summary(name, source, replaces, paths, launches):
         """One kernel's entry over the timing rows of its main paths (each
         row at its path's batch) and the launches of one forward of each:
@@ -6359,7 +6423,14 @@ def main(argv=None):
          "max_abs_err": max_err["depthwise_int8"], "ms": dw["device_ms"],
          "plain_ms": dw["plain_ms"], "bound_ms": dw["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "device_ms": dw["graph_all_ms"],
-         "plain_launches": dw["plain_launches"]}]}
+         "plain_launches": dw["plain_launches"]},
+        {"name": "resize_bilinear", "route": "cuda", "source": RESIZE_SOURCE,
+         "replaces": RESIZE_REPLACES,
+         "launches": report["tools"]["seg_serving"]["launches"]["resize_bilinear"],
+         "max_abs_err": max_err["resize_bilinear"], "ms": rz["device_ms"],
+         "plain_ms": rz["plain_ms"], "bound_ms": rz["bound_ms"], "bound_by": "bytes",
+         "library_ms": rz["library_ms"], "device_ms": rz["graph_all_ms"],
+         "plain_launches": rz["plain_launches"]}]}
     for entry in kernels["kernels"]:
         entry["trainer_launches"] = trainer_counts[entry["name"]]
         for key, path_counts in (("mobilenet_launches", mb_counts),

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from ..nn import FP32, QAdd, QCat, QConvBNAct, QuantMode, QuantStub, dequant, max_pool
-from ..ops.resize import resize_bilinear
+from ..ops import resize
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 from .models import ANCHOR_COUNTS, SSDHead
@@ -218,7 +218,7 @@ class TDSODFeat(nn.Module):
         sources = [s[4]]
         u = s[4]
         for i, tgt in enumerate([s[3], s[2], s[1], infeat_3, infeat_1]):
-            y = resize_bilinear(dequant(u), tuple(_shape(tgt)[1:3]), align_corners=False)
+            y = resize.resize_bilinear(dequant(u), tuple(_shape(tgt)[1:3]), align_corners=False)
             if self.quantized:
                 y = getattr(self, f"requant_up{i}")(y, mode)
             y = getattr(self, f"upfeat{i}")(y, mode, train)

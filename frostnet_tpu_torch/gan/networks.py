@@ -41,7 +41,7 @@ from torch import nn
 
 from ..models.frostnet import dropout
 from ..nn import FP32, QAdd, QConvBNAct, QuantMode, QuantStub, dequant
-from ..ops.resize import resize_bilinear
+from ..ops import resize
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 from ..utils.losses import mean_f32
@@ -157,7 +157,7 @@ class ResnetGenerator(nn.Module):
             x = blk(x, mode, train, generator)
         for i, up in enumerate((self.up0, self.up1)):
             xf = dequant(x)
-            xf = resize_bilinear(xf, (2 * xf.shape[1], 2 * xf.shape[2]), align_corners=True)
+            xf = resize.resize_bilinear(xf, (2 * xf.shape[1], 2 * xf.shape[2]), align_corners=True)
             if self.quantized:
                 xf = getattr(self, f"requant_up{i}")(xf, mode)
             x = up(xf, mode, train)

@@ -5,18 +5,19 @@
 * ``fake_quant``: observe and fake-quantize one per-tensor QAT site.
 * ``int8_conv``: dense 3x3 stride-1 INT8 conv with the fused requant epilogue.
 * ``depthwise_int8``: INT8 depthwise conv with the fused requant epilogue.
+* ``resize_bilinear``: bilinear resize with the frozen graph's rounding.
 * ``requant``: the frozen graph's requant arithmetic as plain torch ops.
-* ``resize``: bilinear resize with the frozen graph's rounding (plain torch).
 """
 from .depthwise_int8 import depthwise_int8
 from .fake_quant import fake_quant_observe
 from .frost_block import frost_block_int8
 from .int8_conv import conv3x3_s1_int8
 from .int8_matmul import int8_matmul_requant
+from .resize import resize_bilinear
 
 KERNELS = {"int8_matmul_requant": int8_matmul_requant, "frost_block_int8": frost_block_int8,
            "fake_quant_observe": fake_quant_observe, "int8_conv": conv3x3_s1_int8,
-           "depthwise_int8": depthwise_int8}
+           "depthwise_int8": depthwise_int8, "resize_bilinear": resize_bilinear}
 
 
 def reset_launch_counts() -> None:

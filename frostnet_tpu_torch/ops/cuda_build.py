@@ -10,9 +10,9 @@ Numerics flags: ``-fmad=false`` so nvcc contracts no multiply-add on its own
 (the kernels write ``__fmaf_rn`` where the reference fuses), and no fast-math
 (IEEE division and square root).
 
-The INT8 kernels are also ``torch.library`` ops, so that ``torch.export``
-traces them: :func:`traced` says when a wrapper must call its op, and
-:func:`fields` gives an operand set as the op takes it.
+The INT8 kernels and the resize are also ``torch.library`` ops, so that
+``torch.export`` traces them: :func:`traced` says when a wrapper must call
+its op, and :func:`fields` gives an operand set as the op takes it.
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "frostnet_tpu_torch"
-SOURCES = ("int8_matmul", "frost_block", "fake_quant", "int8_conv", "depthwise_int8")
+SOURCES = ("int8_matmul", "frost_block", "fake_quant", "int8_conv", "depthwise_int8",
+           "resize_bilinear")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

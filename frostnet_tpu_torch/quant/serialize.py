@@ -5,10 +5,10 @@
 ``torch.export`` on a symbolic batch size (one program serves any batch), or
 at ``batch=N`` for a static-batch program, and saves it (``.pt2``). The
 frozen operands (int8 weights, epilogue constants) are baked into the
-program as constants, and the four INT8 kernels appear as the
-``torch.library`` ops ``frostnet::int8_matmul_requant``,
-``frostnet::frost_block_int8``, ``frostnet::conv3x3_s1_int8`` and
-``frostnet::depthwise_int8``.
+program as constants, and the four INT8 kernels and the bilinear resize
+appear as the ``torch.library`` ops ``frostnet::int8_matmul_requant``,
+``frostnet::frost_block_int8``, ``frostnet::conv3x3_s1_int8``,
+``frostnet::depthwise_int8`` and ``frostnet::resize_bilinear``.
 
 :func:`load_serving` loads a program into a callable from images to logits
 on the device asked for (``torch.export``'s device pass moves it; nothing

@@ -55,7 +55,7 @@ from ..models.frostnet import dropout
 from ..nn import (FP32, QAdd, QCat, QConvBNAct, QuantMode, QuantStub, dequant)
 from ..nn.blocks import spatial_mean
 from ..ops.requant import reciprocal
-from ..ops.resize import resize_bilinear
+from ..ops import resize
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 
@@ -375,7 +375,7 @@ class PSPModule(nn.Module):
         feats, outs = x, [dequant(x)]
         for conv in self.stages:
             feats = avg_pool_3x3_s2(feats)
-            outs.append(resize_bilinear(dequant(conv(feats, mode, train)), (h, w)))
+            outs.append(resize.resize_bilinear(dequant(conv(feats, mode, train)), (h, w)))
         return self.project(_cat(self.quant_cat, outs, mode), mode, train)
 
 
@@ -384,7 +384,7 @@ class _QuantRegionTail(nn.Module):
 
     def _up(self, x, size, stub: Optional[QuantStub], mode: QuantMode):
         """Dequantize, resize (align_corners), requantize on ``stub``'s grid."""
-        y = resize_bilinear(dequant(x), size)
+        y = resize.resize_bilinear(dequant(x), size)
         return stub(y, mode) if stub is not None else y
 
     def _stub(self, qconfig: QConfig) -> Optional[QuantStub]:
@@ -453,7 +453,7 @@ class ESPNetv2Seg(_QuantRegionTail):
         m2u = self._up(m2, _shape(l1)[1:3], self.requant_l2, mode)
         out = self.classifier(dequant(_cat(self.quant_cat3, [l1, m2u], mode)), mode, train)
         h, w = out.shape[1:3]
-        return resize_bilinear(out, (h * 2, w * 2))
+        return resize.resize_bilinear(out, (h * 2, w * 2))
 
 
 class ESPBlock(nn.Module):
@@ -614,7 +614,7 @@ class ESPNetSeg(_QuantRegionTail):
         l2 = self._up(comb, _twice(comb), self.requant_l2, mode)
         comb = self.up_l2(l2, mode, train)
         feat = self.conv(_cat(self.quant_cat_d2, [comb, out0_cat], mode), mode, train)
-        feat = resize_bilinear(dequant(feat), _twice(feat))
+        feat = resize.resize_bilinear(dequant(feat), _twice(feat))
         return self.classifier(feat, mode, train)
 
 

@@ -33,7 +33,7 @@ from ..nn import QCat, QConvBNAct, QHsigmoid, QMul, avg_pool, dequant, global_av
 from ..nn.blocks import SIXTH
 from ..nn.mode import FP32, QuantMode
 from ..nn.quant_ops import mul_scalar
-from ..ops.resize import resize_bilinear
+from ..ops import resize
 from ..quant import QConfig, QNNPACK
 from ..quant.qtensor import QParams, QTensor
 
@@ -72,7 +72,7 @@ class LRASPP(nn.Module):
             feat2 = self.b1_hsig(feat2, mode)
         else:
             feat2 = mul_scalar(torch.clamp(feat2 + 3.0, 0.0, 6.0), SIXTH)
-        feat2 = resize_bilinear(dequant(feat2), size)
+        feat2 = resize.resize_bilinear(dequant(feat2), size)
         if self.quantized:
             return self.quant_mul(feat1, feat2, mode)
         return feat1 * feat2
@@ -93,7 +93,7 @@ class LRASPPHead(nn.Module):
 
     def forward(self, c1, c4, mode: QuantMode = FP32, train: bool = False):
         c4 = self.lr_aspp(c4, mode, train)
-        return c1, resize_bilinear(dequant(c4), _size(c1))
+        return c1, resize.resize_bilinear(dequant(c4), _size(c1))
 
 
 class ASPPPooling(nn.Module):
@@ -111,7 +111,7 @@ class ASPPPooling(nn.Module):
 
     def forward(self, x, mode: QuantMode = FP32, train: bool = False):
         p = self.conv(global_avg_pool(x, keepdims=True), mode, train)
-        return resize_bilinear(dequant(p), _size(x))
+        return resize.resize_bilinear(dequant(p), _size(x))
 
 
 class RASPP(nn.Module):
@@ -188,7 +188,7 @@ class RASPPHead(nn.Module):
 
     def forward(self, c1, c4, mode: QuantMode = FP32, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        c4 = resize_bilinear(dequant(self.aspp(c4, mode, train, generator)), _size(c1))
+        c4 = resize.resize_bilinear(dequant(self.aspp(c4, mode, train, generator)), _size(c1))
         c1 = self.auxlayer(c1, mode, train)
         if self.quantized:
             out = self.quant_cat([c1 if mode.int8 else dequant(c1), c4], mode)

@@ -28,7 +28,7 @@ from torch import nn
 from ..models.mobilenetv2 import MobileNetV2
 from ..models.mobilenetv3 import MobileNetV3
 from ..nn import FP32, QConvBNAct, QuantMode, QuantStub, dequant
-from ..ops.resize import resize_bilinear
+from ..ops import resize
 from ..quant import QConfig, QNNPACK
 from .heads import LRASPPHead
 
@@ -54,7 +54,7 @@ class _SegModel(nn.Module):
     def _tail(self, c1, c4, size, mode: QuantMode, train: bool):
         c4 = self.project(dequant(c4), mode, train)
         c1 = self.auxlayer(dequant(c1), mode, train)
-        return resize_bilinear(c1 + c4, size)
+        return resize.resize_bilinear(c1 + c4, size)
 
 
 class MobileNetV3Seg(_SegModel):

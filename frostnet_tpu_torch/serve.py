@@ -296,8 +296,8 @@ class DetPredictor:
         from_jax_variables((self.feat, self.head),
                            (load_int8(base + "_feat.npz"), load_int8(base + "_head.npz")))
         model = Detector(self.feat, self.head)
-        if net_type == "qssd":  # Tiny-DSOD's upsampling copies index tables from the host
-            model = _Replayed(model)  # (ops/resize.py) at each call: no capture holds that
+        if net_type == "qssd":  # Tiny-DSOD's forward is not captured yet (its resize
+            model = _Replayed(model)  # joins are capture-safe since the resize kernel)
         self._apply = _frozen_replicas(model, self.devices, self.image_size)
         on = [torch.as_tensor(make_priors(det_cfg)).to(d) for d in self.devices]
         self._priors = {p.device: p for p in on}  # keyed as the outputs name their device

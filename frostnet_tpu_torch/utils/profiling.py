@@ -29,8 +29,8 @@ own and of no unit that the benchmark counts):
   ``serve.DetPredictor``: the softmax and ``detection/nms.py::detect``,
   inside it ``det.decode`` and ``det.nms``, the latter with CUDA events);
 * ``ops.fake_quant``, ``ops.int8_matmul``, ``ops.frost_block``,
-  ``ops.int8_conv`` and ``ops.depthwise``: the whole call of each kernel
-  wrapper.
+  ``ops.int8_conv``, ``ops.depthwise`` and ``ops.resize``: the whole call of
+  each kernel wrapper (``ops.resize`` where it launches its kernel).
 
 The JAX package's ``FROSTNET_COMPILE_ONLY`` prewarm has no counterpart:
 nothing here compiles.

@@ -141,7 +141,7 @@ def test_mobilenet_predictor_launches(cuda_device, name, tmp_path):
     torch.cuda.synchronize()
     assert n_dw > 0 and ops.launch_counts() == {
         "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-        "int8_conv": 0, "depthwise_int8": n_dw}
+        "int8_conv": 0, "depthwise_int8": n_dw, "resize_bilinear": 0}
     for k in ref.files:
         if k.startswith("sha256/"):
             assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
@@ -336,7 +336,7 @@ def test_gan_predictor_launches(cuda_device):
         torch.backends.cudnn.allow_tf32 = prev
     assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 0,
                                    "fake_quant_observe": 0, "int8_conv": 20,
-                                   "depthwise_int8": 0}
+                                   "depthwise_int8": 0, "resize_bilinear": 2}
     assert out.shape == (4, 256, 256, 3) and bool(torch.isfinite(out).all())
     want = ref["output"]
     assert float(np.abs(out[:len(want)].cpu().numpy() - want).max()) <= GAN_TAIL_BAND
@@ -358,7 +358,8 @@ def test_resnet_predictor_launches(cuda_device, name, tmp_path):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"int8_matmul_requant": 7 if name == "qresnet18" else 40,
                                    "frost_block_int8": 0, "fake_quant_observe": 0,
-                                   "int8_conv": 13, "depthwise_int8": 0}
+                                   "int8_conv": 13, "depthwise_int8": 0,
+                                   "resize_bilinear": 0}
     for k in ref.files:
         if k.startswith("sha256/"):
             assert code_digests(codes[k[7:]]) == list(ref[k][:2]), k
@@ -432,7 +433,7 @@ def test_fake_quant_kernel_seg_largest_sites(cuda_device, shape):
 def test_seg_fixture_served_on_the_card(cuda_device, name, tmp_path):
     """The full-width segmentation fixture (768x768) served on the card: one
     matmul launch per 1x1 or im2col conv, one depthwise launch per depthwise
-    conv and nothing else; every layer's
+    conv, one resize launch per resize (3) and nothing else; every layer's
     codes equal to the committed JAX digests, the sampled logits and the
     argmax within the bands of ``tests/test_torch_seg_fixture.py`` (first
     image)."""
@@ -451,7 +452,7 @@ def test_seg_fixture_served_on_the_card(cuda_device, name, tmp_path):
     torch.cuda.synchronize()
     assert n_dw > 0 and ops.launch_counts() == {
         "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-        "int8_conv": 0, "depthwise_int8": n_dw}
+        "int8_conv": 0, "depthwise_int8": n_dw, "resize_bilinear": 3}
     check_against_reference(name, model, logits, codes, 1)
 
 
@@ -500,7 +501,8 @@ def test_int8_matmul_kernel_det_shapes(cuda_device, m, k, n):
 def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
     """The full-width detection fixture (300x300) served on the card through
     ``serve.DetPredictor``: one matmul launch per 1x1 or im2col conv, one
-    depthwise launch per depthwise conv and nothing else; every layer's codes and each source equal to the
+    depthwise launch per depthwise conv, one resize launch per Tiny-DSOD join
+    (5; SSD has none) and nothing else; every layer's codes and each source equal to the
     committed JAX digests; loc, conf and the kept boxes within the bands of
     ``tests/test_torch_det_fixture.py`` (first image)."""
     from chip_smoke import (TESTDATA, check_det_layers, det_layer_codes, det_outputs_check,
@@ -518,7 +520,7 @@ def test_det_fixture_served_on_the_card(cuda_device, net, tmp_path):
     torch.cuda.synchronize()
     assert n_dw > 0 and ops.launch_counts() == {
         "int8_matmul_requant": n_mm, "frost_block_int8": 0, "fake_quant_observe": 0,
-        "int8_conv": 0, "depthwise_int8": n_dw}
+        "int8_conv": 0, "depthwise_int8": n_dw, "resize_bilinear": 5 if net == "qtdsod" else 0}
     ref = np.load(f"{TESTDATA}/det_{net}_reference.npz")
     check_det_layers(net, codes, sources, ref)
     det_outputs_check(net, loc, conf, pred.priors, ref)
@@ -578,7 +580,7 @@ def test_serving_program_launches_the_kernels(cuda_device, tmp_path):
         torch.cuda.synchronize()
         assert ops.launch_counts() == {"int8_matmul_requant": 3, "frost_block_int8": 18,
                                        "fake_quant_observe": 0, "int8_conv": 0,
-                                       "depthwise_int8": 0}
+                                       "depthwise_int8": 0, "resize_bilinear": 0}
         assert got.device.type == "cuda" and torch.equal(got, pred(x))
     assert len(frost_block._PLANS) >= 18
     plans = len(frost_block._PLANS)

@@ -41,7 +41,7 @@ def test_port_serves_jax_artifact_bit_exact(tmp_path, name, backend, size):
         np.testing.assert_array_equal(got.numpy(), want)
     assert ops.launch_counts() == {"int8_matmul_requant": 0, "frost_block_int8": 0,
                                    "fake_quant_observe": 0, "int8_conv": 0,
-                                   "depthwise_int8": 0}
+                                   "depthwise_int8": 0, "resize_bilinear": 0}
 
 
 def test_port_serves_calibrated_variables_bit_exact():
